@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_BOUND: set[tuple[str, str]] = set()  # (library, entry point) with argtypes set
 
 
 def nvcc_path() -> str:
@@ -89,15 +90,23 @@ def build(name: str) -> Path:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``signatures`` maps
     each C entry point to its ``argtypes``. Every entry point returns an int
-    (a ``cudaError_t``)."""
-    if name not in _LOADED:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn_name, argtypes in signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _LOADED[name] = lib
-    return _LOADED[name]
+    (a ``cudaError_t``).
+
+    The library is loaded once per process, and every entry point named by
+    any call gets its signature: modules that bind different entry points
+    of one library each get theirs (an entry point without ``argtypes``
+    would pass its pointers as 32-bit ints)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+    for fn_name, argtypes in signatures.items():
+        if (name, fn_name) in _BOUND:
+            continue
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _BOUND.add((name, fn_name))
+    return lib
 
 
 def check(code: int, what: str) -> None:

@@ -1,5 +1,5 @@
 """Feed-forward scene-flow networks: FastFlow3D / DeFlow(++) / SeFlow++
-(port of ``himo_tpu/models/feedforward.py``, inference only).
+(port of ``himo_tpu/models/feedforward.py``).
 
 Public layouts follow the JAX reference: clouds (B, N, 3), pillar images
 (B, H, W, C). The backbone runs NCHW internally because PyTorch's
@@ -19,8 +19,14 @@ place where a plain PyTorch layer would compute something else:
 
 The pillar max-pool (``ops/voxelize.scatter_max``) and the refine head's
 nearest-neighbour passes (``ops/nn``) run hand-written CUDA kernels on the
-GPU. The network has no backward kernels yet: run it under
-``torch.inference_mode()`` (as :func:`frame` and the registry estimator do).
+GPU. The ``soft_gate=True, with_aux=True`` forward of training (refine head
+off) differentiates end to end: the max-pool's and the pillar gather's
+gradients follow the reference's custom VJPs, the latter through the
+scatter-add kernel. Inference runs under ``torch.inference_mode()`` (as
+:func:`frame` and the registry estimator do).
+
+:func:`make_model` and the registry's estimators build the network on the
+GPU unless given ``device="cpu"``, and raise when CUDA is absent.
 """
 
 from __future__ import annotations
@@ -274,8 +280,10 @@ class DeFlowGRUDecoder(nn.Module):
     The GRU is flax's ``GRUCell`` in ``nn.GRUCell``'s parameter layout:
     ``r = sigmoid(W_ir x + b_ir + W_hr h)``, ``z = sigmoid(W_iz x + b_iz +
     W_hz h)``, ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``,
-    ``h' = (1 - z) n + z h`` — ``bias_hh`` is (0, 0, b_hn). With
-    ``gate=True`` the head emits (flow xyz, gate logit)."""
+    ``h' = (1 - z) n + z h`` — ``bias_hh`` is (0, 0, b_hn): its first two
+    thirds are held at 0 in the forward, so they get no gradient and flax's
+    parameter set is what trains. With ``gate=True`` the head emits (flow
+    xyz, gate logit)."""
 
     def __init__(
         self, pillar_dim: int, point_dim: int, hidden: int, iters: int,
@@ -297,7 +305,9 @@ class DeFlowGRUDecoder(nn.Module):
         inp = _linear(self.point_in, point_feat, dt)
         gi = F.linear(inp, self.gru.weight_ih.to(dt), self.gru.bias_ih.to(dt))
         i_r, i_z, i_n = gi.chunk(3, dim=-1)
-        w_hh, b_hh = self.gru.weight_hh.to(dt), self.gru.bias_hh.to(dt)
+        b_hn = self.gru.bias_hh[2 * self.gru.hidden_size :]
+        b_hh = torch.cat([torch.zeros_like(b_hn), torch.zeros_like(b_hn), b_hn])
+        w_hh, b_hh = self.gru.weight_hh.to(dt), b_hh.to(dt)
         for _ in range(self.iters):
             h_r, h_z, h_n = F.linear(h, w_hh, b_hh).chunk(3, dim=-1)
             r = torch.sigmoid(i_r + h_r)
@@ -528,13 +538,27 @@ _PRESETS = {
 _PRIOR_PRESETS = ("seflowpp_trust", "seflowpp_prior")
 
 
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """``device``, or the GPU when it is None; raises when the GPU is asked
+    for and CUDA is absent (nothing falls back to the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to "
+            "run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def make_model(
-    name: str, device: torch.device | str = "cpu", **overrides
+    name: str, device: torch.device | str | None = None, **overrides
 ) -> Tuple[SceneFlowNet, FlowNetConfig]:
-    """Build a preset network on ``device``; overrides may be dataclass
-    values OR dotted keys into nested configs (``pillar.voxel_size=(0.4,
-    0.4)``). Parameters hold PyTorch's default init until
-    :func:`init_params` or ``load_state_dict``."""
+    """Build a preset network on ``device`` (default: the GPU; see
+    :func:`resolve_device`); overrides may be dataclass values OR dotted
+    keys into nested configs (``pillar.voxel_size=(0.4, 0.4)``). Parameters
+    hold PyTorch's default init until :func:`init_params` or
+    ``load_state_dict``."""
     from himo_tpu_torch.utils.config import apply_overrides
 
     if name in _PRIOR_PRESETS:
@@ -546,7 +570,8 @@ def make_model(
     config = FlowNetConfig(**_PRESETS[name])
     if overrides:
         config = apply_overrides(config, overrides)
-    return SceneFlowNet(config).to(device), config
+    model = SceneFlowNet(config)
+    return model.to(resolve_device(device)), config
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -612,19 +637,22 @@ def frame(
 def _feedforward_estimator(name: str):
     """Registry adapter: the estimator closes over a model whose weights come
     from ``params=`` (a state dict) or a torch state-dict file
-    (``checkpoint=``)."""
+    (``checkpoint=``), on ``device`` (default: the GPU)."""
 
     def factory(
         checkpoint: Optional[str] = None, params: Optional[dict] = None,
-        device: torch.device | str = "cpu", **overrides,
+        device: torch.device | str | None = None, **overrides,
     ):
+        if params is None and checkpoint is None:
+            raise ValueError(
+                f"feed-forward estimator {name!r} needs checkpoint= or params="
+            )
         model, config = make_model(name, device=device, **overrides)
         if params is None:
-            if checkpoint is None:
-                raise ValueError(
-                    f"feed-forward estimator {name!r} needs checkpoint= or params="
-                )
-            params = torch.load(checkpoint, map_location=device, weights_only=True)
+            params = torch.load(
+                checkpoint, map_location=next(model.parameters()).device,
+                weights_only=True,
+            )
         model.load_state_dict(params)
         model.eval()
 

@@ -1,18 +1,27 @@
-"""Streaming nearest-neighbour search (port of ``himo_tpu/ops/nn.py``, forward only).
+"""Nearest-neighbour search and the SSL chamfer terms (port of ``himo_tpu/ops/nn.py``).
 
-Padding contract, as in the reference: invalid rows are moved to
-``SENTINEL`` (1e6 m away) before the search, so invalid references simply
-lose every min race and need no mask inside the kernel; results for invalid
-queries are masked afterwards (0 distance, index 0).
+Two families, each with a hand-written CUDA kernel on the GPU:
 
-On the GPU the search runs in a hand-written CUDA kernel (``csrc/nn.cu``)
-that computes ``sum((q - r)^2)`` directly in fp32 and walks references in
-index order (lowest index wins ties). Its plain PyTorch versions sit beside
-it and compute what the reference's CPU path computes,
-``|q|^2 + |r|^2 - 2 q.r`` in fp32, so the CPU port agrees with JAX on the CPU;
-the two forms differ by a few ulps of ``|q|^2 + |r|^2``. The wrappers
-:func:`nn_min_rows` and :func:`nn_argmin_rows` take the plain versions only
-for CPU tensors; a CUDA tensor launches the kernel or raises.
+- The streaming search of the refine head (``csrc/nn.cu``; forward only):
+  :func:`nn_min_rows`, :func:`nn_argmin_rows`. Padding contract, as in the
+  reference: invalid rows are moved to ``SENTINEL`` (1e6 m away) before the
+  search, so invalid references lose every min race and need no mask
+  inside the kernel; results for invalid queries are masked afterwards
+  (0 distance, index 0).
+- The fused masked search of the chamfer loss (``csrc/fused_nn.cu``):
+  :func:`fused_nn` / :func:`fused_nn_idx`, four masked mins from one
+  (query, reference) pair of clouds with additive ``_MASK_BIG`` penalties,
+  behind the differentiable :func:`fused_masked_nn`. Its backward, and
+  :func:`take_rows`' backward, scatter-add rows with :func:`segment_rows_sum`
+  (``csrc/scatter_sum.cu``).
+
+The kernels compute ``sum((q - r)^2)`` directly in fp32 and walk references
+in index order (lowest index wins ties). Their plain PyTorch versions sit
+beside them and compute what the reference's CPU path computes,
+``|q|^2 + |r|^2 - 2 q.r`` in fp32, so the CPU port agrees with JAX on the
+CPU; the two forms differ by a few ulps of ``|q|^2 + |r|^2``. Every wrapper
+takes its plain version only for CPU tensors; a CUDA tensor launches the
+kernel or raises.
 
 Clouds are batched: queries (B, N, >=3), references (B, M, >=3).
 """
@@ -22,8 +31,14 @@ from __future__ import annotations
 import torch
 
 from himo_tpu_torch.kernels import _build
+from himo_tpu_torch.ops.voxelize import (
+    _run_rows_kernel,
+    _scatter_sum_rows_plain,
+    _take_rows_at,
+)
 
 SENTINEL = 1.0e6  # coordinates of padded rows; ~1e12 squared distance
+_MASK_BIG = 1.0e14  # additive penalty; SENTINEL^2 distances are ~1e12
 _PLAIN_CHUNK = 2048  # queries per block of the plain (B, chunk, M) matrix
 
 
@@ -78,7 +93,7 @@ _NN_SIGNATURES = {
 }
 
 
-def _check_kernel_args(q: torch.Tensor, r: torch.Tensor) -> None:
+def _check_clouds(q: torch.Tensor, r: torch.Tensor) -> None:
     if q.dtype != torch.float32 or r.dtype != torch.float32:
         raise TypeError(f"nn kernels take fp32, got {q.dtype} / {r.dtype}")
     if q.dim() != 3 or r.dim() != 3 or q.shape[2] != 3 or r.shape[2] != 3:
@@ -87,8 +102,12 @@ def _check_kernel_args(q: torch.Tensor, r: torch.Tensor) -> None:
         raise ValueError("queries and references differ in batch or device")
     if not (q.is_contiguous() and r.is_contiguous()):
         raise ValueError("nn kernels need contiguous inputs")
+
+
+def _check_kernel_args(q: torch.Tensor, r: torch.Tensor) -> None:
+    _check_clouds(q, r)
     if q.requires_grad or r.requires_grad:
-        raise RuntimeError("nn kernels have no backward yet")
+        raise RuntimeError("nn kernels have no backward")
     if r.shape[1] == 0:
         raise ValueError("nn kernels need at least one reference point")
 
@@ -185,3 +204,278 @@ def nn_distance_sq(
     if query_valid is not None:
         d2 = torch.where(query_valid, d2, torch.zeros_like(d2))
     return d2
+
+
+# ---------------------------------------------------------------------------
+# Row scatter-add (the backward of take_rows and fused_masked_nn).
+
+
+def _segment_rows_sum_plain(
+    vals: torch.Tensor, idx: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Plain version of :func:`segment_rows_sum` (``index_add_``)."""
+    return _scatter_sum_rows_plain(idx, vals, num_segments)
+
+
+def segment_rows_sum(
+    vals: torch.Tensor, idx: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Sum (B, N, C) fp32 rows into (B, num_segments, C) segments at (B, N)
+    int32 ids; ids outside [0, num_segments) are dropped (as
+    ``jax.ops.segment_sum`` drops them). Not differentiable itself: it is
+    the backward of :func:`take_rows` and :func:`fused_masked_nn`.
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/scatter_sum.cu``'s ``himo_segment_sum_f32`` (counted in
+    ``segment_rows_sum.launches``) into a zeroed table, or raise."""
+    if vals.device.type == "cpu":
+        return _segment_rows_sum_plain(vals, idx, num_segments)
+    out = _run_rows_kernel("scatter_sum", "himo_segment_sum_f32", idx, vals,
+                           num_segments, zeroed=True)
+    segment_rows_sum.launches += 1
+    return out
+
+
+segment_rows_sum.launches = 0
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[1]
+        return _take_rows_at(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        dx = segment_rows_sum(
+            g.to(torch.float32).contiguous(),
+            idx.to(torch.int32).contiguous(), ctx.rows,
+        )
+        return dx.to(g.dtype), None
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Differentiable row take ``x[b, idx[b]]`` of (B, N, C) at (B, K) ids
+    in [0, N) -> (B, K, C); its backward is :func:`segment_rows_sum`."""
+    return _TakeRows.apply(x, idx)
+
+
+# ---------------------------------------------------------------------------
+# Fused masked NN: the four chamfer mins of the SSL loss from one pair of
+# clouds. Masks are additive penalties (0 live, _MASK_BIG masked), so one
+# pass serves the all-points and the dynamic-only variants.
+
+
+def _fused_nn_plain(q, r, qa, qd, ra, rd):
+    """Plain version of both fused kernels: (B, N, 3) queries, (B, M, 3)
+    references, penalties qa, qd (B, N) and ra, rd (B, M) ->
+    ``(dq_a, dq_d, dr_a, dr_d, iq_a, iq_d, ir_a, ir_d)``: per query the min
+    of ``d2 + ra`` and ``d2 + rd`` over references, per reference the min
+    of ``d2 + qa`` and ``d2 + qd`` over queries, and their int32 indices.
+
+    ``|q|^2 + |r|^2 - 2 q.r`` in fp32, chunked over queries, as the
+    reference's CPU path (``_fused_xla``) computes it; the lowest index
+    wins ties in both directions (``torch.min`` returns the first minimum,
+    and a later chunk replaces a column min only when strictly smaller)."""
+    b, m = q.shape[0], r.shape[1]
+    row = ([], [], [], [])
+    col_d = [torch.full((b, m), float("inf"), dtype=torch.float32, device=q.device)
+             for _ in range(2)]
+    col_i = [torch.zeros((b, m), dtype=torch.int32, device=q.device) for _ in range(2)]
+    for s in range(0, q.shape[1], _PLAIN_CHUNK):
+        d2 = _d2_plain(q[:, s : s + _PLAIN_CHUNK], r)
+        for k, pen in enumerate((ra, rd)):
+            v, i = (d2 + pen[:, None, :]).min(dim=2)
+            row[k].append(v)
+            row[k + 2].append(i.to(torch.int32))
+        for k, pen in enumerate((qa, qd)):
+            v, i = (d2 + pen[:, s : s + _PLAIN_CHUNK, None]).min(dim=1)
+            better = v < col_d[k]
+            col_d[k] = torch.where(better, v, col_d[k])
+            col_i[k] = torch.where(better, i.to(torch.int32) + s, col_i[k])
+    dq_a, dq_d, iq_a, iq_d = (torch.cat(x, dim=1) for x in row)
+    return dq_a, dq_d, col_d[0], col_d[1], iq_a, iq_d, col_i[0], col_i[1]
+
+
+_FUSED_SIGNATURES = {
+    "himo_fused_nn_f32": (_build.PTR,) * 10 + (_build.INT,) * 3 + (_build.PTR,),
+    "himo_fused_nn_idx_f32": (_build.PTR,) * 14 + (_build.INT,) * 3 + (_build.PTR,),
+}
+
+
+def _run_fused_kernel(entry: str, q, r, penalties, with_idx: bool):
+    """Launch ``csrc/fused_nn.cu``'s ``entry`` on validated inputs; returns
+    the four mins and, ``with_idx``, the four int32 indices."""
+    _check_clouds(q, r)
+    b, n, m = q.shape[0], q.shape[1], r.shape[1]
+    if n == 0 or m == 0:
+        raise ValueError("fused nn kernels need points on both sides")
+    for p, size in zip(penalties, (n, n, m, m)):
+        if p.dtype != torch.float32 or p.shape != (b, size) or not p.is_contiguous():
+            raise ValueError(f"penalty {tuple(p.shape)} {p.dtype}: need contiguous "
+                             f"fp32 ({b}, {size})")
+        if p.device != q.device:
+            raise ValueError("penalties on another device than the clouds")
+    outs = [torch.empty((b, k), dtype=torch.float32, device=q.device)
+            for k in (n, n, m, m)]
+    if with_idx:
+        outs += [torch.empty((b, k), dtype=torch.int32, device=q.device)
+                 for k in (n, n, m, m)]
+    lib = _build.load("fused_nn", _FUSED_SIGNATURES)
+    code = getattr(lib, entry)(
+        q.data_ptr(), r.data_ptr(), *(p.data_ptr() for p in penalties),
+        *(o.data_ptr() for o in outs), b, n, m, _build.stream_handle(q.device),
+    )
+    _build.check(code, entry)
+    return tuple(outs)
+
+
+def fused_nn(q, r, qa, qd, ra, rd):
+    """The four masked mins ``(dq_a, dq_d, dr_a, dr_d)`` of contiguous fp32
+    (B, N, 3) / (B, M, 3) clouds and penalties (see :func:`_fused_nn_plain`).
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/fused_nn.cu``'s ``himo_fused_nn_f32`` (counted in
+    ``fused_nn.launches``) or raise."""
+    if q.device.type == "cpu":
+        return _fused_nn_plain(q, r, qa, qd, ra, rd)[:4]
+    outs = _run_fused_kernel("himo_fused_nn_f32", q, r, (qa, qd, ra, rd), False)
+    fused_nn.launches += 1
+    return outs
+
+
+fused_nn.launches = 0
+
+
+def fused_nn_idx(q, r, qa, qd, ra, rd):
+    """:func:`fused_nn` plus the int32 index of each min
+    ``(dq_a, dq_d, dr_a, dr_d, iq_a, iq_d, ir_a, ir_d)``; the lowest index
+    wins ties.
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/fused_nn.cu``'s ``himo_fused_nn_idx_f32`` (counted in
+    ``fused_nn_idx.launches``) or raise."""
+    if q.device.type == "cpu":
+        return _fused_nn_plain(q, r, qa, qd, ra, rd)
+    outs = _run_fused_kernel("himo_fused_nn_idx_f32", q, r, (qa, qd, ra, rd), True)
+    fused_nn_idx.launches += 1
+    return outs
+
+
+fused_nn_idx.launches = 0
+
+
+def _fused_dispatch(q3, r3, qa, qd, ra, rd, track_idx: bool):
+    """Run the fused mins; distances clamped at >= 0 and, with
+    ``track_idx``, int64 indices clamped at <= (size of the other side) - 1,
+    as the reference does."""
+    q = q3.to(torch.float32).contiguous()
+    r = r3.to(torch.float32).contiguous()
+    pens = tuple(p.to(torch.float32).contiguous() for p in (qa, qd, ra, rd))
+    outs = (fused_nn_idx if track_idx else fused_nn)(q, r, *pens)
+    dists = tuple(torch.clamp(o, min=0.0) for o in outs[:4])
+    if not track_idx:
+        return dists
+    n, m = q.shape[1], r.shape[1]
+    idxs = tuple(
+        torch.clamp(o.to(torch.int64), max=lim - 1)
+        for o, lim in zip(outs[4:], (m, m, n, n))
+    )
+    return dists + idxs
+
+
+class _FusedMaskedNN(torch.autograd.Function):
+    """The reference's ``fused_masked_nn`` custom VJP: the tracking kernel
+    forward, and the analytic gradient at the argmins backward."""
+
+    @staticmethod
+    def forward(ctx, q3, r3, qa, qd, ra, rd):
+        outs = _fused_dispatch(q3, r3, qa, qd, ra, rd, track_idx=True)
+        ctx.save_for_backward(q3, r3, *outs[4:])
+        return outs[:4]
+
+    @staticmethod
+    def backward(ctx, g_qa, g_qd, g_ra, g_rd):
+        q3, r3, iqa, iqd, ira, ird = ctx.saved_tensors
+        n, m = q3.shape[1], r3.shape[1]
+
+        def diffs(gv, src, dst, idx):
+            return 2.0 * gv[..., None] * (src - _take_rows_at(dst, idx))
+
+        dq_a = diffs(g_qa, q3, r3, iqa)
+        dq_d = diffs(g_qd, q3, r3, iqd)
+        dr_a = diffs(g_ra, r3, q3, ira)
+        dr_d = diffs(g_rd, r3, q3, ird)
+        # One scatter per destination: both sources, one segment table.
+        ids_r = torch.cat([iqa, iqd], dim=1).to(torch.int32).contiguous()
+        ids_q = torch.cat([ira, ird], dim=1).to(torch.int32).contiguous()
+        dr_scatter = segment_rows_sum(torch.cat([dq_a, dq_d], dim=1), ids_r, m)
+        dq_scatter = segment_rows_sum(torch.cat([dr_a, dr_d], dim=1), ids_q, n)
+        dq = dq_a + dq_d - dq_scatter
+        dr = dr_a + dr_d - dr_scatter
+        return dq, dr, None, None, None, None
+
+
+def fused_masked_nn(q3, r3, qa, qd, ra, rd):
+    """Four masked NN sweeps over one pair of fp32 clouds.
+
+    Args:
+        q3 / r3: (B, N, 3) / (B, M, 3) clouds.
+        qa / qd: (B, N) additive penalties (0 = live, ``_MASK_BIG`` =
+            masked) on the queries WHEN THEY ACT AS REFERENCES (r -> q).
+        ra / rd: (B, M) penalties on the references (q -> r).
+
+    Returns:
+        (dq_all, dq_dyn, dr_all, dr_dyn) squared NN distances. Rows whose
+        own side is masked are garbage: exclude them in the reduction.
+        Differentiable in q3 / r3 (analytic gradient at the argmin); the
+        tracking kernel runs only when a gradient is needed, the min-only
+        kernel otherwise (as the reference's primal does)."""
+    if torch.is_grad_enabled() and (q3.requires_grad or r3.requires_grad):
+        return _FusedMaskedNN.apply(q3, r3, qa, qd, ra, rd)
+    return _fused_dispatch(q3, r3, qa, qd, ra, rd, track_idx=False)
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-frame mean of (B, N) values over a (B, N) mask -> (B,)."""
+    total = torch.where(mask, values, torch.zeros_like(values)).sum(dim=-1)
+    return total / torch.clamp(mask.to(values.dtype).sum(dim=-1), min=1.0)
+
+
+def fused_chamfer_terms(
+    warped: torch.Tensor,
+    pc1: torch.Tensor,
+    valid0: torch.Tensor,
+    valid1: torch.Tensor,
+    dynamic0: torch.Tensor,
+    dynamic1: torch.Tensor,
+    max_dist: float = 2.0,
+    dynamic_max_dist: float | None = None,
+):
+    """Per frame (B,): (truncated chamfer over all valid points, truncated
+    chamfer over the SSL-dynamic subsets), both from ONE fused NN pass.
+    ``dynamic_max_dist`` widens the dynamic term's truncation radius
+    (default ``max_dist``). The truncation is ``torch.minimum``, whose
+    gradient splits 0.5 / 0.5 at the cap, as ``jnp.minimum``'s does."""
+
+    def to_pen(mask):
+        return torch.where(mask, 0.0, _MASK_BIG).to(torch.float32)
+
+    dq_all, dq_dyn, dr_all, dr_dyn = fused_masked_nn(
+        warped[..., :3], pc1[..., :3], to_pen(valid0), to_pen(valid0 & dynamic0),
+        to_pen(valid1), to_pen(valid1 & dynamic1),
+    )
+    dyn_dist = max_dist if dynamic_max_dist is None else dynamic_max_dist
+
+    def capped(d, dist):
+        return torch.minimum(d, torch.full_like(d, dist * dist))
+
+    chamfer = _masked_mean(capped(dq_all, max_dist), valid0) + _masked_mean(
+        capped(dr_all, max_dist), valid1
+    )
+    dyn = _masked_mean(capped(dq_dyn, dyn_dist), valid0 & dynamic0) + _masked_mean(
+        capped(dr_dyn, dyn_dist), valid1 & dynamic1
+    )
+    return chamfer, dyn

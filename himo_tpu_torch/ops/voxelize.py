@@ -4,11 +4,22 @@ Points are batched ``(B, N, 3)``; pillar ids are flat ``iy * w + ix`` into a
 row-major ``(H, W, C)`` image, with the trash id ``h * w`` for points outside
 the grid or masked out, exactly as the JAX reference computes them.
 
-The per-pillar max goes through a hand-written CUDA kernel
-(``csrc/scatter_max.cu``) on the GPU. Its plain PyTorch version sits beside
-it: :func:`scatter_max_rows` takes the plain version only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises. The gather back to
-points is plain indexing, as the JAX 512x512 forward is a plain take too.
+Two hand-written CUDA kernels run on the GPU: the per-pillar max
+(``csrc/scatter_max.cu``, :func:`scatter_max_rows`) and the row scatter-add
+(``csrc/scatter_sum.cu``, :func:`scatter_sum_rows`). Their plain PyTorch
+versions sit beside them; each wrapper takes its plain version only for
+tensors on the CPU, and for a CUDA tensor launches the kernel or raises.
+
+Gradients follow the JAX package's custom VJPs on the 512x512 path
+(``_diff_scatter_sorted_fn``, ``_diff_gather_sorted_fn``):
+
+- :func:`scatter_max`'s backward takes ``(g, out)`` at each point's pillar
+  in one row take and gives the cotangent to every point whose feature
+  equals the max: each tied winner gets all of it (the TPU rule; XLA's CPU
+  ``segment_max`` would split it). The take is plain indexing, as it is an
+  XLA take in the reference.
+- :func:`gather_pillars`' forward is plain indexing; its backward is the
+  row scatter-add of the fp32 cotangent into the pillar image.
 """
 
 from __future__ import annotations
@@ -103,12 +114,63 @@ def _scatter_max_rows_plain(
     return out + 0.0
 
 
-_SCATTER_SIGNATURES = {
-    "himo_scatter_max_f32": (
-        _build.PTR, _build.PTR, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
-    ),
-}
+def _scatter_sum_rows_plain(
+    ids: torch.Tensor, vals: torch.Tensor, rows: int
+) -> torch.Tensor:
+    """Plain version of the scatter-add kernel: (B, N) ids, (B, N, C) fp32
+    vals -> (B, rows, C) per-row sums (``index_add_`` in index order); rows
+    no point reaches read 0, ids outside [0, rows) are skipped."""
+    b, n, c = vals.shape
+    base = torch.arange(b, device=ids.device, dtype=torch.int64)[:, None] * rows
+    idx = ids.to(torch.int64)
+    live = (idx >= 0) & (idx < rows)
+    flat = torch.where(live, base + idx, torch.full_like(idx, b * rows))
+    out = torch.zeros((b * rows + 1, c), dtype=torch.float32, device=vals.device)
+    out.index_add_(0, flat.reshape(-1), vals.reshape(-1, c).to(torch.float32))
+    return out[: b * rows].reshape(b, rows, c)
+
+
+_ROWS_ARGTYPES = (
+    _build.PTR, _build.PTR, _build.PTR,
+    _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
+)
+
+
+def _check_rows_args(name: str, ids: torch.Tensor, vals: torch.Tensor) -> None:
+    """Raise unless (B, N) int32 ids and (B, N, C) fp32 values are what the
+    row kernels take: contiguous, on one device."""
+    if vals.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError(
+            f"{name} kernel takes fp32 values and int32 ids, got "
+            f"{vals.dtype} and {ids.dtype}"
+        )
+    if not (vals.is_contiguous() and ids.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous inputs")
+    if vals.dim() != 3 or ids.shape != vals.shape[:2]:
+        raise ValueError(f"shapes {tuple(ids.shape)} / {tuple(vals.shape)}")
+    if ids.device != vals.device:
+        raise ValueError("ids and values on different devices")
+
+
+def _run_rows_kernel(
+    library: str, entry: str, ids: torch.Tensor, vals: torch.Tensor, rows: int,
+    zeroed: bool,
+) -> torch.Tensor:
+    """Launch a row kernel ``entry(ids, vals, out, B, N, C, rows, stream)``
+    of ``csrc/<library>.cu`` into a new (B, rows, C) fp32 table (zeroed
+    first when ``zeroed``); raises on inputs it does not take and on a CUDA
+    error."""
+    _check_rows_args(entry, ids, vals)
+    b, n, c = vals.shape
+    alloc = torch.zeros if zeroed else torch.empty
+    out = alloc((b, rows, c), dtype=torch.float32, device=vals.device)
+    lib = _build.load(library, {entry: _ROWS_ARGTYPES})
+    code = getattr(lib, entry)(
+        ids.data_ptr(), vals.data_ptr(), out.data_ptr(), b, n, c, rows,
+        _build.stream_handle(vals.device),
+    )
+    _build.check(code, entry)
+    return out
 
 
 def scatter_max_rows(
@@ -116,51 +178,100 @@ def scatter_max_rows(
 ) -> torch.Tensor:
     """Per-row max of (B, N, C) fp32 features at (B, N) int32 row ids into a
     (B, rows, C) image; rows no point reaches read 0, ids >= rows are
-    skipped.
+    skipped. Not differentiable itself: :func:`scatter_max` carries the
+    gradient.
 
     CPU tensors take the plain PyTorch version. CUDA tensors launch
     ``csrc/scatter_max.cu`` (counted in ``scatter_max_rows.launches``) or
-    raise: the kernel takes contiguous fp32 features and int32 ids, and has
-    no backward yet, so inputs that require grad raise too."""
+    raise: the kernel takes contiguous fp32 features and int32 ids."""
     if feats.device.type == "cpu":
         return _scatter_max_rows_plain(pids, feats, rows)
-    if feats.dtype != torch.float32 or pids.dtype != torch.int32:
-        raise TypeError(
-            f"scatter_max_rows kernel takes fp32 feats and int32 pids, got "
-            f"{feats.dtype} and {pids.dtype}"
-        )
-    if not (feats.is_contiguous() and pids.is_contiguous()):
-        raise ValueError("scatter_max_rows kernel needs contiguous inputs")
-    if feats.requires_grad:
-        raise RuntimeError("scatter_max_rows kernel has no backward yet")
-    if feats.dim() != 3 or pids.shape != feats.shape[:2]:
-        raise ValueError(f"shapes {tuple(pids.shape)} / {tuple(feats.shape)}")
-    if pids.device != feats.device:
-        raise ValueError("pids and feats on different devices")
-    b, n, c = feats.shape
-    out = torch.empty((b, rows, c), dtype=torch.float32, device=feats.device)
-    lib = _build.load("scatter_max", _SCATTER_SIGNATURES)
-    code = lib.himo_scatter_max_f32(
-        pids.data_ptr(), feats.data_ptr(), out.data_ptr(), b, n, c, rows,
-        _build.stream_handle(feats.device),
-    )
+    out = _run_rows_kernel("scatter_max", "himo_scatter_max_f32", pids, feats, rows,
+                           zeroed=False)
     scatter_max_rows.launches += 1
-    _build.check(code, "scatter_max kernel")
     return out
 
 
 scatter_max_rows.launches = 0
 
 
+def scatter_sum_rows(
+    pids: torch.Tensor, feats: torch.Tensor, rows: int
+) -> torch.Tensor:
+    """Per-row sum of (B, N, C) fp32 values at (B, N) int32 row ids into a
+    (B, rows, C) table; rows no point reaches read 0, ids outside [0, rows)
+    are skipped. The order of the additions is not fixed on the GPU.
+
+    CPU tensors take the plain version (``index_add_``). CUDA tensors launch
+    ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32`` (counted in
+    ``scatter_sum_rows.launches``) into a zeroed table, or raise."""
+    if feats.device.type == "cpu":
+        return _scatter_sum_rows_plain(pids, feats, rows)
+    out = _run_rows_kernel("scatter_sum", "himo_scatter_sum_f32", pids, feats, rows,
+                           zeroed=True)
+    scatter_sum_rows.launches += 1
+    return out
+
+
+scatter_sum_rows.launches = 0
+
+
+def _take_rows_at(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, R, C) table, (B, N) ids in [0, R) -> (B, N, C) rows."""
+    idx = ids.to(torch.int64)[..., None].expand(-1, -1, table.shape[-1])
+    return torch.gather(table, 1, idx)
+
+
+class _ScatterMax(torch.autograd.Function):
+    """Per-row max with the TPU custom VJP: every tied winner gets the whole
+    cotangent of its (row, channel)."""
+
+    @staticmethod
+    def forward(ctx, pids, feats, rows):
+        out = scatter_max_rows(pids, feats, rows)
+        ctx.save_for_backward(pids, feats, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pids, feats, out = ctx.saved_tensors
+        rows, c = out.shape[1], out.shape[2]
+        # One row take of (g, out) together, as the reference does.
+        safe = torch.clamp(pids.to(torch.int64), max=rows - 1)
+        both = _take_rows_at(torch.cat([g, out], dim=-1), safe)
+        winner = (feats == both[..., c:]) & (pids < rows)[..., None]
+        return None, torch.where(winner, both[..., :c], torch.zeros_like(feats)), None
+
+
+class _GatherPillars(torch.autograd.Function):
+    """Row take from the pillar image whose backward is the row scatter-add
+    (pids >= rows read row ``rows - 1`` and send nothing back; the caller
+    zeroes their outputs)."""
+
+    @staticmethod
+    def forward(ctx, flat, pids):
+        rows = flat.shape[1]
+        ctx.save_for_backward(pids)
+        ctx.rows = rows
+        return _take_rows_at(flat, torch.clamp(pids.to(torch.int64), max=rows - 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        (pids,) = ctx.saved_tensors
+        dflat = scatter_sum_rows(pids, g.to(torch.float32).contiguous(), ctx.rows)
+        return dflat.to(g.dtype), None
+
+
 def scatter_max(features: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
     """Per-pillar max of (B, N, C) point features -> (B, H, W, C) image.
 
     Empty pillars come out as 0. Lower precisions are scattered in fp32 and
-    cast back (exact: a max of bf16 values is a bf16 value)."""
+    cast back (exact: a max of bf16 values is a bf16 value). Differentiable
+    in ``features`` (see the module docstring)."""
     h, w = grid.grid_shape
     feats = features.to(torch.float32).contiguous()
     pids = grid.pillar_ids.to(torch.int32).contiguous()
-    out = scatter_max_rows(pids, feats, h * w)
+    out = _ScatterMax.apply(pids, feats, h * w)
     return out.reshape(features.shape[0], h, w, -1).to(features.dtype)
 
 
@@ -177,11 +288,11 @@ def scatter_max_multi(
 
 def gather_pillars(image: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
     """Gather each point's pillar feature from a (B, H, W, C) image ->
-    (B, N, C). Out-of-range points get zeros."""
+    (B, N, C). Out-of-range points get zeros. Differentiable in ``image``:
+    the backward scatter-adds the cotangent in fp32 and casts it back to
+    the image's dtype, as the reference's fp32 gather does."""
     h, w = grid.grid_shape
-    b = image.shape[0]
-    flat = image.reshape(b, h * w, -1)
-    safe = torch.clamp(grid.pillar_ids.to(torch.int64), max=h * w - 1)
-    batch = torch.arange(b, device=image.device)[:, None]
-    out = flat[batch, safe]
+    flat = image.reshape(image.shape[0], h * w, -1)
+    pids = grid.pillar_ids.to(torch.int32).contiguous()
+    out = _GatherPillars.apply(flat, pids)
     return torch.where(grid.in_range[..., None], out, torch.zeros_like(out))

@@ -155,9 +155,10 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'himo_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'himo_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 12, names\n"
+        "for name in ('core.transforms', 'training.losses', 'training.trainer'):\n"
+        "    assert 'himo_tpu_torch.' + name in names, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(
@@ -165,7 +166,7 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12
+    assert int(proc.stdout.strip()) >= 16
 
 
 def test_build_library_name_tracks_source_content(tmp_path, monkeypatch):
@@ -183,3 +184,31 @@ def test_build_library_name_tracks_source_content(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         _build.check(9, "k")
     _build.check(0, "k")
+
+
+def test_build_load_binds_every_callers_signatures(tmp_path, monkeypatch):
+    """Two modules bind different entry points of one library: the library
+    is opened once, and each call's argtypes are set (an entry point left
+    without them would pass its pointers as 32-bit ints)."""
+    import ctypes
+
+    from himo_tpu_torch.kernels import _build
+
+    opened = []
+
+    class FakeLib:
+        def __init__(self, path):
+            opened.append(path)
+            self.a = type("Fn", (), {})()
+            self.b = type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "_BOUND", set())
+    monkeypatch.setattr(_build, "build", lambda name: tmp_path / f"{name}.so")
+    monkeypatch.setattr(ctypes, "CDLL", FakeLib)
+    first = _build.load("k", {"a": (_build.PTR, _build.INT)})
+    second = _build.load("k", {"b": (_build.PTR, _build.PTR, _build.INT)})
+    assert first is second and len(opened) == 1
+    assert first.a.argtypes == [_build.PTR, _build.INT]
+    assert first.b.argtypes == [_build.PTR, _build.PTR, _build.INT]
+    assert first.a.restype is first.b.restype is ctypes.c_int

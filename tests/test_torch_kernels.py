@@ -8,11 +8,14 @@ This file imports no JAX, so it also runs on the GPU host, which has none:
 marked ``cuda`` need a card and skip without one; the others check the
 plain versions and the wrappers' CPU behaviour against numpy loops.
 
-Tolerances: scatter-max bitwise (max does not depend on order); NN squared
-distances within ``1e-5 * (|q|^2 + |r|^2) + 1e-6`` (the kernel computes
-``sum((q - r)^2)``, the plain version ``|q|^2 + |r|^2 - 2 q.r``), the
-kernel's argmin at a distance equal to the plain min within the same bound,
-and exact duplicates resolved to the lowest index."""
+Tolerances: scatter-max bitwise (max does not depend on order);
+scatter-add (``scatter_sum_rows``, ``segment_rows_sum``) within
+``1e-5 * sum|x| + 1e-6`` per cell (fp32 atomics add in no fixed order);
+NN squared distances, plain and fused, within ``1e-5 * (|q|^2 + |r|^2) +
+1e-6`` (the kernels compute ``sum((q - r)^2)``, the plain versions
+``|q|^2 + |r|^2 - 2 q.r``), the kernel's argmin at a distance equal to the
+plain min within the same bound, and exact duplicates resolved to the
+lowest index."""
 
 import numpy as np
 import pytest
@@ -100,8 +103,10 @@ def test_scatter_max_kernel_bitwise_equals_plain(cuda_device):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     with pytest.raises(TypeError):
         PV.scatter_max_rows(p, f.double(), rows)
-    with pytest.raises(RuntimeError):
-        PV.scatter_max_rows(p, f.clone().requires_grad_(), rows)
+    # The kernel serves scatter_max's autograd forward: grad inputs pass,
+    # and the raw kernel output carries no graph.
+    out = PV.scatter_max_rows(p, f.clone().requires_grad_(), rows)
+    assert not out.requires_grad and torch.equal(out, got)
 
 
 @pytest.mark.cuda
@@ -144,3 +149,124 @@ def test_nn_kernels_match_plain(cuda_device, n, m):
     assert (i[0, :5].cpu().numpy() == np.arange(5)).all()
     with pytest.raises(RuntimeError):
         PNN.nn_min_rows(qs.clone().requires_grad_(), rs)
+
+
+def _sum_case(rng, b, n, c, rows):
+    ids = rng.integers(0, rows, size=(b, n)).astype(np.int32)
+    ids[rng.uniform(size=(b, n)) < 0.08] = rows  # skipped
+    ids[:, :50] = 3  # many points onto one row
+    vals = rng.normal(size=(b, n, c)).astype(np.float32)
+    vals[:, ::7, : c // 2] = 0.0  # zero cotangents, skipped by the kernel
+    return ids, vals
+
+
+def _sum_loop(ids, vals, rows):
+    b, n, c = vals.shape
+    out = np.zeros((b, rows, c), np.float64)
+    mag = np.zeros((b, rows, c), np.float64)
+    for bi in range(b):
+        for i in range(n):
+            if 0 <= ids[bi, i] < rows:
+                out[bi, ids[bi, i]] += vals[bi, i]
+                mag[bi, ids[bi, i]] += np.abs(vals[bi, i])
+    return out, mag
+
+
+def test_scatter_sum_plain_versions_match_numpy_loop():
+    rng = np.random.default_rng(2)
+    for c in (65, 3):
+        ids, vals = _sum_case(rng, 2, 1500, c, 300)
+        want, mag = _sum_loop(ids, vals, 300)
+        tol = 1e-5 * mag + 1e-6
+        before = (PV.scatter_sum_rows.launches, PNN.segment_rows_sum.launches)
+        for got in (PV.scatter_sum_rows(_t(ids), _t(vals), 300),
+                    PNN.segment_rows_sum(_t(vals), _t(ids), 300)):
+            assert got.shape == (2, 300, c) and got.dtype == torch.float32
+            assert (np.abs(got.numpy() - want) <= tol).all()
+        assert (PV.scatter_sum_rows.launches, PNN.segment_rows_sum.launches) == before
+
+
+def _fused_case(rng, n, m, scale):
+    q, r, qv, rv = _nn_case(rng, n, m, scale)
+    q[n - 5 :] = q[:5]  # duplicate queries: column-side ties
+    qv[n - 5 :] = True
+    qd = qv & (rng.uniform(size=n) > 0.5)
+    rd = rv & (rng.uniform(size=m) > 0.5)
+    rd[:10] = rd[m // 2 : m // 2 + 10] = True
+    qd[:5] = qd[n - 5 :] = True
+    pen = [np.where(x, 0.0, 1e14).astype(np.float32) for x in (qv, qd, rv, rd)]
+    return q, r, pen
+
+
+def test_fused_nn_plain_matches_brute_force():
+    rng = np.random.default_rng(3)
+    n, m = 300, 257
+    q, r, pen = _fused_case(rng, n, m, 10.0)
+    outs = PNN.fused_nn_idx(_t(q)[None], _t(r)[None], *(_t(p)[None] for p in pen))
+    full = ((q[:, None].astype(np.float64) - r[None]) ** 2).sum(-1)
+    tol_q = 1e-5 * ((q * q).sum(-1) + (r * r).sum(-1).max()) + 1e-6
+    tol_r = 1e-5 * ((r * r).sum(-1) + (q * q).sum(-1).max()) + 1e-6
+    for k, (mat, pens, tol) in enumerate(((full, pen[2], tol_q), (full, pen[3], tol_q),
+                                          (full.T, pen[0], tol_r), (full.T, pen[1], tol_r))):
+        live = pens == 0
+        best = np.where(live[None], mat, np.inf).min(1)
+        d, i = outs[k][0].numpy(), outs[k + 4][0].numpy()
+        assert (np.abs(d - best) <= tol).all()
+        assert live[i].all()  # a masked point never wins
+        assert (np.abs(mat[np.arange(len(i)), i] - best) <= tol).all()
+    assert (outs[4][0, :5].numpy() == np.arange(5)).all()
+    assert (outs[6][0, :5].numpy() == np.arange(5)).all()
+    mins = PNN.fused_nn(_t(q)[None], _t(r)[None], *(_t(p)[None] for p in pen))
+    assert all(torch.equal(a, b) for a, b in zip(mins, outs[:4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows", [(65, 128 * 128), (3, 16384), (3, 4096)])
+def test_scatter_sum_kernels_match_plain(cuda_device, c, rows):
+    rng = np.random.default_rng(c + rows)
+    ids, vals = _sum_case(rng, 2, 20000, c, rows)
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    before = (PV.scatter_sum_rows.launches, PNN.segment_rows_sum.launches)
+    got = PV.scatter_sum_rows(i, v, rows)
+    seg = PNN.segment_rows_sum(v, i, rows)
+    assert (PV.scatter_sum_rows.launches, PNN.segment_rows_sum.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    want = PV._scatter_sum_rows_plain(i, v, rows)
+    mag = PV._scatter_sum_rows_plain(i, v.abs(), rows)
+    torch.cuda.synchronize()
+    tol = 1e-5 * mag + 1e-6
+    assert ((got - want).abs() <= tol).all() and ((seg - want).abs() <= tol).all()
+    with pytest.raises(TypeError):
+        PNN.segment_rows_sum(v, i.long(), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1000, 3000), (16384, 16384), (129, 1025)])
+def test_fused_nn_kernels_match_plain(cuda_device, n, m):
+    rng = np.random.default_rng(n + 7 * m)
+    q, r, pen = _fused_case(rng, n, m, 20.0)
+    args = [_t(x)[None].to(cuda_device) for x in (q, r, *pen)]
+    before = (PNN.fused_nn.launches, PNN.fused_nn_idx.launches)
+    outs = PNN.fused_nn_idx(*args)
+    mins = PNN.fused_nn(*args)
+    assert (PNN.fused_nn.launches, PNN.fused_nn_idx.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    plain = PNN._fused_nn_plain(*args)
+    torch.cuda.synchronize()
+    qs, rs = args[0][0], args[1][0]
+    # Output k: (its queries, the points searched, their penalties).
+    sides = ((qs, rs, args[4]), (qs, rs, args[5]), (rs, qs, args[2]), (rs, qs, args[3]))
+    for k, (src, dst, pen) in enumerate(sides):
+        live = pen[0] == 0
+        idx = outs[k + 4][0].long()
+        tol = 1e-5 * ((src * src).sum(-1) + (dst[idx] ** 2).sum(-1)) + 1e-6
+        d, pd = outs[k][0], plain[k][0]
+        assert ((d - pd).abs() <= tol).all(), k
+        assert torch.equal(d, mins[k][0]), k
+        direct = ((src - dst[idx]) ** 2).sum(-1)
+        assert ((direct - pd).abs() <= tol).all(), k
+        assert live[idx].all(), k  # a masked point never wins
+    assert (outs[4][0, :5].cpu().numpy() == np.arange(5)).all()
+    assert (outs[6][0, :5].cpu().numpy() == np.arange(5)).all()

@@ -143,10 +143,10 @@ def test_bev_correlation_pools_and_upsample():
 
 
 def test_init_params_follows_flax_initialisers():
-    model, _ = PF.make_model("seflowpp", depths=(16, 32))
+    model, _ = PF.make_model("seflowpp", device="cpu", depths=(16, 32))
     sd = PF.init_params(model, torch.Generator().manual_seed(0))
     again = PF.init_params(
-        PF.make_model("seflowpp", depths=(16, 32))[0], torch.Generator().manual_seed(0)
+        PF.make_model("seflowpp", device="cpu", depths=(16, 32))[0], torch.Generator().manual_seed(0)
     )
     assert all(torch.equal(sd[k], again[k]) for k in sd)
     w = sd["unet.down.0.conv0.weight"]  # fan_in = 96 * 9
@@ -185,7 +185,7 @@ def test_config_dataclasses_copy_the_reference():
 def test_make_model_presets_and_unported_options():
     for name in ("fastflow3d", "deflow", "deflowpp", "seflow", "seflowpp",
                  "seflowpp_noprior"):
-        model, cfg = PF.make_model(name, depths=(16,))
+        model, cfg = PF.make_model(name, device="cpu", depths=(16,))
         assert cfg.depths == (16,) and isinstance(model, PF.SceneFlowNet)
     for name in ("seflowpp_trust", "seflowpp_prior"):
         with pytest.raises(NotImplementedError):
@@ -227,7 +227,7 @@ def test_pointwise_presets_match_jax(preset):
         rflow, rgate = jm.apply(params, sweeps, (jnp.asarray(valid),) * k, with_gate=True)
     else:
         rflow, rgate = jm.apply(params, sweeps, (jnp.asarray(valid),) * k), None
-    model, cfg = PF.make_model(preset, **TOY)
+    model, cfg = PF.make_model(preset, device="cpu", **TOY)
     model.load_state_dict(convert.flax_to_torch(jax.tree_util.tree_map(np.asarray, params), cfg))
     with torch.inference_mode():
         out = model(tuple(_t(c)[None] for c in clouds), (_t(valid)[None],) * k,
@@ -244,7 +244,7 @@ def test_pointwise_presets_match_jax(preset):
 
 
 def test_bfloat16_forward_runs_with_fp32_outputs():
-    model, _ = PF.make_model("seflowpp", dtype="bfloat16", **TOY,
+    model, _ = PF.make_model("seflowpp", device="cpu", dtype="bfloat16", **TOY,
                              **{"refine.num_query": 64, "refine.num_ref": 128})
     PF.init_params(model, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(8)

@@ -80,7 +80,7 @@ def slice_setup():
             refined=np.asarray(refine_points(jnp.asarray(pc0[b]), comp)),
             **{k: np.asarray(v) for k, v in aux.items()},
         ))
-    model, cfg = PF.make_model("seflowpp", **OVERRIDES)
+    model, cfg = PF.make_model("seflowpp", device="cpu", **OVERRIDES)
     model.load_state_dict(flax_to_torch(params, cfg))
     return dict(params=params, model=model, pc0=pc0, pc1=pc1, pch=pch,
                 valid=valid, dt0=dt0, ref=ref)
@@ -149,8 +149,8 @@ def test_registry_estimator_matches_jax(slice_setup, tmp_path):
     torch.save(state, ckpt)
     jest = jax_get_estimator("seflowpp", params=s["params"], **OVERRIDES)
     for est in (
-        get_estimator("seflowpp", params=state, **OVERRIDES),
-        get_estimator("seflowpp", checkpoint=str(ckpt), **OVERRIDES),
+        get_estimator("seflowpp", params=state, device="cpu", **OVERRIDES),
+        get_estimator("seflowpp", checkpoint=str(ckpt), device="cpu", **OVERRIDES),
     ):
         assert est.num_frames == 3
         b = 1
@@ -167,4 +167,4 @@ def test_registry_estimator_matches_jax(slice_setup, tmp_path):
         assert flow.shape == (N, 3) and float(zero) == 0.0
         np.testing.assert_allclose(flow.numpy(), np.asarray(ref), atol=ATOL)
     with pytest.raises(ValueError):
-        get_estimator("seflowpp", **OVERRIDES)
+        get_estimator("seflowpp", device="cpu", **OVERRIDES)
