@@ -33,7 +33,11 @@ and prints no result):
    gradient norm within 1e-3, cosine >= 0.999; enforced at step 1, logged
    after); step 1 (lr 0) leaves the parameters unchanged and steps 2-4
    change them; one validation step (4 scatter_max_rows, 1 fused_nn); every
-   metric finite; step times and peak memory.
+   metric finite; step times and peak memory;
+6. profile: after each of the two paths, three more calls of it under
+   ``torch.profiler``: device busy share, launches per call, the kernels
+   with the most device time and each of the port's kernels' device time
+   per launch.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -46,6 +50,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +73,8 @@ STEPS_PER_EPOCH = 10
 TERM_RTOL = 1e-4  # step-1 loss terms, kernels vs plain versions
 NORM_RTOL = 1e-3  # step-1 gradient global norm
 MIN_COSINE = 0.999  # step-1 gradients
+PROFILE_CALLS = 3  # traced calls of each main path
+PROFILE_TOP = 12  # kernels listed by device time
 # Roofline of one H100 SXM (NVIDIA's data sheet; at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -233,10 +240,10 @@ def phase_scatter(device, clouds):
     plain_ms = cuda_ms(lambda: pvox._scatter_max_rows_plain(pids, feats, rows))
     flat = _flat_rows(pids, rows)[:, None].expand(-1, SCATTER_CHANNELS)
     src = feats.reshape(-1, SCATTER_CHANNELS)
-    table = torch.zeros(BATCH * rows + 1, SCATTER_CHANNELS, device=device)
-    library_ms = cuda_ms(
-        lambda: table.scatter_reduce_(0, flat, src, "amax", include_self=False)
-    )
+    # The same work as the wrapper: a new table, unreached rows 0.
+    library_ms = cuda_ms(lambda: torch.zeros(
+        BATCH * rows + 1, SCATTER_CHANNELS, device=device
+    ).scatter_reduce_(0, flat, src, "amax", include_self=False))
     log(f"scatter_max B={BATCH} N={NUM_POINTS} C={SCATTER_CHANNELS} rows={rows} "
         f"trash={trash:.3f}: bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"scatter_reduce_ amax {library_ms:.4f} ms")
@@ -283,8 +290,9 @@ def phase_scatter_sum(device, clouds):
     plain_ms = cuda_ms(lambda: pvox._scatter_sum_rows_plain(pids, vals, rows))
     flat = _flat_rows(pids, rows)
     src = vals.reshape(-1, c)
-    table = torch.zeros(BATCH * rows + 1, c, device=device)
-    library_ms = cuda_ms(lambda: table.index_add_(0, flat, src))
+    # The same work as the wrapper: a new zeroed table, then the sum.
+    library_ms = cuda_ms(
+        lambda: torch.zeros(BATCH * rows + 1, c, device=device).index_add_(0, flat, src))
     log(f"scatter_sum_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows}: within "
         f"1e-5*sum|x|+1e-6 (max abs err {err:.3e}); kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms")
@@ -315,8 +323,8 @@ def phase_segment_sum(device):
         plain_ms = cuda_ms(lambda: pnn._segment_rows_sum_plain(vals, ids, rows), iters=50)
         flat = _flat_rows(ids, rows)
         src = vals.reshape(-1, 3)
-        table = torch.zeros(BATCH * rows + 1, 3, device=device)
-        library_ms = cuda_ms(lambda: table.index_add_(0, flat, src), iters=50)
+        library_ms = cuda_ms(lambda: torch.zeros(  # a new zeroed table, as the wrapper
+            BATCH * rows + 1, 3, device=device).index_add_(0, flat, src), iters=50)
         log(f"segment_rows_sum B={BATCH} {n}x3 -> {rows}: within 1e-5*sum|x|+1e-6 "
             f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"index_add_ {library_ms:.4f} ms")
@@ -437,7 +445,7 @@ def phase_fused(device):
     plain = pnn._fused_nn_plain(*args)
     torch.cuda.synchronize()
     sides = ((q, r, args[4]), (q, r, args[5]), (r, q, args[2]), (r, q, args[3]))
-    errs, flips = [], 0
+    errs, min_errs, flips = [], [], 0
     for k, (src, dst, p) in enumerate(sides):
         idx = outs[4 + k].long()
         at = torch.gather(dst, 1, idx[..., None].expand(-1, -1, 3))
@@ -445,8 +453,10 @@ def phase_fused(device):
         err = (outs[k] - plain[k]).abs()
         if not bool((err <= tol).all()):
             raise AssertionError(f"fused_nn_idx output {k} off tolerance ({float(err.max())})")
-        if not bool(((mins[k] - plain[k]).abs() <= tol).all()):
-            raise AssertionError(f"fused_nn output {k} off tolerance")
+        min_err = (mins[k] - plain[k]).abs()
+        if not bool((min_err <= tol).all()):
+            raise AssertionError(f"fused_nn output {k} off tolerance ({float(min_err.max())})")
+        min_errs.append(float(min_err.max()))
         direct = ((src - at) ** 2).sum(-1) + torch.gather(p, 1, idx)
         if not bool(((direct - plain[k]).abs() <= tol).all()):
             raise AssertionError(f"fused_nn_idx output {k}: index not at the min")
@@ -464,7 +474,8 @@ def phase_fused(device):
     ms_min = cuda_ms(lambda: pnn.fused_nn(*args), iters=10)
     plain_ms = cuda_ms(lambda: pnn._fused_nn_plain(*args), iters=3, warmup=1)
     log(f"fused_nn B={BATCH} {n}x{m}: four mins within 1e-5*(|q|^2+|r|^2)+1e-6 "
-        f"(max abs err {max(errs):.3e}), ties lowest-index, {flips} index "
+        f"(max abs err: idx kernel {max(errs):.3e}, min kernel {max(min_errs):.3e}), "
+        f"ties lowest-index, {flips} index "
         f"differences at near-ties; idx kernel {ms_idx:.4f} ms, min kernel "
         f"{ms_min:.4f} ms, plain {plain_ms:.4f} ms")
     pairs = BATCH * n * m
@@ -473,7 +484,7 @@ def phase_fused(device):
     return dict(
         idx=dict(max_abs_err=max(errs), ms=ms_idx, plain_ms=plain_ms, library_ms=None,
                  **bound(io + 2 * out_min, pairs * FUSED_OPS_PER_PAIR)),
-        min=dict(max_abs_err=max(errs), ms=ms_min, plain_ms=plain_ms, library_ms=None,
+        min=dict(max_abs_err=max(min_errs), ms=ms_min, plain_ms=plain_ms, library_ms=None,
                  **bound(io + out_min, pairs * FUSED_OPS_PER_PAIR)),
     )
 
@@ -534,11 +545,14 @@ def phase_slice(device, clouds):
     if agree < SLICE_MIN_AGREE:
         raise AssertionError(f"only {agree:.4f} of refined points agree with the plain run")
 
+    def run():
+        frame(model, pc0, pc1, pch, valid, dt0)
+
     times = []
     for _ in range(5):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        frame(model, pc0, pc1, pch, valid, dt0)
+        run()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - start)
     median = float(np.median(times))
@@ -547,7 +561,81 @@ def phase_slice(device, clouds):
         f"({', '.join(f'{t * 1e3:.3f}' for t in times)}); {mpts:.4f} Mpts/s "
         f"(B*n_valid/time); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, run, median * 1e3
+
+
+def _busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in ms (trace in us)."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def port_kernel_pattern():
+    """A regex for the trace names of the ``__global__`` functions of
+    ``himo_tpu_torch/csrc/*.cu`` (each in a top-level anonymous namespace)."""
+    from himo_tpu_torch.kernels import _build
+
+    names = set()
+    for path in _build.CSRC_DIR.glob("*.cu"):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", path.read_text()))
+    return re.compile(r"(void )?\(anonymous namespace\)::(" + "|".join(sorted(names)) + r")[<(]")
+
+
+def phase_profile(name: str, fn, wall_ms: float) -> None:
+    """Trace ``PROFILE_CALLS`` calls of a main path (already warm) under
+    ``torch.profiler`` and print: the profiled wall time per call, the
+    device busy time per call (the union of the trace's kernel, memcpy and
+    memset intervals), the busy share of the profiled wall and of the
+    path's unprofiled median ``wall_ms``, kernel launches per call, the
+    kernels with the most device time, and the device time per launch of
+    each of the port's own kernels."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(PROFILE_CALLS):
+            fn()
+            torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - start) * 1e3 / PROFILE_CALLS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    device = [e for e in events
+              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise AssertionError(f"{name}: the trace holds no device activity")
+    busy = _busy_ms((e["ts"], e["ts"] + e["dur"]) for e in device) / PROFILE_CALLS
+    by_name = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            ms, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    launches = sum(n for _, n in by_name.values()) / PROFILE_CALLS
+    log(f"[profile {name}] wall {wall_ms:.3f} ms per call unprofiled; profiled wall "
+        f"{prof_wall:.3f} ms, device busy {busy:.3f} ms (busy share {busy / prof_wall:.4f} "
+        f"of the profiled wall, {busy / wall_ms:.4f} of the unprofiled); "
+        f"{launches:.0f} kernel launches per call")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    port_kernel = port_kernel_pattern()
+    for kname, (ms, n) in ranked[:PROFILE_TOP]:
+        log(f"[profile {name}]   {ms / PROFILE_CALLS:9.3f} ms  {n / PROFILE_CALLS:6.0f} x  "
+            f"{kname[:110]}")
+    for kname, (ms, n) in ranked:
+        if port_kernel.match(kname):
+            log(f"[profile {name}] port kernel {ms / n * 1e3:9.3f} us per launch, "
+                f"{n / PROFILE_CALLS:4.0f} x per call  {kname[:90]}")
 
 
 def _grads(model):
@@ -671,7 +759,7 @@ def phase_train(device):
         f"steps 2-{TRAIN_STEPS} {median_warm * 1e3:.3f} ms; peak memory {peak:.2f} GiB; "
         f"val step total_sum {out['total_sum']:.6f} epe "
         f"{out['epe_sum'] / max(out['epe_count'], 1.0):.6f}")
-    return totals
+    return totals, lambda: train_step(batch), median_warm * 1e3
 
 
 def main() -> int:
@@ -698,10 +786,13 @@ def main() -> int:
     nn = phase_nn(device)
     fused = phase_fused(device)
     torch.cuda.empty_cache()
-    launches = phase_slice(device, clouds)
-    del clouds
+    launches, run_frame, frame_ms = phase_slice(device, clouds)
+    phase_profile("inference", run_frame, frame_ms)
+    del clouds, run_frame
     torch.cuda.empty_cache()
-    train = phase_train(device)
+    train, run_step, step_ms = phase_train(device)
+    phase_profile("train_step", run_step, step_ms)
+    del run_step
     total = {k: launches[k] + train[k] for k in launches}
     main_nn = NN_SHAPES[0]
     kernels = [

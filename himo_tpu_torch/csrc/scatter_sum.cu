@@ -7,12 +7,14 @@
 // - himo_tpu/ops/voxelize.py `_sorted_scatter_table_band_kernel("sum")`
 //   (reached from `_sorted_scatter_forward` in `_diff_gather_sorted_fn`'s
 //   backward): the 512x512 `gather_pillars` backward, 8 frames x 65,536
-//   points x 65 channels into 262,144 pillar rows per frame. Entry point
-//   `himo_scatter_sum_f32`.
+//   points x 65 channels into 262,144 pillar rows per frame (Python wrapper
+//   `ops.voxelize.scatter_sum_rows`).
 // - himo_tpu/ops/voxelize.py `_scatter_kernel("sum")` (reached from
 //   `himo_tpu/ops/nn.py::segment_rows_sum`), the backward of `take_rows`
 //   and `fused_masked_nn`: 3-channel rows into 65,536 or 16,384 rows per
-//   frame. Entry point `himo_segment_sum_f32`.
+//   frame (Python wrapper `ops.nn.segment_rows_sum`).
+// Both wrappers launch the one entry point `himo_scatter_sum_f32`, and each
+// counts its own launches.
 // The TPU kernels sort points into row bands and keep a band (or the whole
 // image) resident in VMEM, because the TPU has no scatter-add into HBM;
 // none of that is carried over. What is kept is the function.
@@ -82,8 +84,11 @@ __global__ void scatter_sum_elem(const int* __restrict__ ids,
   atomicAdd(out + (b * rows + id) * static_cast<long long>(c) + ch, v);
 }
 
-int launch(const void* ids, const void* vals, void* out, int batch, int n,
-           int c, int rows, void* stream) {
+}  // namespace
+
+extern "C" int himo_scatter_sum_f32(const void* ids, const void* vals,
+                                    void* out, int batch, int n, int c,
+                                    int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long points = static_cast<long long>(batch) * n;
   if (points == 0 || c == 0) return static_cast<int>(cudaGetLastError());
@@ -101,18 +106,4 @@ int launch(const void* ids, const void* vals, void* out, int batch, int n,
         i, v, o, count, n, c, rows);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int himo_scatter_sum_f32(const void* ids, const void* vals,
-                                    void* out, int batch, int n, int c,
-                                    int rows, void* stream) {
-  return launch(ids, vals, out, batch, n, c, rows, stream);
-}
-
-extern "C" int himo_segment_sum_f32(const void* ids, const void* vals,
-                                    void* out, int batch, int n, int c,
-                                    int rows, void* stream) {
-  return launch(ids, vals, out, batch, n, c, rows, stream);
 }

@@ -32,6 +32,7 @@ import torch
 
 from himo_tpu_torch.kernels import _build
 from himo_tpu_torch.ops.voxelize import (
+    _RowTake,
     _run_rows_kernel,
     _scatter_sum_rows_plain,
     _take_rows_at,
@@ -226,11 +227,12 @@ def segment_rows_sum(
     the backward of :func:`take_rows` and :func:`fused_masked_nn`.
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/scatter_sum.cu``'s ``himo_segment_sum_f32`` (counted in
-    ``segment_rows_sum.launches``) into a zeroed table, or raise."""
+    ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32``, the kernel behind
+    ``ops.voxelize.scatter_sum_rows`` (counted here in
+    ``segment_rows_sum.launches``), into a zeroed table, or raise."""
     if vals.device.type == "cpu":
         return _segment_rows_sum_plain(vals, idx, num_segments)
-    out = _run_rows_kernel("scatter_sum", "himo_segment_sum_f32", idx, vals,
+    out = _run_rows_kernel("scatter_sum", "himo_scatter_sum_f32", idx, vals,
                            num_segments, zeroed=True)
     segment_rows_sum.launches += 1
     return out
@@ -239,27 +241,10 @@ def segment_rows_sum(
 segment_rows_sum.launches = 0
 
 
-class _TakeRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = x.shape[1]
-        return _take_rows_at(x, idx)
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        dx = segment_rows_sum(
-            g.to(torch.float32).contiguous(),
-            idx.to(torch.int32).contiguous(), ctx.rows,
-        )
-        return dx.to(g.dtype), None
-
-
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Differentiable row take ``x[b, idx[b]]`` of (B, N, C) at (B, K) ids
     in [0, N) -> (B, K, C); its backward is :func:`segment_rows_sum`."""
-    return _TakeRows.apply(x, idx)
+    return _RowTake.apply(x, idx, lambda ids, g, rows: segment_rows_sum(g, ids, rows))
 
 
 # ---------------------------------------------------------------------------

@@ -243,23 +243,27 @@ class _ScatterMax(torch.autograd.Function):
         return None, torch.where(winner, both[..., :c], torch.zeros_like(feats)), None
 
 
-class _GatherPillars(torch.autograd.Function):
-    """Row take from the pillar image whose backward is the row scatter-add
-    (pids >= rows read row ``rows - 1`` and send nothing back; the caller
-    zeroes their outputs)."""
+class _RowTake(torch.autograd.Function):
+    """Row take ``table[b, ids[b]]`` of a (B, R, C) table whose backward
+    scatter-adds the fp32 cotangent with ``scatter(ids, g, R)`` and casts it
+    back. Ids >= R read row ``R - 1`` and send nothing back (the scatter
+    skips them; callers zero their outputs). Behind :func:`gather_pillars`
+    (``scatter_sum_rows``) and ``ops.nn.take_rows`` (``segment_rows_sum``)."""
 
     @staticmethod
-    def forward(ctx, flat, pids):
-        rows = flat.shape[1]
-        ctx.save_for_backward(pids)
+    def forward(ctx, table, ids, scatter):
+        rows = table.shape[1]
+        ctx.save_for_backward(ids)
         ctx.rows = rows
-        return _take_rows_at(flat, torch.clamp(pids.to(torch.int64), max=rows - 1))
+        ctx.scatter = scatter
+        return _take_rows_at(table, torch.clamp(ids.to(torch.int64), max=rows - 1))
 
     @staticmethod
     def backward(ctx, g):
-        (pids,) = ctx.saved_tensors
-        dflat = scatter_sum_rows(pids, g.to(torch.float32).contiguous(), ctx.rows)
-        return dflat.to(g.dtype), None
+        (ids,) = ctx.saved_tensors
+        d = ctx.scatter(ids.to(torch.int32).contiguous(),
+                        g.to(torch.float32).contiguous(), ctx.rows)
+        return d.to(g.dtype), None, None
 
 
 def scatter_max(features: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
@@ -294,5 +298,5 @@ def gather_pillars(image: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
     h, w = grid.grid_shape
     flat = image.reshape(image.shape[0], h * w, -1)
     pids = grid.pillar_ids.to(torch.int32).contiguous()
-    out = _GatherPillars.apply(flat, pids)
+    out = _RowTake.apply(flat, pids, scatter_sum_rows)
     return torch.where(grid.in_range[..., None], out, torch.zeros_like(out))

@@ -75,8 +75,11 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     segment = cs.phase_segment_sum(dev)
     nn = cs.phase_nn(dev)
     fused = cs.phase_fused(dev)
-    launches = cs.phase_slice(dev, clouds)
-    train = cs.phase_train(dev)
+    launches, run_frame, frame_ms = cs.phase_slice(dev, clouds)
+    train, run_step, step_ms = cs.phase_train(dev)
+    assert frame_ms > 0 and step_ms > 0
+    run_frame()
+    run_step()
     assert launches == dict(scatter_max_rows=3, scatter_sum_rows=0, nn_argmin_rows=10,
                             nn_min_rows=1, segment_rows_sum=0, fused_nn=0, fused_nn_idx=0)
     steps = cs.TRAIN_STEPS
@@ -92,3 +95,25 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert scatter["library_ms"] is not None and fused["idx"]["library_ms"] is None
     out = capsys.readouterr().out
     assert "step 1 terms, kernels/plain" in out and "val step" in out
+
+
+def test_profile_picks_the_port_kernels_out_of_a_trace():
+    """Trace names as the profiler gives them, templated and not; PyTorch's
+    own kernels, in anonymous namespaces too, are left out."""
+    pattern = cs.port_kernel_pattern()
+    for name in ("void (anonymous namespace)::masked_min_kernel<true>(float const*, int)",
+                 "void (anonymous namespace)::nn_kernel<false>(float const*)",
+                 "(anonymous namespace)::scatter_sum_elem(int const*, float const*)",
+                 "(anonymous namespace)::scatter_sum_warp(int const*)",
+                 "(anonymous namespace)::scatter_max_rows(int const*)",
+                 "(anonymous namespace)::fill_neg_inf(float*, long long)",
+                 "(anonymous namespace)::finalize(float*, long long)"):
+        assert pattern.match(name), name
+    for name in ("void (anonymous namespace)::elementwise_kernel_with_index<int>(int)",
+                 "void at::native::(anonymous namespace)::finalize(float*)"):
+        assert not pattern.match(name), name
+
+
+def test_busy_time_is_the_union_of_intervals():
+    assert cs._busy_ms([(0, 1000), (500, 1500), (3000, 4000), (3100, 3200)]) == 2.5
+    assert cs._busy_ms([]) == 0.0

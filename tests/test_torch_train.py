@@ -22,13 +22,22 @@ Tolerances, each with its reason:
   float32; the port in Python floats). Clip + Adam:
   parameters within 1e-6 of the learning rate plus 2e-7 relative (about
   two float32 ulps of the parameter).
-- The whole step (toy ``seflowpp``, fp32): every metric within 1e-5
-  relative; slots equal first, because they are discrete decisions; the
-  parameters after each step within 0.1 of that step's learning rate, and
-  all but 0.1 % of them within 1e-3 of it. Adam divides each gradient
-  component by its own running RMS, so a component near Adam's eps
-  (1e-8), where the two frameworks' rounding differs in relative terms,
-  moves by a visible fraction of the learning rate.
+- The whole step (toy ``seflowpp``, fp32, three steps): every metric
+  within 1e-5 relative; slots equal first, because they are discrete
+  decisions; before each step, every parameter's gradient of the
+  frame-mean loss against ``jax.grad`` of the same loss at the same
+  parameters within rtol 1e-4 plus 1e-4 of the tensor's largest component
+  (float32 sums in another order; measured about 2e-6); the parameters
+  after each step within 0.1 of that step's learning rate, and all but
+  0.1 % of them within 1e-3 of it. Adam divides each gradient component
+  by its own running RMS, so a component near Adam's eps (1e-8), where
+  the two frameworks' rounding differs in relative terms, moves by a
+  visible fraction of the learning rate. The first update has lr 0, so
+  step 2 runs at step 1's parameters; step 3 is the first at moved ones.
+- The gradient-norm jump on the 512x512 grid: the global gradient norm
+  of each of three steps within 1e-3 relative of JAX's (the jump passes
+  a 1/sqrt(eps)-sized gain through a GroupNorm, which magnifies rounding;
+  measured about 2e-6).
 """
 
 import jax
@@ -43,7 +52,7 @@ from himo_tpu.ops import nn as JNN
 from himo_tpu.ops import voxelize as JV
 from himo_tpu.training import losses as JL
 from himo_tpu.training import trainer as JT
-from himo_tpu_torch.data.synthetic import lidar_like_cloud
+from himo_tpu_torch.data.synthetic import lidar_like_cloud, train_batch
 from himo_tpu_torch.models import feedforward as PF
 from himo_tpu_torch.ops import nn as PNN
 from himo_tpu_torch.ops import voxelize as PV
@@ -437,10 +446,26 @@ def toy_step():
     return jm, params, _step_batch()
 
 
+def _jax_mean_loss_grad(jm, jcfg):
+    """``jax.grad`` of the frame-mean total loss, as ``make_train_step``
+    differentiates it."""
+
+    def loss(p, b):
+        losses = jax.vmap(lambda f: JT._frame_flow_and_loss(jm, jcfg, p, f)[1])(b)
+        return jnp.mean(losses["total"])
+
+    return jax.jit(jax.grad(loss))
+
+
+def _grad_norm(tree):
+    return float(jnp.sqrt(sum(jnp.sum(x * x) for x in jax.tree_util.tree_leaves(tree))))
+
+
 def test_train_step_matches_jax(toy_step):
     jm, params, batch = toy_step
     model, cfg = PF.make_model("seflowpp", device="cpu", **TOY)
     model.load_state_dict(flax_to_torch(params, cfg))
+    ref, _ = PF.make_model("seflowpp", device="cpu", **TOY)  # gradients at JAX's params
     tb = {k: _t(v) for k, v in batch.items()}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
 
@@ -462,8 +487,19 @@ def test_train_step_matches_jax(toy_step):
     jstate = jopt.init(params)
     jstep = JT.make_train_step(jm, jcfg, jopt)
     pstep = PT.make_train_step(model, pcfg, popt)
+    jgrad = _jax_mean_loss_grad(jm, jcfg)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    for step in range(2):
+    for step in range(3):
+        np_params = jax.tree_util.tree_map(np.asarray, params)
+        ref.load_state_dict(flax_to_torch(np_params, cfg))
+        ref.zero_grad(set_to_none=True)
+        PT.mean_losses(ref, pcfg, tb)["total"].backward()
+        want_grad = flax_to_torch(jax.tree_util.tree_map(np.asarray, jgrad(params, jb)), cfg)
+        for k, p in ref.named_parameters():
+            got_grad = (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+            w = want_grad[k].numpy()
+            np.testing.assert_allclose(got_grad, w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                       err_msg=f"step {step + 1} grad {k}")
         params, jstate, jmetrics = jstep(params, jstate, jb)
         pmetrics = pstep(tb)
         assert set(pmetrics) == set(jmetrics)
@@ -484,6 +520,51 @@ def test_train_step_matches_jax(toy_step):
         else:
             assert moved > 0.5 * lr
     assert float(popt.last_grad_norm) > 0
+
+
+def test_gradient_norm_jump_on_the_512_grid_matches_jax():
+    """On the 512x512 grid the global gradient norm jumps about tenfold at
+    step 3, the first step at moved parameters (on the full-width chip run
+    too). JAX's reference does the same at the same parameters: the jump
+    belongs to the model, not to the port."""
+    ov = {"depths": (16, 32)}
+    b, n, k = 1, 4096, 1024
+    jm, _ = JF.make_model("seflowpp", **ov)
+    zeros = tuple(jnp.zeros((n, 3), jnp.float32) for _ in range(3))
+    ones = tuple(jnp.ones((n,), bool) for _ in range(3))
+    params = jax.jit(lambda key: jm.init(key, zeros, ones, None))(jax.random.PRNGKey(0))
+    model, cfg = PF.make_model("seflowpp", device="cpu", **ov)
+    assert cfg.pillar.grid_shape == (512, 512)
+    model.load_state_dict(flax_to_torch(jax.tree_util.tree_map(np.asarray, params), cfg))
+    batch = train_batch(np.random.default_rng(0), b, n, k)
+    kw = dict(batch_size=b, num_points=n, loss_points=k)
+    jcfg, pcfg = JT.TrainConfig(**kw), PT.TrainConfig(**kw)
+    jopt, _ = JT.make_optimizer(jcfg, 10)
+    jstate = jopt.init(params)
+    jgrad = _jax_mean_loss_grad(jm, jcfg)
+    popt, _ = PT.make_optimizer(model.parameters(), pcfg, 10)
+    pstep = PT.make_train_step(model, pcfg, popt)
+    tb = {key: _t(v) for key, v in batch.items()}
+    jb = {key: jnp.asarray(v) for key, v in batch.items()}
+    norms = []
+    for _ in range(3):
+        g = jgrad(params, jb)
+        updates, jstate = jopt.update(g, jstate, params)
+        params = optax.apply_updates(params, updates)
+        pstep(tb)
+        norms.append((float(popt.last_grad_norm), _grad_norm(g)))
+    for got, want in norms:
+        assert got == pytest.approx(want, rel=1e-3)
+    assert norms[1][1] == pytest.approx(norms[0][1], rel=1e-6)  # lr 0 at step 1
+    assert norms[2][1] > 5 * norms[0][1]  # the jump
+    # Both put it in the bias of the UNet's first convolution (the clip
+    # scales every .grad alike, so the ranking survives it).
+    jg = flax_to_torch(jax.tree_util.tree_map(np.asarray, g), cfg)
+    top = max(jg, key=lambda name: float(jg[name].norm()))
+    port_top = max(((name, p) for name, p in model.named_parameters() if p.grad is not None),
+                   key=lambda item: float(item[1].grad.norm()))[0]
+    assert top == port_top == "unet.down.0.conv0.bias"
+    assert float(jg[top].norm()) > 0.9 * norms[2][1]
 
 
 def test_val_step_runs_without_gradient(toy_step):
