@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two main paths, at full width with random weights from seeded generators:
+Four main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -12,7 +12,15 @@ Two main paths, at full width with random weights from seeded generators:
 - the ``seflowpp`` SSL train step (what ``scripts/chip_train_ab.py`` times
   for the JAX package): ``TrainConfig()`` (8 frames x 65,536 points, 16,384
   chamfer points, Adam with warmup and clip), bf16, on that script's batch;
-  four optimizer steps, then one validation step.
+  four optimizer steps, then one validation step;
+- the ``nsfp`` estimator through the registry, ``NSFPConfig(cluster_prior=
+  False)`` (hidden 128, 8 layers, lr 8e-3, 500 Adam steps, 2 m truncation),
+  once with the single-NN chamfer (``knn_k=0``) and once with the 4-NN
+  smoothed chamfer (``knn_k=4``), on one frame pair of 65,536 points (92 %
+  valid): ``lidar_like_cloud`` and the same cloud with its 16 object
+  clusters moved 1.5 m (``data.synthetic.moving_objects_pair``);
+- the ``fastnsf`` estimator on the same pair, ``FastNSFConfig(
+  cluster_prior=False)`` (the 256 x 256 x 16 distance field, 500 steps).
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -34,14 +42,28 @@ and prints no result):
    after); step 1 (lr 0) leaves the parameters unchanged and steps 2-4
    change them; one validation step (4 scatter_max_rows, 1 fused_nn); every
    metric finite; step times and peak memory;
-6. profile: after each of the two paths, three more calls of it under
-   ``torch.profiler``: device busy share, launches per call, the kernels
-   with the most device time and each of the port's kernels' device time
-   per launch.
+6. nsfp, at ``knn_k`` 0 and 4: before the run, the step-1 loss and
+   gradient through the kernels against the same through the plain
+   versions on the card (loss within 1e-4 relative, at ``knn_k=4`` once
+   the share carried by queries whose k-NN lists differ slot by slot is
+   set aside; gradient norm within 1e-3, cosine >= 0.999) and the
+   launches of one step (2 nn_argmin_rows,
+   1 segment_rows_sum, plus 2 knn_rows at ``knn_k=4``); then the 500-step
+   run (launch counts checked: 500 x one step's), final loss below the
+   first, flow finite and zero on invalid points; time per step and per
+   frame, peak memory, and the EPE of moving and static points against the
+   known motion (printed only: random initialisation measures no quality);
+7. fastnsf: the distance-field build timed alone, then the 500-step run
+   (no launch of the port's kernels); the same loss and flow checks;
+8. profile: after each of the first two paths, three more calls of it
+   under ``torch.profiler``, and one 20-step run each of ``nsfp`` at
+   ``knn_k=4`` and of ``fastnsf``:
+   device busy share, launches per call, the kernels with the most device
+   time and each of the port's kernels' device time per launch.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
-kernel entry point (``launches`` summed over the three path runs); the last
+kernel entry point (``launches`` summed over the path runs); the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -70,11 +92,21 @@ SLICE_TOL_M = 1e-3  # refined points, kernels vs plain versions
 SLICE_MIN_AGREE = 0.99
 TRAIN_STEPS = 4
 STEPS_PER_EPOCH = 10
-TERM_RTOL = 1e-4  # step-1 loss terms, kernels vs plain versions
+# Step-1 loss terms (train) and loss (nsfp), kernels vs plain versions: the
+# plain versions' |q|^2 + |r|^2 - 2 q.r rounds at about ulp(|q|^2 + |r|^2),
+# 5e-4 m^2 at 50 m, where nsfp's nearest distances are a few cm^2.
+TERM_RTOL = 1e-4
 NORM_RTOL = 1e-3  # step-1 gradient global norm
 MIN_COSINE = 0.999  # step-1 gradients
 PROFILE_CALLS = 3  # traced calls of each main path
 PROFILE_TOP = 12  # kernels listed by device time
+NSFP_POINTS = 65536  # one frame pair of the optimisation estimators
+NSFP_ITERS = 500  # NSFPConfig().iterations, FastNSFConfig().iterations
+NSFP_PROFILE_ITERS = 20  # steps of the traced nsfp run
+NSFP_SHIFT_M = 1.5  # object motion in the pair: 15 m/s over 0.1 s
+KNN_K = 4
+KNN_DUPLICATES = 64  # reference rows copied once more for the tie check
+FASTNSF_DT = None  # FastNSFConfig().dt (a DTConfig) when None
 # Roofline of one H100 SXM (NVIDIA's data sheet; at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -117,10 +149,12 @@ def bound(bytes_moved: float, ops: float) -> dict:
 
 
 def _wrappers():
+    from himo_tpu_torch.ops import knn as pknn
     from himo_tpu_torch.ops import nn as pnn
     from himo_tpu_torch.ops import voxelize as pvox
 
     return {
+        (pknn, "knn_rows"): pknn._knn_plain,
         (pvox, "scatter_max_rows"): pvox._scatter_max_rows_plain,
         (pvox, "scatter_sum_rows"): pvox._scatter_sum_rows_plain,
         (pnn, "nn_argmin_rows"): pnn._nn_argmin_plain,
@@ -489,6 +523,96 @@ def phase_fused(device):
     )
 
 
+def _nsfp_pair(device):
+    """The optimisation estimators' frame pair: (pc0, pc1, known flow,
+    moving mask, valid0, valid1), each of NSFP_POINTS rows on ``device``;
+    a random 92 % of each cloud is valid."""
+    import torch
+
+    from himo_tpu_torch.data.synthetic import moving_objects_pair
+
+    rng = np.random.default_rng(0)
+    arrays = moving_objects_pair(rng, NSFP_POINTS, NSFP_SHIFT_M)
+    valid = [rng.random(NSFP_POINTS) < VALID_FRACTION for _ in range(2)]
+    return tuple(torch.from_numpy(a).to(device) for a in (*arrays, *valid))
+
+
+def knn_agreement(got, want, q):
+    """Hold (N, k) kernel distances against the plain version's for the
+    (N, 3) queries ``q``: per value, ``tol = 1e-5 * (|q|^2 + |r|^2) + 1e-6``
+    with ``|r| <= |q| + sqrt(d)``. The two forms round differently, so two
+    references at nearly one distance may collapse into one slot in one
+    form and not in the other, which shifts the later slots: the lists must
+    agree as sets within the tolerance (every kernel value near a plain
+    value and every plain value up to the kernel's last near a kernel
+    value), and slot by slot on most queries. Returns (set-agreeing mask,
+    slot-by-slot mask, tolerance)."""
+    import torch
+
+    qn = (q.double() ** 2).sum(-1, keepdim=True)
+    tol = 1e-5 * (qn + (qn.sqrt() + want.double().clamp(min=0).sqrt()) ** 2) + 1e-6
+    near = (got.double()[:, :, None] - want.double()[:, None, :]).abs() <= tol[:, None, :]
+    beyond = want.double() > got.double()[:, -1:] + tol
+    as_sets = near.any(-1).all(-1) & (near.any(1) | beyond).all(-1)
+    slotwise = ((got.double() - want.double()).abs() <= tol).all(-1)
+    return as_sets, slotwise & as_sets, tol
+
+
+def phase_knn(device, pair):
+    """K9 at the nsfp loss's shape, 1 x 65,536 queries x 65,537 references
+    (the clouds as ``knn_distance_sq`` pads them, one SENTINEL row
+    appended), k=4, with exact duplicate references for the collapse
+    rule."""
+    import torch
+
+    from himo_tpu_torch.ops import knn as pknn
+    from himo_tpu_torch.ops import nn as pnn
+
+    pc0, pc1, _, _, v0, v1 = pair
+    n = pc0.shape[0]
+    qp, rp, qv, rv = pc0.clone(), pc1.clone(), v0.clone(), v1.clone()
+    dup = KNN_DUPLICATES
+    rp[n // 2 : n // 2 + dup] = rp[:dup]  # each of rows 0..63 held twice
+    qp[: dup // 2] = rp[: dup // 2]  # queries on duplicated references
+    qv[: dup // 2] = True
+    rv[:dup] = rv[n // 2 : n // 2 + dup] = True
+    q = pnn._pad_coords(qp[None], qv[None])
+    r = pnn._pad_coords(rp[None], rv[None])
+    r = torch.cat([r, torch.full_like(r[:, :1], pnn.SENTINEL)], dim=1).contiguous()
+    got = pknn.knn_rows(q, r, KNN_K)
+    want = pknn._knn_plain(q, r, KNN_K)
+    torch.cuda.synchronize()
+    as_sets, slotwise, tol = knn_agreement(got[0], want[0], q[0])
+    live = qv
+    if not bool(as_sets[live].all()):
+        raise AssertionError(f"knn_rows differs from plain beyond tolerance on "
+                             f"{int((~as_sets)[live].sum())} queries")
+    aligned = float(slotwise[live].float().mean())
+    if aligned < 0.99:
+        raise AssertionError(f"knn_rows: only {aligned:.4f} of queries agree slot by slot")
+    # Queries 0..31 sit on a reference held twice: slot 1 of both versions
+    # is the next DISTINCT distance (float64 brute force), not the copy.
+    head = slice(0, dup // 2)
+    d64 = ((q[0, head, None].double() - r[0, None].double()) ** 2).sum(-1)
+    second = torch.where(d64 > d64.amin(-1, keepdim=True), d64,
+                         torch.full_like(d64, float("inf"))).amin(-1)
+    for name, vals in (("kernel", got), ("plain", want)):
+        if not bool(((vals[0, head, 1].double() - second).abs() <= tol[head, 1]).all()):
+            raise AssertionError(f"knn_rows ({name}): duplicated references did not "
+                                 f"collapse into one slot")
+    # Each kernel value against the nearest plain value (slots may shift).
+    err = float((got[0, :, :, None] - want[0, :, None, :]).abs().amin(-1)[live].max())
+    ms = cuda_ms(lambda: pknn.knn_rows(q, r, KNN_K))
+    plain_ms = cuda_ms(lambda: pknn._knn_plain(q, r, KNN_K), iters=3, warmup=1)
+    m = r.shape[1]
+    log(f"knn_rows 1x{n}x{m} k={KNN_K}: every query's distances agree as sets within "
+        f"1e-5*(|q|^2+|r|^2)+1e-6 (max abs err to the nearest plain value {err:.3e}), "
+        f"{aligned:.6f} of queries slot by slot; duplicates collapse alike; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound((n + m) * 12 + n * KNN_K * 4, n * m * NN_OPS_PER_PAIR))
+
+
 def phase_slice(device, clouds):
     import torch
 
@@ -589,8 +713,8 @@ def port_kernel_pattern():
     return re.compile(r"(void )?\(anonymous namespace\)::(" + "|".join(sorted(names)) + r")[<(]")
 
 
-def phase_profile(name: str, fn, wall_ms: float) -> None:
-    """Trace ``PROFILE_CALLS`` calls of a main path (already warm) under
+def phase_profile(name: str, fn, wall_ms: float, calls: int = PROFILE_CALLS) -> None:
+    """Trace ``calls`` calls of a main path (already warm) under
     ``torch.profiler`` and print: the profiled wall time per call, the
     device busy time per call (the union of the trace's kernel, memcpy and
     memset intervals), the busy share of the profiled wall and of the
@@ -604,10 +728,10 @@ def phase_profile(name: str, fn, wall_ms: float) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for _ in range(PROFILE_CALLS):
+        for _ in range(calls):
             fn()
             torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - start) * 1e3 / PROFILE_CALLS
+        prof_wall = (time.perf_counter() - start) * 1e3 / calls
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -616,13 +740,13 @@ def phase_profile(name: str, fn, wall_ms: float) -> None:
               if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not device:
         raise AssertionError(f"{name}: the trace holds no device activity")
-    busy = _busy_ms((e["ts"], e["ts"] + e["dur"]) for e in device) / PROFILE_CALLS
+    busy = _busy_ms((e["ts"], e["ts"] + e["dur"]) for e in device) / calls
     by_name = {}
     for e in device:
         if e["cat"] == "kernel":
             ms, n = by_name.get(e["name"], (0.0, 0))
             by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
-    launches = sum(n for _, n in by_name.values()) / PROFILE_CALLS
+    launches = sum(n for _, n in by_name.values()) / calls
     log(f"[profile {name}] wall {wall_ms:.3f} ms per call unprofiled; profiled wall "
         f"{prof_wall:.3f} ms, device busy {busy:.3f} ms (busy share {busy / prof_wall:.4f} "
         f"of the profiled wall, {busy / wall_ms:.4f} of the unprofiled); "
@@ -630,12 +754,12 @@ def phase_profile(name: str, fn, wall_ms: float) -> None:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     port_kernel = port_kernel_pattern()
     for kname, (ms, n) in ranked[:PROFILE_TOP]:
-        log(f"[profile {name}]   {ms / PROFILE_CALLS:9.3f} ms  {n / PROFILE_CALLS:6.0f} x  "
+        log(f"[profile {name}]   {ms / calls:9.3f} ms  {n / calls:6.0f} x  "
             f"{kname[:110]}")
     for kname, (ms, n) in ranked:
         if port_kernel.match(kname):
             log(f"[profile {name}] port kernel {ms / n * 1e3:9.3f} us per launch, "
-                f"{n / PROFILE_CALLS:4.0f} x per call  {kname[:90]}")
+                f"{n / calls:4.0f} x per call  {kname[:90]}")
 
 
 def _grads(model):
@@ -762,6 +886,206 @@ def phase_train(device):
     return totals, lambda: train_step(batch), median_warm * 1e3
 
 
+def _timed(fn):
+    """(result, seconds) of ``fn()`` on the host clock, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def _check_flow(name, flow, loss, first, pair):
+    """Flow finite, (N, 3) and zero on invalid points, final loss below the
+    first; returns the mean EPE of the valid moving and static points."""
+    import torch
+
+    pc0, _, gt, moving, v0, _ = pair
+    if tuple(flow.shape) != tuple(pc0.shape) or not bool(torch.isfinite(flow).all()):
+        raise AssertionError(f"{name}: flow {tuple(flow.shape)} not finite or misshapen")
+    if bool((flow[~v0] != 0).any()):
+        raise AssertionError(f"{name}: invalid points got a non-zero flow")
+    if not float(loss) < first:
+        raise AssertionError(f"{name}: final loss {float(loss)} not below the first {first}")
+    epe = (flow - gt).norm(dim=-1)
+    return tuple(float(epe[v0 & sel].mean()) for sel in (moving, ~moving))
+
+
+def _flat_grads(params):
+    import torch
+
+    return torch.cat([t.grad.reshape(-1) for group in params for t in group])
+
+
+def knn_loss_shift(warped, p1, v0, v1, k, cap):
+    """The share of the k-NN smoothed chamfer's value (both sides) that the
+    queries whose k-NN lists differ slot by slot between the kernel and
+    the plain version carry: the sum of their capped k-mean differences
+    over each side's valid count; and the fraction of such queries per
+    side."""
+    import torch
+
+    from himo_tpu_torch.ops import knn as pknn
+    from himo_tpu_torch.ops import nn as pnn
+
+    share, fractions = 0.0, []
+    with torch.no_grad():
+        for a, b, va, vb in ((warped, p1, v0, v1), (p1, warped, v1, v0)):
+            got = pknn.knn_distance_sq(a, b, k, va, vb)[0]
+            with plain_kernels():
+                want = pknn.knn_distance_sq(a, b, k, va, vb)[0]
+            _, slotwise, _ = knn_agreement(got, want, a[0])
+            odd = ~slotwise & va[0]
+            diff = pnn.capped(got, cap).mean(-1) - pnn.capped(want, cap).mean(-1)
+            count = float(va.sum())
+            share += float(diff[odd].sum()) / max(count, 1.0)
+            fractions.append(float(odd.sum()) / max(count, 1.0))
+    return share, fractions
+
+
+def phase_nsfp(device, pair):
+    """The nsfp estimator at knn_k 0 and KNN_K (see the module docstring);
+    returns the summed launch counts and a 20-step run for the profile."""
+    import torch
+
+    from himo_tpu_torch.models import nsfp as pn
+    from himo_tpu_torch.models.coordinate_mlp import init_mlp
+    from himo_tpu_torch.models.registry import get_estimator
+
+    pc0, pc1, _, moving, v0, v1 = pair
+    totals = dict.fromkeys(read_counts(), 0)
+    for k in (0, KNN_K):
+        config = pn.NSFPConfig(cluster_prior=False, knn_k=k, iterations=NSFP_ITERS)
+        loss_fn, total_flow = pn.nsfp_loss_fn(pc0, pc1, v0, v1, config)
+        init = init_mlp(torch.Generator().manual_seed(0), config.hidden, config.layers,
+                        device=device)
+
+        def loss_and_grads():
+            p = [tuple(t.clone().requires_grad_() for t in group) for group in init]
+            loss = loss_fn(p)
+            loss.backward()
+            return float(loss.detach()), _flat_grads(p)
+
+        reset_counts()
+        first, grads = loss_and_grads()
+        per_step = read_counts()
+        with plain_kernels():
+            plain_first, plain_grads = loss_and_grads()
+        expected = dict.fromkeys(per_step, 0)
+        expected.update(nn_argmin_rows=2, segment_rows_sum=1)
+        if k:
+            expected["knn_rows"] = 2
+        if per_step != expected:
+            raise AssertionError(f"nsfp knn_k={k}: one step launched {per_step} != {expected}")
+        # With knn_k > 0, queries whose k-NN lists differ slot by slot (a
+        # near-tie collapsed in one form only) carry a known share of the
+        # difference: the limit holds for the rest.
+        shift, shifted = 0.0, ""
+        if k:
+            with torch.no_grad():
+                warped = pc0[None, :, :3] + total_flow(init)[None]
+            shift, fractions = knn_loss_shift(warped, pc1[None, :, :3], v0[None],
+                                              v1[None], k, config.max_dist ** 2)
+            shifted = (f"; slot-shifted k-NN queries {fractions[0]:.6f} / "
+                       f"{fractions[1]:.6f} of each side carry {shift:.6e}")
+        loss_rel = abs(first - plain_first - shift) / abs(plain_first)
+        norm, plain_norm = float(grads.norm()), float(plain_grads.norm())
+        norm_rel = abs(norm - plain_norm) / plain_norm
+        cosine = float(torch.nn.functional.cosine_similarity(grads, plain_grads, dim=0))
+        log(f"nsfp knn_k={k} step 1, kernels vs plain: loss {first:.6f} vs {plain_first:.6f}"
+            f"{shifted} (rel diff of the rest {loss_rel:.3e}), grad norm {norm:.6f} vs "
+            f"{plain_norm:.6f} (rel {norm_rel:.3e}), cosine {cosine:.6f}; launches per "
+            f"step {per_step}")
+        if loss_rel > TERM_RTOL or norm_rel > NORM_RTOL or cosine < MIN_COSINE:
+            raise AssertionError(
+                f"nsfp knn_k={k} step 1 through the kernels disagrees with the plain "
+                f"run (limits: loss {TERM_RTOL}, norm {NORM_RTOL}, cosine {MIN_COSINE})")
+
+        estimate = get_estimator("nsfp", device=device, cluster_prior=False, knn_k=k,
+                                 iterations=NSFP_ITERS)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (flow, loss), secs = _timed(lambda: estimate(
+            pc0, pc1, v0, v1, torch.Generator().manual_seed(0)))
+        counts = read_counts()
+        want = {key: v * NSFP_ITERS for key, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"nsfp knn_k={k}: the run launched {counts} != {want}")
+        for key, v in counts.items():
+            totals[key] += v
+        epe_moving, epe_static = _check_flow(f"nsfp knn_k={k}", flow, loss, first, pair)
+        log(f"nsfp knn_k={k}, {NSFP_ITERS} steps on {pc0.shape[0]} points: "
+            f"{secs * 1e3:.3f} ms per frame, {secs * 1e3 / NSFP_ITERS:.4f} ms per step; "
+            f"loss {first:.6f} -> {float(loss):.6f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; EPE moving "
+            f"{epe_moving:.4f} m ({int((moving & v0).sum())} points), static "
+            f"{epe_static:.4f} m (random init: printed, not checked)")
+
+    return (totals, *_profile_run("nsfp", pair, knn_k=KNN_K))
+
+
+def _profile_run(name, pair, **overrides):
+    """A warm NSFP_PROFILE_ITERS-step run of the estimator ``name`` on the
+    pair, and its unprofiled wall time in ms (median of 3)."""
+    import torch
+
+    from himo_tpu_torch.models.registry import get_estimator
+
+    pc0, pc1, _, _, v0, v1 = pair
+    estimate = get_estimator(name, device=pc0.device, cluster_prior=False,
+                             iterations=NSFP_PROFILE_ITERS, **overrides)
+
+    def run():
+        return estimate(pc0, pc1, v0, v1, torch.Generator().manual_seed(0))
+
+    run()
+    return run, float(np.median([_timed(run)[1] for _ in range(3)])) * 1e3
+
+
+def phase_fastnsf(device, pair):
+    """The fastnsf estimator on the nsfp pair: the distance-field build
+    timed alone, then the full run; it launches none of the port's
+    kernels. Returns a 20-step run for the profile."""
+    import torch
+
+    from himo_tpu_torch.models import fastnsf as pf
+    from himo_tpu_torch.models.coordinate_mlp import init_mlp
+    from himo_tpu_torch.models.registry import get_estimator
+    from himo_tpu_torch.ops.dt import DTConfig, distance_transform
+
+    pc0, pc1, _, _, v0, v1 = pair
+    dt = FASTNSF_DT or DTConfig()
+    config = pf.FastNSFConfig(cluster_prior=False, dt=dt, iterations=NSFP_ITERS)
+    distance_transform(pc1, v1, dt)  # warm-up
+    builds = [_timed(lambda: distance_transform(pc1, v1, dt)) for _ in range(3)]
+    grid = builds[0][0]
+    build_ms = float(np.median([s for _, s in builds])) * 1e3
+    loss_fn, _ = pf.fastnsf_loss_fn(pc0, v0, grid, config)
+    init = init_mlp(torch.Generator().manual_seed(0), config.hidden, config.layers,
+                    device=device)
+    with torch.no_grad():
+        first = float(loss_fn(init))
+    estimate = get_estimator("fastnsf", device=device, cluster_prior=False, dt=dt,
+                             iterations=NSFP_ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (flow, loss), secs = _timed(lambda: estimate(
+        pc0, pc1, v0, v1, torch.Generator().manual_seed(0)))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"fastnsf launched port kernels: {counts}")
+    epe_moving, epe_static = _check_flow("fastnsf", flow, loss, first, pair)
+    step_ms = (secs * 1e3 - build_ms) / NSFP_ITERS
+    log(f"fastnsf {dt.grid_shape} field, {NSFP_ITERS} steps on {pc0.shape[0]} points: "
+        f"distance-field build {build_ms:.3f} ms, {secs * 1e3:.3f} ms per frame, "
+        f"{step_ms:.4f} ms per step; loss {first:.6f} -> {float(loss):.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; EPE moving "
+        f"{epe_moving:.4f} m, static {epe_static:.4f} m (printed, not checked)")
+    return _profile_run("fastnsf", pair, dt=dt)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "himo_tpu_torch" / "csrc").is_dir():
@@ -785,6 +1109,8 @@ def main() -> int:
     segment = phase_segment_sum(device)
     nn = phase_nn(device)
     fused = phase_fused(device)
+    pair = _nsfp_pair(device)
+    knn = phase_knn(device, pair)
     torch.cuda.empty_cache()
     launches, run_frame, frame_ms = phase_slice(device, clouds)
     phase_profile("inference", run_frame, frame_ms)
@@ -793,7 +1119,12 @@ def main() -> int:
     train, run_step, step_ms = phase_train(device)
     phase_profile("train_step", run_step, step_ms)
     del run_step
-    total = {k: launches[k] + train[k] for k in launches}
+    torch.cuda.empty_cache()
+    nsfp, run_nsfp, nsfp_ms = phase_nsfp(device, pair)
+    phase_profile(f"nsfp_{NSFP_PROFILE_ITERS}_steps", run_nsfp, nsfp_ms, calls=1)
+    run_fastnsf, fastnsf_ms = phase_fastnsf(device, pair)
+    phase_profile(f"fastnsf_{NSFP_PROFILE_ITERS}_steps", run_fastnsf, fastnsf_ms, calls=1)
+    total = {k: launches[k] + train[k] + nsfp[k] for k in launches}
     main_nn = NN_SHAPES[0]
     kernels = [
         dict(name="scatter_max_rows", route="cuda",
@@ -820,6 +1151,9 @@ def main() -> int:
         dict(name="fused_nn", route="cuda", source="himo_tpu_torch/csrc/fused_nn.cu",
              replaces="himo_tpu/ops/nn.py:431",
              launches=total["fused_nn"], **fused["min"]),
+        dict(name="knn_rows", route="cuda", source="himo_tpu_torch/csrc/knn.cu",
+             replaces="himo_tpu/ops/knn.py:49",
+             launches=total["knn_rows"], **knn),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

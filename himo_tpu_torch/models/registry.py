@@ -1,6 +1,7 @@
 """Method-name registry mapping CLI names to estimators
-(port of ``himo_tpu/models/registry.py``; the port registers only the
-feed-forward networks so far)."""
+(port of ``himo_tpu/models/registry.py``): the feed-forward networks and
+the runtime-optimisation estimators ``nsfp``, ``fastnsf`` and
+``fastnsf10``; ``icp_flow`` is not ported yet."""
 
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ def get_estimator(name: str, **overrides):
 
 def _load_builtin_estimators():
     # Imported lazily so registry imports stay light.
+    import himo_tpu_torch.models.nsfp  # noqa: F401
+    import himo_tpu_torch.models.fastnsf  # noqa: F401
     import himo_tpu_torch.models.feedforward  # noqa: F401
 
 

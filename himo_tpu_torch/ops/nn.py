@@ -2,12 +2,16 @@
 
 Two families, each with a hand-written CUDA kernel on the GPU:
 
-- The streaming search of the refine head (``csrc/nn.cu``; forward only):
-  :func:`nn_min_rows`, :func:`nn_argmin_rows`. Padding contract, as in the
-  reference: invalid rows are moved to ``SENTINEL`` (1e6 m away) before the
-  search, so invalid references lose every min race and need no mask
-  inside the kernel; results for invalid queries are masked afterwards
-  (0 distance, index 0).
+- The streaming search (``csrc/nn.cu``): :func:`nn_min_rows`,
+  :func:`nn_argmin_rows`, behind the refine head's :func:`nn_argmin` and
+  the differentiable :func:`nn_distance_sq` (the reference's ``_nn_core``
+  custom VJP: the argmin kernel forward under grad, the min kernel without,
+  and a :func:`segment_rows_sum` backward), which carries
+  :func:`truncated_chamfer` and :func:`chamfer_distance`. Padding contract,
+  as in the reference: invalid rows are moved to ``SENTINEL`` (1e6 m away)
+  before the search, so invalid references lose every min race and need
+  no mask inside the kernel; results for invalid queries are masked
+  afterwards (0 distance, index 0).
 - The fused masked search of the chamfer loss (``csrc/fused_nn.cu``):
   :func:`fused_nn` / :func:`fused_nn_idx`, four masked mins from one
   (query, reference) pair of clouds with additive ``_MASK_BIG`` penalties,
@@ -191,6 +195,39 @@ def nn_argmin(
     return d2, idx
 
 
+class _NNCore(torch.autograd.Function):
+    """The reference's ``_nn_core`` custom VJP: the tracking kernel forward
+    (K7), and the analytic gradient at the argmin backward,
+    ``dq = 2 g (q - r[idx])`` and ``dr = -segment_rows_sum(dq, idx, M)``
+    (K3), the latter only when the references need a gradient."""
+
+    @staticmethod
+    def forward(ctx, q3, r3):
+        d2, idx = nn_argmin_rows(q3.detach(), r3.detach())
+        idx = torch.clamp(idx, max=r3.shape[1] - 1)
+        ctx.save_for_backward(q3, r3, idx)
+        return torch.clamp(d2, min=0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, r3, idx = ctx.saved_tensors
+        dq = 2.0 * g[..., None] * (q3 - _take_rows_at(r3, idx))
+        dr = None
+        if ctx.needs_input_grad[1]:
+            dr = -segment_rows_sum(dq.contiguous(), idx, r3.shape[1])
+        return dq, dr
+
+
+def _nn_core(q3: torch.Tensor, r3: torch.Tensor) -> torch.Tensor:
+    """Min squared distance per query of contiguous fp32 (B, N, 3) against
+    (B, M, 3), clamped at >= 0; differentiable in both clouds. The tracking
+    kernel runs only when a gradient is needed, the min-only kernel
+    otherwise (as the reference's primal does)."""
+    if torch.is_grad_enabled() and (q3.requires_grad or r3.requires_grad):
+        return _NNCore.apply(q3, r3)
+    return torch.clamp(nn_min_rows(q3, r3), min=0.0)
+
+
 def nn_distance_sq(
     query: torch.Tensor,
     ref: torch.Tensor,
@@ -198,13 +235,57 @@ def nn_distance_sq(
     ref_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-query squared distance to the nearest reference point, (B, N)
-    fp32; invalid refs never win, invalid queries return 0. Forward only."""
-    q = _pad_coords(query, query_valid)
-    r = _pad_coords(ref, ref_valid)
-    d2 = torch.clamp(nn_min_rows(q, r), min=0.0)
+    fp32; invalid refs never win, invalid queries return 0.
+
+    Differentiable in both clouds (:class:`_NNCore`). Masks act outside the
+    core, as in the reference: invalid points move to ``SENTINEL`` through
+    a ``where``, which blocks their gradient."""
+    d2 = _nn_core(_pad_coords(query, query_valid), _pad_coords(ref, ref_valid))
     if query_valid is not None:
         d2 = torch.where(query_valid, d2, torch.zeros_like(d2))
     return d2
+
+
+def _frame_mean(values: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
+    """Per-frame mean of (B, N) values, over ``valid`` when given -> (B,)."""
+    if valid is None:
+        return values.mean(dim=-1)
+    return _masked_mean(values, valid)
+
+
+def chamfer_distance(
+    pc1: torch.Tensor,
+    pc2: torch.Tensor,
+    valid1: torch.Tensor | None = None,
+    valid2: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Symmetric mean-NN chamfer per frame, (B,): the mean of both
+    directions' mean NN distance (not squared), the eval definition."""
+    d12 = torch.sqrt(nn_distance_sq(pc1, pc2, valid1, valid2))
+    d21 = torch.sqrt(nn_distance_sq(pc2, pc1, valid2, valid1))
+    return 0.5 * (_frame_mean(d12, valid1) + _frame_mean(d21, valid2))
+
+
+def capped(d: torch.Tensor, cap: float) -> torch.Tensor:
+    """``min(d, cap)`` whose gradient splits 0.5 / 0.5 at a tie, as
+    ``jnp.minimum``'s does (``torch.clamp`` would pass all of it)."""
+    return torch.minimum(d, torch.full_like(d, cap))
+
+
+def truncated_chamfer(
+    pc1: torch.Tensor,
+    pc2: torch.Tensor,
+    valid1: torch.Tensor | None = None,
+    valid2: torch.Tensor | None = None,
+    max_dist: float = 2.0,
+) -> torch.Tensor:
+    """Truncated symmetric chamfer on squared distances per frame, (B,):
+    distances beyond ``max_dist`` are capped, the scene-flow optimisation
+    loss of ``nsfp``."""
+    cap = max_dist * max_dist
+    d12 = capped(nn_distance_sq(pc1, pc2, valid1, valid2), cap)
+    d21 = capped(nn_distance_sq(pc2, pc1, valid2, valid1), cap)
+    return _frame_mean(d12, valid1) + _frame_mean(d21, valid2)
 
 
 # ---------------------------------------------------------------------------
@@ -453,14 +534,11 @@ def fused_chamfer_terms(
         to_pen(valid1), to_pen(valid1 & dynamic1),
     )
     dyn_dist = max_dist if dynamic_max_dist is None else dynamic_max_dist
-
-    def capped(d, dist):
-        return torch.minimum(d, torch.full_like(d, dist * dist))
-
-    chamfer = _masked_mean(capped(dq_all, max_dist), valid0) + _masked_mean(
-        capped(dr_all, max_dist), valid1
+    cap, dyn_cap = max_dist * max_dist, dyn_dist * dyn_dist
+    chamfer = _masked_mean(capped(dq_all, cap), valid0) + _masked_mean(
+        capped(dr_all, cap), valid1
     )
-    dyn = _masked_mean(capped(dq_dyn, dyn_dist), valid0 & dynamic0) + _masked_mean(
-        capped(dr_dyn, dyn_dist), valid1 & dynamic1
+    dyn = _masked_mean(capped(dq_dyn, dyn_cap), valid0 & dynamic0) + _masked_mean(
+        capped(dr_dyn, dyn_cap), valid1 & dynamic1
     )
     return chamfer, dyn

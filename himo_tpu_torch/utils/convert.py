@@ -1,6 +1,9 @@
-"""JAX/flax parameters -> the port's PyTorch state dict.
+"""JAX/flax parameters -> the port's PyTorch parameters.
 
-The JAX parameters arrive as a nested dict of numpy arrays (what
+:func:`mlp_from_jax` takes the coordinate MLP's ``[(W (in, out), b), ...]``
+as they are: the port keeps the reference's layout.
+
+For :func:`flax_to_torch`, the JAX parameters arrive as a nested dict of numpy arrays (what
 ``jax.tree_util.tree_map(np.asarray, params)`` gives), with or without the
 top-level ``"params"`` key. The mapping:
 
@@ -53,6 +56,12 @@ def _gru(out: dict, prefix: str, p: dict) -> None:
     )
     zeros = np.zeros_like(np.asarray(p["hn"]["bias"]))
     out[f"{prefix}.bias_hh"] = _t(np.concatenate([zeros, zeros, p["hn"]["bias"]]))
+
+
+def mlp_from_jax(params) -> list:
+    """The coordinate MLP's JAX parameters, a list of ``(W (in, out), b)``
+    arrays, -> the port's list of fp32 ``(W, b)`` CPU tensors."""
+    return [(_t(w), _t(b)) for w, b in params]
 
 
 def _unexpected(where: str, keys) -> None:

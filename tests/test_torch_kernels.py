@@ -15,7 +15,9 @@ NN squared distances, plain and fused, within ``1e-5 * (|q|^2 + |r|^2) +
 1e-6`` (the kernels compute ``sum((q - r)^2)``, the plain versions
 ``|q|^2 + |r|^2 - 2 q.r``), the kernel's argmin at a distance equal to the
 plain min within the same bound, and exact duplicates resolved to the
-lowest index."""
+lowest index. k-NN distances: bitwise on quarter-metre grid coordinates
+(exact in both forms, so ties collapse alike), and within the NN bound as
+sets on float coordinates (a near-tie may collapse in one form only)."""
 
 import numpy as np
 import pytest
@@ -270,3 +272,72 @@ def test_fused_nn_kernels_match_plain(cuda_device, n, m):
         assert live[idx].all(), k  # a masked point never wins
     assert (outs[4][0, :5].cpu().numpy() == np.arange(5)).all()
     assert (outs[6][0, :5].cpu().numpy() == np.arange(5)).all()
+
+
+def _grid_knn_case(rng, b, n, m):
+    """Coordinates on a 1/4 m grid in [-8, 8]: every squared distance is a
+    multiple of 1/16 below 2^20, exact in fp32 in both the kernel's form and
+    the plain version's, and exact ties abound (the collapse rule)."""
+    q = rng.integers(-32, 33, size=(b, n, 3)).astype(np.float32) / 4
+    r = rng.integers(-32, 33, size=(b, m, 3)).astype(np.float32) / 4
+    r[:, m // 2 : m // 2 + 20] = r[:, :20]  # exact duplicate references
+    q[:, :10] = r[:, :10]
+    return q, r
+
+
+def test_knn_plain_matches_numpy_distinct_values():
+    """The k smallest DISTINCT distances, 3.0e38 where fewer exist."""
+    from himo_tpu_torch.ops import knn as PK
+
+    rng = np.random.default_rng(4)
+    q, r = _grid_knn_case(rng, 2, 150, 40)
+    r[1, 5:] = r[1, 0]  # frame 1: 5 distinct references only
+    for k in (1, 4, 16):
+        got = PK.knn_rows(_t(q), _t(r), k).numpy()
+        for b in range(2):
+            full = ((q[b, :, None].astype(np.float64) - r[b, None]) ** 2).sum(-1)
+            for i in range(150):
+                distinct = np.unique(full[i])[:k]
+                want = np.full(k, 3.0e38)
+                want[: len(distinct)] = distinct
+                np.testing.assert_array_equal(got[b, i], want.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1000, 3000), (129, 1025), (4096, 8192)])
+def test_knn_kernel_matches_plain(cuda_device, n, m):
+    """Grid coordinates: bitwise equal to the plain version for k = 1..16,
+    ties collapsed alike; float coordinates: within 1e-5 * (|q|^2 + |r|^2)
+    + 1e-6 as sets (chip_smoke.knn_agreement), slot by slot on >= 0.99 of
+    queries."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from himo_tpu_torch.ops import knn as PK
+
+    rng = np.random.default_rng(n + m)
+    q, r = (_t(a).to(cuda_device) for a in _grid_knn_case(rng, 2, n, m))
+    for k in range(1, 17):
+        before = PK.knn_rows.launches
+        got = PK.knn_rows(q, r, k)
+        assert PK.knn_rows.launches == before + 1
+        want = PK._knn_plain(q, r, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), k
+    assert (got[:, :10, 0] == 0).all() and (got[:, :10, 1] > 0).all()
+    qf, rf, qv, rv = _nn_case(rng, n, m, 20.0)
+    qs = PNN._pad_coords(_t(qf)[None].to(cuda_device), _t(qv)[None].to(cuda_device))
+    rs = PNN._pad_coords(_t(rf)[None].to(cuda_device), _t(rv)[None].to(cuda_device))
+    got = PK.knn_rows(qs, rs, 8)
+    want = PK._knn_plain(qs, rs, 8)
+    torch.cuda.synchronize()
+    as_sets, slotwise, _ = chip_smoke.knn_agreement(got[0], want[0], qs[0])
+    valid = _t(qv).to(cuda_device)
+    assert as_sets[valid].all() and float(slotwise[valid].float().mean()) >= 0.99
+    with pytest.raises(ValueError):
+        PK.knn_rows(q, r, 17)
+    with pytest.raises(RuntimeError):
+        PK.knn_rows(q.clone().requires_grad_(), r, 4)

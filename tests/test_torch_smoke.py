@@ -41,11 +41,15 @@ class _Event:
 @pytest.fixture()
 def rehearsal(monkeypatch):
     from himo_tpu_torch.models import feedforward as pf
+    from himo_tpu_torch.ops.dt import DTConfig
     from himo_tpu_torch.training import trainer as pt
 
     for name, value in (("BATCH", 2), ("NUM_POINTS", 2048), ("FUSED_POINTS", 256),
                         ("NN_SHAPES", ((128, 256), (256, 128))),
-                        ("SEGMENT_SHAPES", ((256, 2048), (512, 256)))):
+                        ("SEGMENT_SHAPES", ((256, 2048), (512, 256))),
+                        ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
+                        ("KNN_DUPLICATES", 16),
+                        ("FASTNSF_DT", DTConfig(voxel_size=(3.2, 3.2, 1.6)))):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
@@ -77,24 +81,37 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     fused = cs.phase_fused(dev)
     launches, run_frame, frame_ms = cs.phase_slice(dev, clouds)
     train, run_step, step_ms = cs.phase_train(dev)
-    assert frame_ms > 0 and step_ms > 0
+    pair = cs._nsfp_pair(dev)
+    knn = cs.phase_knn(dev, pair)
+    nsfp, run_nsfp, nsfp_ms = cs.phase_nsfp(dev, pair)
+    run_fastnsf, fastnsf_ms = cs.phase_fastnsf(dev, pair)
+    assert frame_ms > 0 and step_ms > 0 and nsfp_ms > 0 and fastnsf_ms > 0
     run_frame()
     run_step()
-    assert launches == dict(scatter_max_rows=3, scatter_sum_rows=0, nn_argmin_rows=10,
-                            nn_min_rows=1, segment_rows_sum=0, fused_nn=0, fused_nn_idx=0)
+    flow, loss = run_nsfp()
+    assert flow.shape == (512, 3)
+    none = dict.fromkeys(("scatter_max_rows", "scatter_sum_rows", "nn_argmin_rows",
+                          "nn_min_rows", "segment_rows_sum", "fused_nn", "fused_nn_idx",
+                          "knn_rows"), 0)
+    assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
+                        "nn_min_rows": 1}
     steps = cs.TRAIN_STEPS
-    assert train == dict(scatter_max_rows=4 * steps + 4, scatter_sum_rows=steps,
-                         nn_argmin_rows=0, nn_min_rows=0, segment_rows_sum=3 * steps,
-                         fused_nn=1, fused_nn_idx=steps)
+    assert train == {**none, "scatter_max_rows": 4 * steps + 4, "scatter_sum_rows": steps,
+                     "segment_rows_sum": 3 * steps, "fused_nn": 1, "fused_nn_idx": steps}
+    iters = cs.NSFP_ITERS  # knn_k 0, then 4
+    assert nsfp == {**none, "nn_argmin_rows": 2 * iters * 2, "segment_rows_sum": iters * 2,
+                    "knn_rows": 2 * iters}
     entries = [scatter, scatter_sum, *segment.values(), *nn[cs.NN_SHAPES[0]].values(),
-               *fused.values()]
+               *fused.values(), knn]
     keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
     for e in entries:
         assert set(e) == keys and e["bound_ms"] > 0
         json.dumps(e)
     assert scatter["library_ms"] is not None and fused["idx"]["library_ms"] is None
+    assert knn["library_ms"] is None and knn["bound_by"] == "operations"
     out = capsys.readouterr().out
     assert "step 1 terms, kernels/plain" in out and "val step" in out
+    assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
 def test_profile_picks_the_port_kernels_out_of_a_trace():
@@ -107,7 +124,9 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
                  "(anonymous namespace)::scatter_sum_warp(int const*)",
                  "(anonymous namespace)::scatter_max_rows(int const*)",
                  "(anonymous namespace)::fill_neg_inf(float*, long long)",
-                 "(anonymous namespace)::finalize(float*, long long)"):
+                 "(anonymous namespace)::finalize(float*, long long)",
+                 "void (anonymous namespace)::knn_kernel<4>(float const*, float const*, "
+                 "float*, int, int)"):
         assert pattern.match(name), name
     for name in ("void (anonymous namespace)::elementwise_kernel_with_index<int>(int)",
                  "void at::native::(anonymous namespace)::finalize(float*)"):
