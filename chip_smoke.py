@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four main paths, at full width with random weights from seeded generators:
+Six main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -13,6 +13,13 @@ Four main paths, at full width with random weights from seeded generators:
   for the JAX package): ``TrainConfig()`` (8 frames x 65,536 points, 16,384
   chamfer points, Adam with warmup and clip), bf16, on that script's batch;
   four optimizer steps, then one validation step;
+- path A, the same inference and two train steps on the 256x256 grid at
+  0.4 m (``bench.py``'s "256x256 throughput config"), where the pillar max
+  and gather take the resident route (K3 max, K4, K3 sum);
+- path B, the same inference and two train steps at 131,072 points per
+  sweep on the 512x512 grid (the largest bucket of dense multi-LiDAR
+  superframes), where the pillar max and the gather's backward take the
+  stream route (K2 max and sum);
 - the ``nsfp`` estimator through the registry, ``NSFPConfig(cluster_prior=
   False)`` (hidden 128, 8 layers, lr 8e-3, 500 Adam steps, 2 m truncation),
   once with the single-NN chamfer (``knn_k=0``) and once with the 4-NN
@@ -32,8 +39,10 @@ and prints no result):
    paths' shapes, timed with CUDA events beside the plain version and, where
    one PyTorch call computes the same function, beside that call;
 4. slice: the full inference forward through the kernels (launch counts
-   checked: 3 scatter_max_rows, 10 nn_argmin_rows, 1 nn_min_rows), checked
-   against the same forward with the plain versions on the card, and timed;
+   checked: 3 scatter_max_rows, 10 nn_argmin_rows, 1 nn_min_rows; path A
+   3 scatter_max_resident_rows and 1 gather_rows instead of the first,
+   path B 3 sorted_scatter_max_rows), checked against the same forward with
+   the plain versions on the card, and timed;
 5. train: four steps through the kernels (launches checked per step:
    4 scatter_max_rows, 1 scatter_sum_rows, 1 fused_nn_idx, 3 segment_rows_sum);
    before each, the same loss terms and gradients with the plain versions
@@ -41,7 +50,11 @@ and prints no result):
    gradient norm within 1e-3, cosine >= 0.999; enforced at step 1, logged
    after); step 1 (lr 0) leaves the parameters unchanged and steps 2-4
    change them; one validation step (4 scatter_max_rows, 1 fused_nn); every
-   metric finite; step times and peak memory;
+   metric finite; step times and peak memory. Paths A and B take two steps
+   each the same way (path A per step: 4 scatter_max_resident_rows, 1
+   gather_rows, 1 fused_nn_idx, 4 segment_rows_sum; path B: 4
+   sorted_scatter_max_rows, 1 sorted_scatter_sum_rows, 1 fused_nn_idx, 3
+   segment_rows_sum);
 6. nsfp, at ``knn_k`` 0 and 4: before the run, the step-1 loss and
    gradient through the kernels against the same through the plain
    versions on the card (loss within 1e-4 relative, at ``knn_k=4`` once
@@ -56,8 +69,9 @@ and prints no result):
 7. fastnsf: the distance-field build timed alone, then the 500-step run
    (no launch of the port's kernels); the same loss and flow checks;
 8. profile: after each of the first two paths, three more calls of it
-   under ``torch.profiler``, and one 20-step run each of ``nsfp`` at
-   ``knn_k=4`` and of ``fastnsf``:
+   under ``torch.profiler``, one call each of path A's and path B's
+   inference, and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of
+   ``fastnsf``:
    device busy share, launches per call, the kernels with the most device
    time and each of the port's kernels' device time per launch.
 
@@ -83,6 +97,9 @@ import numpy as np
 BATCH = 8
 NUM_POINTS = 65536
 VALID_FRACTION = 0.92
+GRID_256 = {"pillar.voxel_size": (0.4, 0.4)}  # path A: the 256x256 grid
+BIG_POINTS = 131072  # path B: points per sweep (the stream route)
+ROUTE_TRAIN_STEPS = 2  # train steps of paths A and B
 SCATTER_CHANNELS = 32
 GATHER_CHANNELS = 65  # 64 UNet feature channels + the slot channel
 NN_SHAPES = ((4096, 8192), (8192, 4096))  # ICP/null/score passes, claim pass
@@ -156,7 +173,11 @@ def _wrappers():
     return {
         (pknn, "knn_rows"): pknn._knn_plain,
         (pvox, "scatter_max_rows"): pvox._scatter_max_rows_plain,
+        (pvox, "scatter_max_resident_rows"): pvox._scatter_max_rows_plain,
         (pvox, "scatter_sum_rows"): pvox._scatter_sum_rows_plain,
+        (pvox, "sorted_scatter_max_rows"): pvox._scatter_max_rows_plain,
+        (pvox, "sorted_scatter_sum_rows"): pvox._scatter_sum_rows_plain,
+        (pvox, "gather_rows"): pvox._gather_rows_plain,
         (pnn, "nn_argmin_rows"): pnn._nn_argmin_plain,
         (pnn, "nn_min_rows"): pnn._nn_min_plain,
         (pnn, "segment_rows_sum"): pnn._segment_rows_sum_plain,
@@ -220,20 +241,24 @@ def phase_build():
                 log(f"    {line.strip()}")
 
 
-def _clouds(device):
+def _clouds(device, n=None):
+    """(pc0, pc1, pc_hist, valid, dt0, n_valid): BATCH frames of ``n``
+    points (NUM_POINTS when None) from ``lidar_like_cloud`` (seed 0), the
+    first 92 % of each frame valid."""
     import torch
 
     from himo_tpu_torch.data.synthetic import lidar_like_cloud
 
+    n = NUM_POINTS if n is None else n
     rng = np.random.default_rng(0)
     pc0, pc1, pch = (
-        torch.from_numpy(lidar_like_cloud(rng, BATCH, NUM_POINTS)).to(device)
+        torch.from_numpy(lidar_like_cloud(rng, BATCH, n)).to(device)
         for _ in range(3)
     )
-    n_valid = int(NUM_POINTS * VALID_FRACTION)
-    valid = (torch.arange(NUM_POINTS, device=device) < n_valid)[None].repeat(BATCH, 1)
+    n_valid = int(n * VALID_FRACTION)
+    valid = (torch.arange(n, device=device) < n_valid)[None].repeat(BATCH, 1)
     dt0 = torch.from_numpy(
-        rng.uniform(0, 0.1, size=(BATCH, NUM_POINTS)).astype(np.float32)
+        rng.uniform(0, 0.1, size=(BATCH, n)).astype(np.float32)
     ).to(device)
     return pc0, pc1, pch, valid, dt0, n_valid
 
@@ -249,43 +274,85 @@ def _flat_rows(pids, rows):
     return torch.where(p < rows, base + p, torch.full_like(p, b * rows)).reshape(-1)
 
 
-def phase_scatter(device, clouds):
-    import torch
-
+def _pillar_ids(clouds, voxel_size=None):
+    """The first sweep's (B, N) pillar ids on the default grid, or at
+    ``voxel_size``, and the row count."""
     from himo_tpu_torch.ops import voxelize as pvox
 
     pc0, _, _, valid, _, _ = clouds
-    cfg = pvox.PillarConfig()
-    grid = pvox.voxelize_pillars(pc0, valid, cfg)
-    rows = cfg.num_pillars
-    trash = float((grid.pillar_ids >= rows).float().mean())
-    gen = torch.Generator(device=device).manual_seed(1)
-    feats = torch.relu(torch.randn(
-        BATCH, NUM_POINTS, SCATTER_CHANNELS, device=device, generator=gen
-    ))
-    pids = grid.pillar_ids.contiguous()
-    got = pvox.scatter_max_rows(pids, feats, rows)
-    want = pvox._scatter_max_rows_plain(pids, feats, rows)
+    cfg = pvox.PillarConfig() if voxel_size is None else pvox.PillarConfig(
+        voxel_size=voxel_size)
+    return pvox.voxelize_pillars(pc0, valid, cfg).pillar_ids.contiguous(), cfg.num_pillars
+
+
+def _relu_feats(device, shape, seed):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.relu(torch.randn(*shape, device=device, generator=gen))
+
+
+def _sparse_cotangents(device, shape, seed):
+    """Normal values with half of them zero (the cotangents of ReLU'd
+    pillar features)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vals = torch.randn(*shape, device=device, generator=gen)
+    return torch.where(torch.rand(vals.shape, device=device, generator=gen) < 0.5,
+                       vals, torch.zeros_like(vals))
+
+
+def _check_max(name, fn, plain, pids, feats, rows):
+    """Hold a per-row max kernel ``fn(pids, feats, rows)`` bitwise against
+    its plain version; time both and ``torch.zeros`` + ``scatter_reduce_``
+    amax on the same inputs (a new table, unreached rows 0, as the
+    wrapper)."""
+    import torch
+
+    b, n, c = feats.shape
+    trash = float((pids >= rows).float().mean())
+    got = fn(pids, feats, rows)
+    want = plain(pids, feats, rows)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        raise AssertionError(f"scatter_max kernel differs from plain in {bad} values")
-    ms = cuda_ms(lambda: pvox.scatter_max_rows(pids, feats, rows))
-    plain_ms = cuda_ms(lambda: pvox._scatter_max_rows_plain(pids, feats, rows))
-    flat = _flat_rows(pids, rows)[:, None].expand(-1, SCATTER_CHANNELS)
-    src = feats.reshape(-1, SCATTER_CHANNELS)
-    # The same work as the wrapper: a new table, unreached rows 0.
+        raise AssertionError(f"{name} kernel differs from plain in {bad} values")
+    ms = cuda_ms(lambda: fn(pids, feats, rows))
+    plain_ms = cuda_ms(lambda: plain(pids, feats, rows))
+    flat = _flat_rows(pids, rows)[:, None].expand(-1, c)
+    src = feats.reshape(-1, c)
     library_ms = cuda_ms(lambda: torch.zeros(
-        BATCH * rows + 1, SCATTER_CHANNELS, device=device
+        b * rows + 1, c, device=feats.device
     ).scatter_reduce_(0, flat, src, "amax", include_self=False))
-    log(f"scatter_max B={BATCH} N={NUM_POINTS} C={SCATTER_CHANNELS} rows={rows} "
-        f"trash={trash:.3f}: bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scatter_reduce_ amax {library_ms:.4f} ms")
-    n = BATCH * NUM_POINTS
+    log(f"{name} B={b} N={n} C={c} rows={rows} trash={trash:.3f}: bitwise equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax {library_ms:.4f} ms")
+    pts = b * n
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms,
-                **bound(n * 4 + n * SCATTER_CHANNELS * 4 + BATCH * rows * SCATTER_CHANNELS * 4,
-                        n * SCATTER_CHANNELS))
+                **bound(pts * 4 + pts * c * 4 + b * rows * c * 4, pts * c))
+
+
+def phase_scatter(device, clouds):
+    """K1 max: the 512x512 pillar pool, (B, N, 32) ReLU'd features at the
+    main path's pillar ids."""
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    pids, rows = _pillar_ids(clouds)
+    feats = _relu_feats(device, (BATCH, NUM_POINTS, SCATTER_CHANNELS), 1)
+    return _check_max("scatter_max_rows", pvox.scatter_max_rows,
+                      pvox._scatter_max_rows_plain, pids, feats, rows)
+
+
+def phase_scatter_resident(device, clouds):
+    """K3 max: path A's 256x256 pillar pool, the same features at the
+    256x256 pillar ids."""
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    pids, rows = _pillar_ids(clouds, GRID_256["pillar.voxel_size"])
+    feats = _relu_feats(device, (BATCH, NUM_POINTS, SCATTER_CHANNELS), 1)
+    return _check_max("scatter_max_resident_rows", pvox.scatter_max_resident_rows,
+                      pvox._scatter_max_rows_plain, pids, feats, rows)
 
 
 def _check_sum(name, got, want, mag):
@@ -299,40 +366,117 @@ def _check_sum(name, got, want, mag):
     return float(err.max())
 
 
+def _check_sum_kernel(name, fn, plain, ids, vals, rows):
+    """Hold a per-row sum kernel ``fn(ids, vals, rows)`` against its plain
+    version within 1e-5 * sum|x| + 1e-6; time both and ``torch.zeros`` +
+    ``index_add_`` on the same inputs (a new zeroed table, as the
+    wrapper)."""
+    import torch
+
+    b, n, c = vals.shape
+    got = fn(ids, vals, rows)
+    want = plain(ids, vals, rows)
+    mag = plain(ids, vals.abs(), rows)
+    err = _check_sum(name, got, want, mag)
+    del got, want, mag
+    ms = cuda_ms(lambda: fn(ids, vals, rows))
+    plain_ms = cuda_ms(lambda: plain(ids, vals, rows))
+    flat = _flat_rows(ids, rows)
+    src = vals.reshape(-1, c)
+    library_ms = cuda_ms(
+        lambda: torch.zeros(b * rows + 1, c, device=vals.device).index_add_(0, flat, src))
+    log(f"{name} B={b} N={n} C={c} rows={rows}: within 1e-5*sum|x|+1e-6 "
+        f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"index_add_ {library_ms:.4f} ms")
+    pts = b * n
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(pts * 4 + pts * c * 4 + b * rows * c * 4, pts * c))
+
+
 def phase_scatter_sum(device, clouds):
     """K1 sum: the 512x512 gather_pillars backward, (B, N, 65) fp32 into
     (B, 512^2, 65), at the pillar ids of the main path's cloud."""
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    pids, rows = _pillar_ids(clouds)
+    vals = _sparse_cotangents(device, (BATCH, NUM_POINTS, GATHER_CHANNELS), 2)
+    return _check_sum_kernel("scatter_sum_rows", pvox.scatter_sum_rows,
+                             pvox._scatter_sum_rows_plain, pids, vals, rows)
+
+
+def phase_gather(device, clouds):
+    """K4: path A's pillar gather, a (B, 256^2, 65) fp32 image at the
+    256x256 pillar ids clamped to the last row (as gather_pillars passes
+    them); bitwise against the plain version, beside ``index_select`` of
+    the flattened rows (the flat index made beforehand)."""
     import torch
 
     from himo_tpu_torch.ops import voxelize as pvox
 
-    pc0, _, _, valid, _, _ = clouds
-    cfg = pvox.PillarConfig()
-    grid = pvox.voxelize_pillars(pc0, valid, cfg)
-    rows, c = cfg.num_pillars, GATHER_CHANNELS
-    pids = grid.pillar_ids.contiguous()
-    gen = torch.Generator(device=device).manual_seed(2)
-    vals = torch.randn(BATCH, NUM_POINTS, c, device=device, generator=gen)
-    vals = torch.where(torch.rand(vals.shape, device=device, generator=gen) < 0.5,
-                       vals, torch.zeros_like(vals))  # ReLU'd cotangents
-    got = pvox.scatter_sum_rows(pids, vals, rows)
-    want = pvox._scatter_sum_rows_plain(pids, vals, rows)
-    mag = pvox._scatter_sum_rows_plain(pids, vals.abs(), rows)
-    err = _check_sum("scatter_sum_rows", got, want, mag)
-    del got, want, mag
-    ms = cuda_ms(lambda: pvox.scatter_sum_rows(pids, vals, rows))
-    plain_ms = cuda_ms(lambda: pvox._scatter_sum_rows_plain(pids, vals, rows))
-    flat = _flat_rows(pids, rows)
-    src = vals.reshape(-1, c)
-    # The same work as the wrapper: a new zeroed table, then the sum.
-    library_ms = cuda_ms(
-        lambda: torch.zeros(BATCH * rows + 1, c, device=device).index_add_(0, flat, src))
-    log(f"scatter_sum_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows}: within "
-        f"1e-5*sum|x|+1e-6 (max abs err {err:.3e}); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms")
-    n = BATCH * NUM_POINTS
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(n * 4 + n * c * 4 + BATCH * rows * c * 4, n * c))
+    pids, rows = _pillar_ids(clouds, GRID_256["pillar.voxel_size"])
+    ids = torch.clamp(pids, max=rows - 1)
+    c = GATHER_CHANNELS
+    gen = torch.Generator(device=device).manual_seed(3)
+    image = torch.randn(BATCH, rows, c, device=device, generator=gen)
+    got = pvox.gather_rows(image, ids)
+    want = pvox._gather_rows_plain(image, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("gather_rows kernel differs from plain")
+    ms = cuda_ms(lambda: pvox.gather_rows(image, ids))
+    plain_ms = cuda_ms(lambda: pvox._gather_rows_plain(image, ids))
+    flat = _flat_rows(ids, rows)
+    table = image.reshape(-1, c)
+    library_ms = cuda_ms(lambda: torch.index_select(table, 0, flat))
+    log(f"gather_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows}: bitwise equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select {library_ms:.4f} ms")
+    pts = BATCH * NUM_POINTS
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(pts * 4 + BATCH * rows * c * 4 + pts * c * 4, 0))
+
+
+def phase_sorted(device, big):
+    """K2 at path B's shapes: the 512x512 pillar ids of the 131,072-point
+    clouds, sorted as the stream route sorts them (stable); the max of
+    (B, N, 32) ReLU'd features and the sum of (B, N, 65) cotangents. The
+    sum must also be bitwise equal from launch to launch. Beside them, at
+    equal work: the sort itself, and the table route's atomic kernels (K1)
+    on the same points unsorted."""
+    import torch
+
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    pids, rows = _pillar_ids(big)
+    n = pids.shape[1]
+    feats = _relu_feats(device, (BATCH, n, SCATTER_CHANNELS), 4)
+    spids, sfeats = pvox._sort_rows(pids, feats)
+    out_max = _check_max("sorted_scatter_max_rows", pvox.sorted_scatter_max_rows,
+                         pvox._scatter_max_rows_plain, spids, sfeats, rows)
+    sort_max = cuda_ms(lambda: pvox._sort_rows(pids, feats))
+    k1_max = cuda_ms(lambda: pvox.scatter_max_rows(pids, feats, rows))
+    del feats, sfeats
+    vals = _sparse_cotangents(device, (BATCH, n, GATHER_CHANNELS), 5)
+    _, svals = pvox._sort_rows(pids, vals)
+    out_sum = _check_sum_kernel("sorted_scatter_sum_rows", pvox.sorted_scatter_sum_rows,
+                                pvox._scatter_sum_rows_plain, spids, svals, rows)
+    first = pvox.sorted_scatter_sum_rows(spids, svals, rows)
+    again = pvox.sorted_scatter_sum_rows(spids, svals, rows)
+    plain = pvox._scatter_sum_rows_plain(spids, svals, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("sorted_scatter_sum_rows differs from launch to launch")
+    vs_plain = "bitwise equal to" if torch.equal(first, plain) else "not bitwise equal to"
+    del first, again, plain
+    sort_sum = cuda_ms(lambda: pvox._sort_rows(pids, vals))
+    k1_sum = cuda_ms(lambda: pvox.scatter_sum_rows(pids, vals, rows))
+    log(f"sorted_scatter_sum_rows: bitwise equal from launch to launch, {vs_plain} "
+        f"the plain version on the card (index_add_'s atomics)")
+    log(f"at equal work, B={BATCH} N={n} rows={rows}: max C={SCATTER_CHANNELS} sorted "
+        f"kernel {out_max['ms']:.4f} ms + stable sort {sort_max:.4f} ms vs atomic "
+        f"scatter_max_rows {k1_max:.4f} ms; sum C={GATHER_CHANNELS} sorted kernel "
+        f"{out_sum['ms']:.4f} ms + stable sort {sort_sum:.4f} ms vs atomic "
+        f"scatter_sum_rows {k1_sum:.4f} ms")
+    return out_max, out_sum
 
 
 def phase_segment_sum(device):
@@ -613,18 +757,28 @@ def phase_knn(device, pair):
                 **bound((n + m) * 12 + n * KNN_K * 4, n * m * NN_OPS_PER_PAIR))
 
 
-def phase_slice(device, clouds):
+INFER_LAUNCHES = dict(scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
+INFER_256_LAUNCHES = dict(scatter_max_resident_rows=3, gather_rows=1, nn_argmin_rows=10,
+                          nn_min_rows=1)
+INFER_BIG_LAUNCHES = dict(sorted_scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
+
+
+def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES, **overrides):
+    """One ``seflowpp`` path's inference + de-skew on ``clouds``, with the
+    model ``overrides``; the launches of one forward must be ``expected``."""
     import torch
 
     from himo_tpu_torch.models.feedforward import frame, init_params, make_model
 
     pc0, pc1, pch, valid, dt0, n_valid = clouds
-    model, cfg = make_model("seflowpp", device=device, dtype="bfloat16")
+    model, cfg = make_model("seflowpp", device=device, dtype="bfloat16", **overrides)
     init_params(model, torch.Generator().manual_seed(0))
     model.eval()
-    log(f"seflowpp: grid {cfg.pillar.grid_shape}, pfn {cfg.point_feat_dim}, "
+    log(f"[{name}] seflowpp: grid {cfg.pillar.grid_shape}, {pc0.shape[1]} points per "
+        f"sweep, pfn {cfg.point_feat_dim}, "
         f"base {cfg.base_channels}, depths {cfg.depths}, slots {cfg.instance_slots}, "
         f"refine {cfg.refine.num_query}x{cfg.refine.num_ref}, dtype {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
     frame(model, pc0, pc1, pch, valid, dt0)  # warm-up: cuDNN/cuBLAS set-up
     torch.cuda.synchronize()
 
@@ -632,22 +786,22 @@ def phase_slice(device, clouds):
     flow, comp_dis, refined = frame(model, pc0, pc1, pch, valid, dt0)
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"launches in one batched forward: {launches}")
-    expected = dict.fromkeys(launches, 0)
-    expected.update(scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+    log(f"[{name}] launches in one batched forward: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(expected)
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
 
-    shape = (BATCH, NUM_POINTS, 3)
-    for name, t in (("flow", flow), ("comp_dis", comp_dis), ("refined", refined)):
+    shape = tuple(pc0.shape)
+    for what, t in (("flow", flow), ("comp_dis", comp_dis), ("refined", refined)):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise AssertionError(f"{name}: {tuple(t.shape)} {t.dtype}")
+            raise AssertionError(f"{name} {what}: {tuple(t.shape)} {t.dtype}")
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{name} has non-finite values")
+            raise AssertionError(f"{name} {what} has non-finite values")
     if not torch.equal(refined, pc0 + flow * (dt0 / 0.1)[..., None]):
-        raise AssertionError("refined != pc0 + flow * dt0 / 0.1")
+        raise AssertionError(f"{name}: refined != pc0 + flow * dt0 / 0.1")
     if bool((flow[~valid] != 0).any()):
-        raise AssertionError("padded points got a non-zero flow")
+        raise AssertionError(f"{name}: padded points got a non-zero flow")
 
     with plain_kernels(), torch.inference_mode():
         ref_flow, aux = model((pc0, pc1, pch), (valid, valid, valid),
@@ -661,13 +815,14 @@ def phase_slice(device, clouds):
     bidx, pidx = torch.nonzero(far, as_tuple=True)
     flipped = {(int(b), int(slots[b, p])) for b, p in zip(bidx.tolist(), pidx.tolist())}
     moved = float((ref_flow.abs().sum(-1) > 0).float().mean())
-    log(f"kernels vs plain on the card: {agree:.6f} of points within {SLICE_TOL_M} m "
+    log(f"[{name}] kernels vs plain on the card: {agree:.6f} of points within {SLICE_TOL_M} m "
         f"(max {float(dist.max()):.6f} m); {int(far.sum())} points in "
         f"{len(flipped)} (frame, slot) groups differ; "
         f"{moved:.4f} of points have non-zero flow; "
         f"{int((slots >= 0).sum())} slotted points")
     if agree < SLICE_MIN_AGREE:
-        raise AssertionError(f"only {agree:.4f} of refined points agree with the plain run")
+        raise AssertionError(f"{name}: only {agree:.4f} of refined points agree with the "
+                             f"plain run")
 
     def run():
         frame(model, pc0, pc1, pch, valid, dt0)
@@ -681,7 +836,7 @@ def phase_slice(device, clouds):
         times.append(time.perf_counter() - start)
     median = float(np.median(times))
     mpts = BATCH * n_valid / median / 1e6
-    log(f"forward + de-skew, {BATCH} frames: median {median * 1e3:.3f} ms over 5 "
+    log(f"[{name}] forward + de-skew, {BATCH} frames: median {median * 1e3:.3f} ms over 5 "
         f"({', '.join(f'{t * 1e3:.3f}' for t in times)}); {mpts:.4f} Mpts/s "
         f"(B*n_valid/time); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -771,7 +926,21 @@ def _grads(model):
     ])
 
 
-def phase_train(device):
+TRAIN_LAUNCHES = dict(scatter_max_rows=4, scatter_sum_rows=1, fused_nn_idx=1,
+                      segment_rows_sum=3)
+TRAIN_256_LAUNCHES = dict(scatter_max_resident_rows=4, gather_rows=1, fused_nn_idx=1,
+                          segment_rows_sum=4)
+TRAIN_BIG_LAUNCHES = dict(sorted_scatter_max_rows=4, sorted_scatter_sum_rows=1,
+                          fused_nn_idx=1, segment_rows_sum=3)
+
+
+def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES,
+                val=True, num_points=None, **overrides):
+    """``steps`` SSL train steps of ``seflowpp`` with the model
+    ``overrides`` at ``TrainConfig()`` (``num_points`` per sweep when
+    given), each launching ``expected``, then one validation step when
+    ``val``; returns the summed launches, one step for the profile and the
+    median ms of steps 2 on."""
     import torch
 
     from himo_tpu_torch.models.feedforward import init_params, make_model
@@ -783,13 +952,13 @@ def phase_train(device):
         mean_losses,
     )
 
-    config = TrainConfig()
-    model, cfg = make_model(config.model, device=device, dtype="bfloat16")
+    config = TrainConfig() if num_points is None else TrainConfig(num_points=num_points)
+    model, cfg = make_model(config.model, device=device, dtype="bfloat16", **overrides)
     init_params(model, torch.Generator().manual_seed(0))
     batch = _train_batch(device, config)
-    log(f"train: {config.model} {cfg.dtype}, B={config.batch_size} "
-        f"N={config.num_points} K={config.loss_points}, lr {config.lr}, warmup "
-        f"{config.warmup_steps} (capped), clip {config.grad_clip}, "
+    log(f"[{name}] {config.model} {cfg.dtype}, grid {cfg.pillar.grid_shape}, "
+        f"B={config.batch_size} N={config.num_points} K={config.loss_points}, lr "
+        f"{config.lr}, warmup {config.warmup_steps} (capped), clip {config.grad_clip}, "
         f"steps_per_epoch {STEPS_PER_EPOCH}")
 
     def plain_reference():
@@ -806,12 +975,11 @@ def phase_train(device):
 
     optimizer, schedule = make_optimizer(model.parameters(), config, STEPS_PER_EPOCH)
     train_step = make_train_step(model, config, optimizer)
-    expected = dict.fromkeys(read_counts(), 0)
-    expected.update(scatter_max_rows=4, scatter_sum_rows=1, fused_nn_idx=1,
-                    segment_rows_sum=3)
-    totals = dict.fromkeys(expected, 0)
+    want = dict.fromkeys(read_counts(), 0)
+    want.update(expected)
+    totals = dict.fromkeys(want, 0)
     times, peaks = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         plain_terms, plain_grads = plain_reference()
         before = [p.detach().clone() for p in model.parameters()]
         torch.cuda.reset_peak_memory_stats()
@@ -823,20 +991,21 @@ def phase_train(device):
         times.append(time.perf_counter() - start)
         counts = read_counts()
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
-        if counts != expected:
-            raise AssertionError(f"step {step + 1} launches {counts} != {expected}")
+        if counts != want:
+            raise AssertionError(f"{name} step {step + 1} launches {counts} != {want}")
         for k, v in counts.items():
             totals[k] += v
         m = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"step {step + 1}: non-finite metrics {m}")
+            raise AssertionError(f"{name} step {step + 1}: non-finite metrics {m}")
         moved = max(float((p.detach() - b).abs().max())
                     for p, b in zip(model.parameters(), before))
         lr = schedule(step)
         if step == 0 and (lr != 0.0 or moved != 0.0):
-            raise AssertionError(f"step 1: lr {lr}, parameters moved {moved}")
+            raise AssertionError(f"{name} step 1: lr {lr}, parameters moved {moved}")
         if step > 0 and moved == 0.0:
-            raise AssertionError(f"step {step + 1} (lr {lr}) left the parameters unchanged")
+            raise AssertionError(f"{name} step {step + 1} (lr {lr}) left the parameters "
+                                 f"unchanged")
         # Kernels vs plain versions at this step's parameters. The kernel
         # gradients are clipped in place by now: compare the pre-clip norm
         # and the direction.
@@ -846,43 +1015,46 @@ def phase_train(device):
         norm_rel = abs(norm - plain_norm) / plain_norm
         cosine = float(torch.nn.functional.cosine_similarity(
             _grads(model), plain_grads, dim=0))
-        log(f"step {step + 1}: lr {lr:.3e}, max |param change| {moved:.3e}, "
+        log(f"[{name}] step {step + 1}: lr {lr:.3e}, max |param change| {moved:.3e}, "
             f"{times[-1] * 1e3:.3f} ms, total {m['total']:.6f}; kernels vs plain: "
             f"worst term rel diff {worst:.3e}, grad norm {norm:.6f} vs "
             f"{plain_norm:.6f} (rel {norm_rel:.3e}), cosine {cosine:.6f}")
         if step == 0:
-            log("step 1 terms, kernels/plain: " + ", ".join(
+            log(f"[{name}] step 1 terms, kernels/plain: " + ", ".join(
                 f"{k} {m[k]:.6f}/{plain_terms[k]:.6f}" for k in sorted(plain_terms)))
             if worst > TERM_RTOL or norm_rel > NORM_RTOL or cosine < MIN_COSINE:
                 raise AssertionError(
-                    f"step 1 through the kernels disagrees with the plain run (limits: "
-                    f"terms {TERM_RTOL}, norm {NORM_RTOL}, cosine {MIN_COSINE})")
+                    f"{name} step 1 through the kernels disagrees with the plain run "
+                    f"(limits: terms {TERM_RTOL}, norm {NORM_RTOL}, cosine {MIN_COSINE})")
     peak = max(peaks)
 
-    val_step = make_val_step(model, config)
-    val_batch = _train_batch(device, config, with_gt=True)
-    val_step(val_batch)  # warm-up of the no-grad forward
-    reset_counts()
-    out = val_step(val_batch)
-    torch.cuda.synchronize()
-    val_counts = read_counts()
-    want_val = dict.fromkeys(val_counts, 0)
-    want_val.update(scatter_max_rows=4, fused_nn=1)
-    if val_counts != want_val:
-        raise AssertionError(f"val step launches {val_counts} != {want_val}")
-    out = {k: float(v) for k, v in out.items()}
-    if not all(np.isfinite(v) for v in out.values()):
-        raise AssertionError(f"val step: non-finite {out}")
-    for k, v in val_counts.items():
-        totals[k] += v
+    val_note = ""
+    if val:
+        val_step = make_val_step(model, config)
+        val_batch = _train_batch(device, config, with_gt=True)
+        val_step(val_batch)  # warm-up of the no-grad forward
+        reset_counts()
+        out = val_step(val_batch)
+        torch.cuda.synchronize()
+        val_counts = read_counts()
+        want_val = dict.fromkeys(val_counts, 0)
+        want_val.update(scatter_max_rows=4, fused_nn=1)
+        if val_counts != want_val:
+            raise AssertionError(f"val step launches {val_counts} != {want_val}")
+        out = {k: float(v) for k, v in out.items()}
+        if not all(np.isfinite(v) for v in out.values()):
+            raise AssertionError(f"val step: non-finite {out}")
+        for k, v in val_counts.items():
+            totals[k] += v
+        val_note = (f"; val step total_sum {out['total_sum']:.6f} epe "
+                    f"{out['epe_sum'] / max(out['epe_count'], 1.0):.6f}")
 
     median = float(np.median(times))
     median_warm = float(np.median(times[1:]))
-    log(f"train step B={config.batch_size}: median {median * 1e3:.3f} ms over "
-        f"{TRAIN_STEPS} ({', '.join(f'{t * 1e3:.3f}' for t in times)}); median of "
-        f"steps 2-{TRAIN_STEPS} {median_warm * 1e3:.3f} ms; peak memory {peak:.2f} GiB; "
-        f"val step total_sum {out['total_sum']:.6f} epe "
-        f"{out['epe_sum'] / max(out['epe_count'], 1.0):.6f}")
+    log(f"[{name}] train step B={config.batch_size}: median {median * 1e3:.3f} ms over "
+        f"{steps} ({', '.join(f'{t * 1e3:.3f}' for t in times)}); median of "
+        f"steps 2-{steps} {median_warm * 1e3:.3f} ms; peak memory {peak:.2f} GiB"
+        f"{val_note}")
     return totals, lambda: train_step(batch), median_warm * 1e3
 
 
@@ -1104,33 +1276,60 @@ def main() -> int:
     device, smi = phase_device()
     phase_build()
     clouds = _clouds(device)
+    big = _clouds(device, BIG_POINTS)
     scatter = phase_scatter(device, clouds)
+    resident = phase_scatter_resident(device, clouds)
     scatter_sum = phase_scatter_sum(device, clouds)
+    gather = phase_gather(device, clouds)
+    sorted_max, sorted_sum = phase_sorted(device, big)
     segment = phase_segment_sum(device)
     nn = phase_nn(device)
     fused = phase_fused(device)
     pair = _nsfp_pair(device)
     knn = phase_knn(device, pair)
     torch.cuda.empty_cache()
+    paths = []
     launches, run_frame, frame_ms = phase_slice(device, clouds)
     phase_profile("inference", run_frame, frame_ms)
-    del clouds, run_frame
+    paths.append(launches)
+    launches, run_frame, frame_ms = phase_slice(
+        device, clouds, name="inference_256", expected=INFER_256_LAUNCHES, **GRID_256)
+    phase_profile("inference_256", run_frame, frame_ms, calls=1)
+    paths.append(launches)
+    launches, run_frame, frame_ms = phase_slice(
+        device, big, name=f"inference_{BIG_POINTS}", expected=INFER_BIG_LAUNCHES)
+    phase_profile(f"inference_{BIG_POINTS}", run_frame, frame_ms, calls=1)
+    paths.append(launches)
+    del clouds, big, run_frame
     torch.cuda.empty_cache()
     train, run_step, step_ms = phase_train(device)
     phase_profile("train_step", run_step, step_ms)
+    paths.append(train)
     del run_step
     torch.cuda.empty_cache()
+    paths.append(phase_train(device, name="train_256", steps=ROUTE_TRAIN_STEPS,
+                             expected=TRAIN_256_LAUNCHES, val=False, **GRID_256)[0])
+    torch.cuda.empty_cache()
+    paths.append(phase_train(device, name=f"train_{BIG_POINTS}", steps=ROUTE_TRAIN_STEPS,
+                             expected=TRAIN_BIG_LAUNCHES, val=False,
+                             num_points=BIG_POINTS)[0])
+    torch.cuda.empty_cache()
     nsfp, run_nsfp, nsfp_ms = phase_nsfp(device, pair)
+    paths.append(nsfp)
     phase_profile(f"nsfp_{NSFP_PROFILE_ITERS}_steps", run_nsfp, nsfp_ms, calls=1)
     run_fastnsf, fastnsf_ms = phase_fastnsf(device, pair)
     phase_profile(f"fastnsf_{NSFP_PROFILE_ITERS}_steps", run_fastnsf, fastnsf_ms, calls=1)
-    total = {k: launches[k] + train[k] + nsfp[k] for k in launches}
+    total = {k: sum(path[k] for path in paths) for k in read_counts()}
     main_nn = NN_SHAPES[0]
     kernels = [
         dict(name="scatter_max_rows", route="cuda",
              source="himo_tpu_torch/csrc/scatter_max.cu",
              replaces="himo_tpu/ops/voxelize.py:334",
              launches=total["scatter_max_rows"], **scatter),
+        dict(name="scatter_max_resident_rows", route="cuda",
+             source="himo_tpu_torch/csrc/scatter_max.cu",
+             replaces="himo_tpu/ops/voxelize.py:63",
+             launches=total["scatter_max_resident_rows"], **resident),
         dict(name="nn_argmin_rows", route="cuda", source="himo_tpu_torch/csrc/nn.cu",
              replaces="himo_tpu/ops/nn.py:168",
              launches=total["nn_argmin_rows"], **nn[main_nn]["argmin"]),
@@ -1145,6 +1344,17 @@ def main() -> int:
              source="himo_tpu_torch/csrc/scatter_sum.cu",
              replaces="himo_tpu/ops/voxelize.py:63",
              launches=total["segment_rows_sum"], **segment[SEGMENT_SHAPES[1]]),
+        dict(name="gather_rows", route="cuda", source="himo_tpu_torch/csrc/gather_rows.cu",
+             replaces="himo_tpu/ops/voxelize.py:554",
+             launches=total["gather_rows"], **gather),
+        dict(name="sorted_scatter_max_rows", route="cuda",
+             source="himo_tpu_torch/csrc/sorted_scatter.cu",
+             replaces="himo_tpu/ops/voxelize.py:228",
+             launches=total["sorted_scatter_max_rows"], **sorted_max),
+        dict(name="sorted_scatter_sum_rows", route="cuda",
+             source="himo_tpu_torch/csrc/sorted_scatter.cu",
+             replaces="himo_tpu/ops/voxelize.py:228",
+             launches=total["sorted_scatter_sum_rows"], **sorted_sum),
         dict(name="fused_nn_idx", route="cuda", source="himo_tpu_torch/csrc/fused_nn.cu",
              replaces="himo_tpu/ops/nn.py:431",
              launches=total["fused_nn_idx"], **fused["idx"]),

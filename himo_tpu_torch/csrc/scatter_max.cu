@@ -1,12 +1,20 @@
 // Per-pillar max of point features into a dense pillar image (fp32).
 //
-// Replaces the TPU kernel himo_tpu/ops/voxelize.py
-// `_sorted_scatter_table_band_kernel` (called through
-// `_sorted_scatter_table_call` from `_sorted_scatter_forward`), which walks
-// points in pillar-sorted order over a VMEM-resident feature table and does
-// one read-modify-write of a pillar row per point. That sort/band/table
-// structure exists to fit the TPU's VMEM and its scalar unit; it is not
-// carried over. What is kept is the function:
+// Replaces two TPU kernels of himo_tpu/ops/voxelize.py, one per route of the
+// reference (the Python wrappers count their launches apart):
+// - `_sorted_scatter_table_band_kernel("max")` (called through
+//   `_sorted_scatter_table_call` from `_sorted_scatter_forward`), the table
+//   route: the 512x512 pillar pool at up to 81,920 points per cloud (wrapper
+//   `ops.voxelize.scatter_max_rows`). It walks points in pillar-sorted order
+//   over a VMEM-resident feature table and does one read-modify-write of a
+//   pillar row per point.
+// - `_scatter_kernel("max")` (called through `_scatter_rows_fn` from
+//   `_scatter_rows_pallas`), the resident route: the 256x256 pillar pool,
+//   whose whole image stays in VMEM while points stream past in their own
+//   order (wrapper `ops.voxelize.scatter_max_resident_rows`).
+// That sort/band/table/resident structure exists to fit the TPU's VMEM and
+// its scalar unit; on the H100 the two are one computation and share this
+// entry point. What is kept is the function:
 //
 //   out[b * rows + pid[b, i], :] = max over points i of feats[b, i, :]
 //   rows that no point reaches read 0; points with pid >= rows are skipped.
@@ -26,8 +34,9 @@
 //
 // What bounds it: random-address atomics on the 50 MB L2 (the 512x512x32
 // fp32 image of one frame is 32 MiB; 8 frames are 256 MiB, so rows spill to
-// HBM). Max does not depend on order, so the result is bitwise the same as
-// any other order of the same maxima.
+// HBM; at 256x256 the 8 frames' images are 64 MiB). Max does not depend on
+// order, so the result is bitwise the same as any other order of the same
+// maxima.
 //
 // Inputs: pids (B, N) int32, feats (B, N, C) fp32, out (B * rows, C) fp32,
 // all contiguous on one device. The Python wrapper checks them.

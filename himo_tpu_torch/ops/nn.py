@@ -304,8 +304,10 @@ def segment_rows_sum(
 ) -> torch.Tensor:
     """Sum (B, N, C) fp32 rows into (B, num_segments, C) segments at (B, N)
     int32 ids; ids outside [0, num_segments) are dropped (as
-    ``jax.ops.segment_sum`` drops them). Not differentiable itself: it is
-    the backward of :func:`take_rows` and :func:`fused_masked_nn`.
+    ``jax.ops.segment_sum`` drops them). The resident route's sum (K3 sum).
+    Not differentiable itself: it is the backward of :func:`take_rows`,
+    :func:`fused_masked_nn` and, on the resident route,
+    ``ops.voxelize.gather_pillars``, and the sum of ``scatter_mean`` there.
 
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32``, the kernel behind
@@ -325,7 +327,8 @@ segment_rows_sum.launches = 0
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Differentiable row take ``x[b, idx[b]]`` of (B, N, C) at (B, K) ids
     in [0, N) -> (B, K, C); its backward is :func:`segment_rows_sum`."""
-    return _RowTake.apply(x, idx, lambda ids, g, rows: segment_rows_sum(g, ids, rows))
+    return _RowTake.apply(x, idx, _take_rows_at,
+                          lambda ids, g, rows: segment_rows_sum(g, ids, rows))
 
 
 # ---------------------------------------------------------------------------

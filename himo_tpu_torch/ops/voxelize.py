@@ -4,22 +4,39 @@ Points are batched ``(B, N, 3)``; pillar ids are flat ``iy * w + ix`` into a
 row-major ``(H, W, C)`` image, with the trash id ``h * w`` for points outside
 the grid or masked out, exactly as the JAX reference computes them.
 
-Two hand-written CUDA kernels run on the GPU: the per-pillar max
-(``csrc/scatter_max.cu``, :func:`scatter_max_rows`) and the row scatter-add
-(``csrc/scatter_sum.cu``, :func:`scatter_sum_rows`). Their plain PyTorch
-versions sit beside them; each wrapper takes its plain version only for
-tensors on the CPU, and for a CUDA tensor launches the kernel or raises.
+Each pillar scatter and gather takes the route the reference takes for the
+same shapes (:func:`_route`, from its per-frame thresholds), and each route
+has its own hand-written CUDA kernel:
 
-Gradients follow the JAX package's custom VJPs on the 512x512 path
-(``_diff_scatter_sorted_fn``, ``_diff_gather_sorted_fn``):
+- ``resident`` (the reference keeps the image in VMEM; the 256x256 grid):
+  per-point max :func:`scatter_max_resident_rows` (``csrc/scatter_max.cu``,
+  TPU kernel K3 max), gather :func:`gather_rows` (``csrc/gather_rows.cu``,
+  K4), whose backward and the resident sum are ``ops.nn.segment_rows_sum``
+  (``csrc/scatter_sum.cu``, K3 sum);
+- ``table`` (the point table fits; the 512x512 grid at up to 81,920 points):
+  :func:`scatter_max_rows` (``csrc/scatter_max.cu``, K1 max) and
+  :func:`scatter_sum_rows` (``csrc/scatter_sum.cu``, K1 sum);
+- ``stream`` (larger clouds): a stable sort by pillar id, then the sorted
+  segmented reduce :func:`sorted_scatter_max_rows` /
+  :func:`sorted_scatter_sum_rows` (``csrc/sorted_scatter.cu``, K2).
+
+The plain PyTorch versions sit beside the kernels; each wrapper takes its
+plain version only for tensors on the CPU, and for a CUDA tensor launches
+the kernel or raises.
+
+Gradients follow the JAX package's custom VJPs (``_diff_scatter_fn``,
+``_diff_scatter_sorted_fn``, ``_diff_gather_resident_fn``,
+``_diff_gather_sorted_fn``):
 
 - :func:`scatter_max`'s backward takes ``(g, out)`` at each point's pillar
   in one row take and gives the cotangent to every point whose feature
   equals the max: each tied winner gets all of it (the TPU rule; XLA's CPU
-  ``segment_max`` would split it). The take is plain indexing, as it is an
-  XLA take in the reference.
-- :func:`gather_pillars`' forward is plain indexing; its backward is the
-  row scatter-add of the fp32 cotangent into the pillar image.
+  ``segment_max`` would split it). The take is plain indexing on every
+  route, as it is an XLA take in the reference.
+- :func:`gather_pillars`' forward is K4 on the resident route and plain
+  indexing otherwise (an XLA take in the reference); its backward is the
+  row scatter-add of the fp32 cotangent on the same route.
+- :func:`scatter_mean`'s backward is the plain take of the cotangent.
 """
 
 from __future__ import annotations
@@ -30,6 +47,41 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from himo_tpu_torch.kernels import _build
+
+# The reference's route thresholds, copied from himo_tpu/ops/voxelize.py
+# (``_SCATTER_CHUNK``, ``_VMEM_BUDGET_BYTES``, ``_TABLE_BUDGET_BYTES`` and
+# ``_window_bytes``' (8, 128) padding). Here they choose which kernel serves
+# a pillar scatter or gather, so that each CUDA kernel runs where its TPU
+# kernel runs; they are not a memory budget of the GPU.
+_ROUTE_CHUNK = 2048
+_RESIDENT_BYTES = 72 * 1024 * 1024
+_TABLE_BYTES = 40 * 1024 * 1024
+
+
+def _window_bytes(rows: int, channels: int) -> int:
+    """The reference's size of a (rows, channels) fp32 window: rows rounded
+    up to 8, channels to 128 lanes."""
+    return -(-rows // 8) * 8 * (-(-channels // 128) * 128) * 4
+
+
+def _route(rows: int, n: int, c: int) -> str:
+    """The reference's choice of kernel for n points of c channels per
+    frame into ``rows`` rows: ``"resident"`` when the (rows + 8, c) image
+    passes the first threshold (K3, K4), else ``"table"`` when the point
+    table, padded to 2,048 rows, passes the second (K1), else ``"stream"``
+    (K2)."""
+    if _window_bytes(rows + 8, c) <= _RESIDENT_BYTES:
+        return "resident"
+    if _window_bytes(n + (-n % _ROUTE_CHUNK), c) <= _TABLE_BYTES:
+        return "table"
+    return "stream"
+
+
+def _fuse_sweeps(rows: int, n_total: int, c: int, k: int) -> bool:
+    """The reference's gate for one fused max over k sweeps of ``rows``
+    rows each and ``n_total`` points in all: only when one sweep is not
+    resident and the concatenated stream still takes the table route."""
+    return k > 1 and _route(rows, n_total, c) == "table"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +182,18 @@ def _scatter_sum_rows_plain(
     return out[: b * rows].reshape(b, rows, c)
 
 
+def _take_rows_at(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, R, C) table, (B, N) ids in [0, R) -> (B, N, C) rows."""
+    idx = ids.to(torch.int64)[..., None].expand(-1, -1, table.shape[-1])
+    return torch.gather(table, 1, idx)
+
+
+def _gather_rows_plain(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gather kernel: ``image[b, pids[b, i]]`` with
+    ids clamped to [0, rows - 1]."""
+    return _take_rows_at(image, torch.clamp(pids.to(torch.int64), 0, image.shape[1] - 1))
+
+
 _ROWS_ARGTYPES = (
     _build.PTR, _build.PTR, _build.PTR,
     _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
@@ -178,8 +242,8 @@ def scatter_max_rows(
 ) -> torch.Tensor:
     """Per-row max of (B, N, C) fp32 features at (B, N) int32 row ids into a
     (B, rows, C) image; rows no point reaches read 0, ids >= rows are
-    skipped. Not differentiable itself: :func:`scatter_max` carries the
-    gradient.
+    skipped. The table route (K1 max). Not differentiable itself:
+    :func:`scatter_max` carries the gradient.
 
     CPU tensors take the plain PyTorch version. CUDA tensors launch
     ``csrc/scatter_max.cu`` (counted in ``scatter_max_rows.launches``) or
@@ -195,12 +259,35 @@ def scatter_max_rows(
 scatter_max_rows.launches = 0
 
 
+def scatter_max_resident_rows(
+    pids: torch.Tensor, feats: torch.Tensor, rows: int
+) -> torch.Tensor:
+    """The resident route's per-row max (K3 max): the same function as
+    :func:`scatter_max_rows`, where the reference keeps the whole image in
+    VMEM (the 256x256 grid).
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/scatter_max.cu``'s ``himo_scatter_max_f32``, the kernel behind
+    :func:`scatter_max_rows` (counted here in
+    ``scatter_max_resident_rows.launches``), or raise."""
+    if feats.device.type == "cpu":
+        return _scatter_max_rows_plain(pids, feats, rows)
+    out = _run_rows_kernel("scatter_max", "himo_scatter_max_f32", pids, feats, rows,
+                           zeroed=False)
+    scatter_max_resident_rows.launches += 1
+    return out
+
+
+scatter_max_resident_rows.launches = 0
+
+
 def scatter_sum_rows(
     pids: torch.Tensor, feats: torch.Tensor, rows: int
 ) -> torch.Tensor:
     """Per-row sum of (B, N, C) fp32 values at (B, N) int32 row ids into a
     (B, rows, C) table; rows no point reaches read 0, ids outside [0, rows)
-    are skipped. The order of the additions is not fixed on the GPU.
+    are skipped. The table route (K1 sum). The order of the additions is
+    not fixed on the GPU.
 
     CPU tensors take the plain version (``index_add_``). CUDA tensors launch
     ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32`` (counted in
@@ -216,19 +303,156 @@ def scatter_sum_rows(
 scatter_sum_rows.launches = 0
 
 
-def _take_rows_at(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """(B, R, C) table, (B, N) ids in [0, R) -> (B, N, C) rows."""
-    idx = ids.to(torch.int64)[..., None].expand(-1, -1, table.shape[-1])
-    return torch.gather(table, 1, idx)
+_SORTED_ARGTYPES = (
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+    _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
+)
+
+
+def _run_sorted_kernel(
+    entry: str, spids: torch.Tensor, svals: torch.Tensor, rows: int
+) -> torch.Tensor:
+    """Launch ``csrc/sorted_scatter.cu``'s ``entry(spids, svals, first,
+    out, B, N, C, rows, stream)`` into a new (B, rows, C) fp32 table, with a
+    (B, rows) int32 scratch map of run starts; raises on inputs it does not
+    take and on a CUDA error."""
+    _check_rows_args(entry, spids, svals)
+    b, n, c = svals.shape
+    out = torch.empty((b, rows, c), dtype=torch.float32, device=svals.device)
+    first = torch.empty((b, rows), dtype=torch.int32, device=svals.device)
+    lib = _build.load("sorted_scatter", {entry: _SORTED_ARGTYPES})
+    code = getattr(lib, entry)(
+        spids.data_ptr(), svals.data_ptr(), first.data_ptr(), out.data_ptr(),
+        b, n, c, rows, _build.stream_handle(svals.device),
+    )
+    _build.check(code, entry)
+    return out
+
+
+def sorted_scatter_max_rows(
+    spids: torch.Tensor, sfeats: torch.Tensor, rows: int
+) -> torch.Tensor:
+    """The stream route's per-row max (K2 max) of a stream already sorted
+    by row id in each frame: (B, N) int32 ids, (B, N, C) fp32 rows in that
+    order -> (B, rows, C); rows no run reaches read 0, ids >= rows (sorted
+    to the end) are skipped. :func:`_sort_rows` makes such a stream.
+
+    CPU tensors take the plain version, the unsorted one (a max does not
+    depend on the order). CUDA tensors launch ``csrc/sorted_scatter.cu``'s
+    ``himo_sorted_scatter_max_f32`` (counted in
+    ``sorted_scatter_max_rows.launches``) or raise."""
+    if sfeats.device.type == "cpu":
+        return _scatter_max_rows_plain(spids, sfeats, rows)
+    out = _run_sorted_kernel("himo_sorted_scatter_max_f32", spids, sfeats, rows)
+    sorted_scatter_max_rows.launches += 1
+    return out
+
+
+sorted_scatter_max_rows.launches = 0
+
+
+def sorted_scatter_sum_rows(
+    spids: torch.Tensor, svals: torch.Tensor, rows: int
+) -> torch.Tensor:
+    """The stream route's per-row sum (K2 sum) of a stream sorted as for
+    :func:`sorted_scatter_max_rows`. Each row adds its values in stream
+    order from +0.0 (the reference's order), so the kernel is deterministic.
+
+    CPU tensors take the plain version, ``index_add_`` over the sorted
+    stream, which on the CPU adds in the same order (on the GPU its atomics
+    add in no fixed order). CUDA tensors launch ``csrc/sorted_scatter.cu``'s
+    ``himo_sorted_scatter_sum_f32`` (counted in
+    ``sorted_scatter_sum_rows.launches``) or raise."""
+    if svals.device.type == "cpu":
+        return _scatter_sum_rows_plain(spids, svals, rows)
+    out = _run_sorted_kernel("himo_sorted_scatter_sum_f32", spids, svals, rows)
+    sorted_scatter_sum_rows.launches += 1
+    return out
+
+
+sorted_scatter_sum_rows.launches = 0
+
+
+def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
+    """The resident route's gather (K4): ``image[b, pids[b, i]]`` of a
+    (B, rows, C) fp32 image at (B, N) int32 ids -> (B, N, C), ids clamped to
+    [0, rows - 1]. Not differentiable itself: :func:`gather_pillars`
+    carries the gradient.
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/gather_rows.cu``'s ``himo_gather_rows_f32`` (counted in
+    ``gather_rows.launches``) or raise: the kernel takes a contiguous fp32
+    image with at least one row and contiguous int32 ids."""
+    if image.device.type == "cpu":
+        return _gather_rows_plain(image, pids)
+    entry = "himo_gather_rows_f32"
+    if image.dtype != torch.float32 or pids.dtype != torch.int32:
+        raise TypeError(f"{entry} takes an fp32 image and int32 ids, got "
+                        f"{image.dtype} and {pids.dtype}")
+    if not (image.is_contiguous() and pids.is_contiguous()):
+        raise ValueError(f"{entry} needs contiguous inputs")
+    if (image.dim() != 3 or pids.dim() != 2 or pids.shape[0] != image.shape[0]
+            or image.shape[1] == 0):
+        raise ValueError(f"shapes {tuple(pids.shape)} / {tuple(image.shape)}")
+    if pids.device != image.device:
+        raise ValueError("ids and image on different devices")
+    b, rows, c = image.shape
+    n = pids.shape[1]
+    out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
+    lib = _build.load("gather_rows", {entry: _ROWS_ARGTYPES})
+    code = getattr(lib, entry)(
+        pids.data_ptr(), image.data_ptr(), out.data_ptr(), b, n, c, rows,
+        _build.stream_handle(image.device),
+    )
+    _build.check(code, entry)
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
+
+def _sort_rows(ids: torch.Tensor, vals: torch.Tensor):
+    """Each frame's (N,) ids and (N, C) rows in the order of a stable sort
+    of the ids: the reference's argsort plus one row take
+    (``_sort_rows_by_key``); stable, so equal ids keep their point order."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    return torch.gather(ids, 1, order).contiguous(), _take_rows_at(vals, order).contiguous()
+
+
+def _sorted_max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int) -> torch.Tensor:
+    return sorted_scatter_max_rows(*_sort_rows(pids, feats), rows)
+
+
+def _sorted_sum_rows(ids: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
+    return sorted_scatter_sum_rows(*_sort_rows(ids, vals), rows)
+
+
+def _resident_sum_rows(ids: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
+    """The resident route's sum (K3 sum), ``ops.nn.segment_rows_sum``; read
+    from that module at each call (``ops.nn`` imports this one)."""
+    from himo_tpu_torch.ops import nn
+
+    return nn.segment_rows_sum(vals, ids, rows)
+
+
+def _routed_max(route: str):
+    return {"resident": scatter_max_resident_rows, "table": scatter_max_rows,
+            "stream": _sorted_max_rows}[route]
+
+
+def _routed_sum(route: str):
+    return {"resident": _resident_sum_rows, "table": scatter_sum_rows,
+            "stream": _sorted_sum_rows}[route]
 
 
 class _ScatterMax(torch.autograd.Function):
-    """Per-row max with the TPU custom VJP: every tied winner gets the whole
-    cotangent of its (row, channel)."""
+    """Per-row max ``scatter(pids, feats, rows)`` with the TPU custom VJP:
+    every tied winner gets the whole cotangent of its (row, channel)."""
 
     @staticmethod
-    def forward(ctx, pids, feats, rows):
-        out = scatter_max_rows(pids, feats, rows)
+    def forward(ctx, pids, feats, rows, scatter):
+        out = scatter(pids, feats, rows)
         ctx.save_for_backward(pids, feats, out)
         return out
 
@@ -240,30 +464,57 @@ class _ScatterMax(torch.autograd.Function):
         safe = torch.clamp(pids.to(torch.int64), max=rows - 1)
         both = _take_rows_at(torch.cat([g, out], dim=-1), safe)
         winner = (feats == both[..., c:]) & (pids < rows)[..., None]
-        return None, torch.where(winner, both[..., :c], torch.zeros_like(feats)), None
+        return None, torch.where(winner, both[..., :c], torch.zeros_like(feats)), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Per-row sum ``scatter(ids, vals, rows)``; its backward is the plain
+    take of the cotangent at each id (0 for ids >= rows), as the
+    reference's sum VJP takes it."""
+
+    @staticmethod
+    def forward(ctx, ids, vals, rows, scatter):
+        ctx.save_for_backward(ids)
+        return scatter(ids, vals, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        rows = g.shape[1]
+        d = _take_rows_at(g, torch.clamp(ids.to(torch.int64), max=rows - 1))
+        return None, torch.where((ids < rows)[..., None], d, torch.zeros_like(d)), None, None
 
 
 class _RowTake(torch.autograd.Function):
-    """Row take ``table[b, ids[b]]`` of a (B, R, C) table whose backward
-    scatter-adds the fp32 cotangent with ``scatter(ids, g, R)`` and casts it
-    back. Ids >= R read row ``R - 1`` and send nothing back (the scatter
-    skips them; callers zero their outputs). Behind :func:`gather_pillars`
-    (``scatter_sum_rows``) and ``ops.nn.take_rows`` (``segment_rows_sum``)."""
+    """Row take ``take(table, ids)`` of a (B, R, C) table at ids clamped to
+    R - 1, whose backward scatter-adds the fp32 cotangent with
+    ``scatter(ids, g, R)`` and casts it back. Ids >= R read row ``R - 1``
+    and send nothing back (the scatter skips them; callers zero their
+    outputs). Behind :func:`gather_pillars` (the K4 kernel or plain
+    indexing, then the routed scatter-add) and ``ops.nn.take_rows`` (plain
+    indexing, then ``segment_rows_sum``)."""
 
     @staticmethod
-    def forward(ctx, table, ids, scatter):
+    def forward(ctx, table, ids, take, scatter):
         rows = table.shape[1]
         ctx.save_for_backward(ids)
         ctx.rows = rows
         ctx.scatter = scatter
-        return _take_rows_at(table, torch.clamp(ids.to(torch.int64), max=rows - 1))
+        return take(table, torch.clamp(ids, max=rows - 1))
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         d = ctx.scatter(ids.to(torch.int32).contiguous(),
                         g.to(torch.float32).contiguous(), ctx.rows)
-        return d.to(g.dtype), None, None
+        return d.to(g.dtype), None, None, None
+
+
+def _max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int) -> torch.Tensor:
+    """Differentiable per-row max of (B, N, C) fp32 features on the
+    reference's route for these shapes."""
+    scatter = _routed_max(_route(rows, feats.shape[1], feats.shape[2]))
+    return _ScatterMax.apply(pids, feats, rows, scatter)
 
 
 def scatter_max(features: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
@@ -275,28 +526,74 @@ def scatter_max(features: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
     h, w = grid.grid_shape
     feats = features.to(torch.float32).contiguous()
     pids = grid.pillar_ids.to(torch.int32).contiguous()
-    out = _ScatterMax.apply(pids, feats, h * w)
+    out = _max_rows(pids, feats, h * w)
     return out.reshape(features.shape[0], h, w, -1).to(features.dtype)
 
 
 def scatter_max_multi(
     features: Sequence[torch.Tensor], grids: Sequence[PillarGrid]
 ) -> list:
-    """Per-pillar max for K sweeps -> K (B, H, W, C) images, one kernel
-    launch per sweep (the JAX reference fuses sweeps only when the fused
-    point table fits its VMEM budget, which the 512x512 grid does not)."""
+    """Per-pillar max for K sweeps -> K (B, H, W, C) images.
+
+    As the reference, the sweeps are fused into one max over K * H * W rows
+    (sweep k's pillars offset by k * H * W, every trash id moved past the
+    last row) only when :func:`_fuse_sweeps` passes: one sweep is not
+    resident and the concatenated stream takes the table route (small
+    clouds on the 512x512 grid). Otherwise each sweep is its own call. The
+    max is exact, so fusion changes the launch count, not the values."""
     if len(features) != len(grids) or not features:
         raise ValueError("need one grid per feature tensor")
-    return [scatter_max(f, g) for f, g in zip(features, grids)]
+    h, w = grids[0].grid_shape
+    if any(g.grid_shape != (h, w) for g in grids):
+        raise ValueError("every sweep needs the same grid")
+    hw, k = h * w, len(features)
+    n_total = sum(f.shape[1] for f in features)
+    if not _fuse_sweeps(hw, n_total, features[0].shape[-1], k):
+        return [scatter_max(f, g) for f, g in zip(features, grids)]
+    pids = torch.cat([
+        torch.where(g.pillar_ids >= hw, k * hw, g.pillar_ids + i * hw)
+        for i, g in enumerate(grids)
+    ], dim=1).to(torch.int32).contiguous()
+    feats = torch.cat([f.to(torch.float32) for f in features], dim=1).contiguous()
+    out = _max_rows(pids, feats, k * hw)
+    b = features[0].shape[0]
+    return [out[:, i * hw : (i + 1) * hw].reshape(b, h, w, -1).to(f.dtype)
+            for i, f in enumerate(features)]
 
 
 def gather_pillars(image: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
     """Gather each point's pillar feature from a (B, H, W, C) image ->
-    (B, N, C). Out-of-range points get zeros. Differentiable in ``image``:
-    the backward scatter-adds the cotangent in fp32 and casts it back to
-    the image's dtype, as the reference's fp32 gather does."""
+    (B, N, C). Out-of-range points get zeros. On the resident route the
+    image is cast to fp32 for the K4 kernel and the result cast back, as
+    the reference does; otherwise the take is plain indexing. Differentiable
+    in ``image``: the backward scatter-adds the cotangent in fp32 on the
+    route's sum kernel and casts it back to the image's dtype."""
     h, w = grid.grid_shape
-    flat = image.reshape(image.shape[0], h * w, -1)
+    rows = h * w
+    flat = image.reshape(image.shape[0], rows, -1)
     pids = grid.pillar_ids.to(torch.int32).contiguous()
-    out = _RowTake.apply(flat, pids, scatter_sum_rows)
+    route = _route(rows, pids.shape[1], flat.shape[2])
+    if route == "resident":
+        table = flat.to(dtype=torch.float32, memory_format=torch.contiguous_format)
+        out = _RowTake.apply(table, pids, gather_rows, _routed_sum(route)).to(flat.dtype)
+    else:
+        out = _RowTake.apply(flat, pids, _take_rows_at, _routed_sum(route))
     return torch.where(grid.in_range[..., None], out, torch.zeros_like(out))
+
+
+def scatter_mean(features: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
+    """Per-pillar mean of (B, N, C) point features -> (B, H, W, C) image;
+    empty pillars read 0. As the reference, sums and counts come from one
+    fp32 scatter-add of the features with a column of ones appended (masked
+    points add nothing), on the route's sum kernel, cast back to the
+    features' dtype before the division. Differentiable in ``features``."""
+    h, w = grid.grid_shape
+    rows = h * w
+    keep = grid.in_range[..., None]
+    feats = torch.where(keep, features, torch.zeros_like(features))
+    aug = torch.cat([feats, keep.to(features.dtype)], dim=-1).to(torch.float32).contiguous()
+    pids = grid.pillar_ids.to(torch.int32).contiguous()
+    scatter = _routed_sum(_route(rows, aug.shape[1], aug.shape[2]))
+    out = _ScatterSum.apply(pids, aug, rows, scatter).to(features.dtype)
+    mean = out[..., :-1] / torch.clamp(out[..., -1:], min=1.0)
+    return mean.reshape(features.shape[0], h, w, -1)

@@ -8,9 +8,13 @@ This file imports no JAX, so it also runs on the GPU host, which has none:
 marked ``cuda`` need a card and skip without one; the others check the
 plain versions and the wrappers' CPU behaviour against numpy loops.
 
-Tolerances: scatter-max bitwise (max does not depend on order);
-scatter-add (``scatter_sum_rows``, ``segment_rows_sum``) within
-``1e-5 * sum|x| + 1e-6`` per cell (fp32 atomics add in no fixed order);
+Tolerances: scatter-max (``scatter_max_rows``, ``scatter_max_resident_rows``,
+``sorted_scatter_max_rows``) and the gather (``gather_rows``) bitwise (max
+does not depend on order); scatter-add (``scatter_sum_rows``,
+``segment_rows_sum``) within ``1e-5 * sum|x| + 1e-6`` per cell (fp32 atomics
+add in no fixed order); the sorted sum (``sorted_scatter_sum_rows``) within
+that bound of the plain version on the card, and bitwise from launch to
+launch and against the plain version on the CPU (both add in stream order);
 NN squared distances, plain and fused, within ``1e-5 * (|q|^2 + |r|^2) +
 1e-6`` (the kernels compute ``sum((q - r)^2)``, the plain versions
 ``|q|^2 + |r|^2 - 2 q.r``), the kernel's argmin at a distance equal to the
@@ -341,3 +345,139 @@ def test_knn_kernel_matches_plain(cuda_device, n, m):
         PK.knn_rows(q, r, 17)
     with pytest.raises(RuntimeError):
         PK.knn_rows(q.clone().requires_grad_(), r, 4)
+
+
+def _sorted_case(rng, b, n, c, rows, long_run=0):
+    """A stream sorted by id in each frame (stable), with ids >= rows at the
+    end, empty rows, and optionally one run of ``long_run`` equal ids."""
+    ids = rng.integers(0, rows, size=(b, n)).astype(np.int32)
+    ids[rng.uniform(size=(b, n)) < 0.08] = rows  # skipped
+    ids[:, : n // 10] = rows // 2  # a crowded row
+    if long_run:
+        ids[0, :long_run] = 7
+    vals = rng.normal(size=(b, n, c)).astype(np.float32)
+    vals[:, ::5] = -np.abs(vals[:, ::5])  # all-negative rows exist
+    vals[:, ::11] = -0.0
+    order = np.argsort(ids, axis=1, kind="stable")
+    return (np.take_along_axis(ids, order, 1),
+            np.take_along_axis(vals, order[..., None], 1))
+
+
+def _sequential_rows(ids, vals, rows, combine):
+    """Per-row max or fp32 sum, adding in stream order from +0.0."""
+    b, n, c = vals.shape
+    out = np.full((b, rows, c), -np.inf if combine == "max" else 0.0, np.float32)
+    for bi in range(b):
+        for i in range(n):
+            r = ids[bi, i]
+            if r < rows:
+                out[bi, r] = (np.maximum(out[bi, r], vals[bi, i]) if combine == "max"
+                              else out[bi, r] + vals[bi, i])
+    if combine == "max":
+        out[np.isneginf(out)] = 0.0
+        out = out + np.float32(0.0)
+    return out
+
+
+@pytest.mark.parametrize("c", [32, 65, 1])
+def test_sorted_scatter_plain_versions_match_sequential_loop(c):
+    """K2's plain versions (and the resident max's) on the CPU: the max
+    bitwise, the sum bitwise too (``index_add_`` adds in stream order on
+    the CPU, as the kernel does); zeros come out as +0.0."""
+    rng = np.random.default_rng(c)
+    rows = 300
+    ids, vals = _sorted_case(rng, 2, 1200, c, rows)
+    before = (PV.sorted_scatter_max_rows.launches, PV.sorted_scatter_sum_rows.launches,
+              PV.scatter_max_resident_rows.launches)
+    got_max = PV.sorted_scatter_max_rows(_t(ids), _t(vals), rows).numpy()
+    got_sum = PV.sorted_scatter_sum_rows(_t(ids), _t(vals), rows).numpy()
+    got_res = PV.scatter_max_resident_rows(_t(ids), _t(vals), rows).numpy()
+    assert (PV.sorted_scatter_max_rows.launches, PV.sorted_scatter_sum_rows.launches,
+            PV.scatter_max_resident_rows.launches) == before
+    want_max = _sequential_rows(ids, vals, rows, "max")
+    np.testing.assert_array_equal(got_max, want_max)
+    np.testing.assert_array_equal(got_res, want_max)
+    assert not np.signbit(got_max[got_max == 0]).any()
+    np.testing.assert_array_equal(got_sum, _sequential_rows(ids, vals, rows, "sum"))
+
+
+@pytest.mark.parametrize("c", [65, 1])
+def test_gather_rows_plain_matches_numpy(c):
+    rng = np.random.default_rng(5 + c)
+    rows = 400
+    image = rng.normal(size=(2, rows, c)).astype(np.float32)
+    ids = rng.integers(0, rows + 3, size=(2, 900)).astype(np.int32)  # some >= rows
+    before = PV.gather_rows.launches
+    got = PV.gather_rows(_t(image), _t(ids)).numpy()
+    assert PV.gather_rows.launches == before
+    want = np.stack([image[b, np.minimum(ids[b], rows - 1)] for b in range(2)])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 1])
+def test_scatter_max_resident_kernel_bitwise_equals_plain(cuda_device, c):
+    rng = np.random.default_rng(17 + c)
+    pids, feats, rows = _scatter_case(rng, c=c)
+    p, f = _t(pids).to(cuda_device), _t(feats).to(cuda_device)
+    before = (PV.scatter_max_rows.launches, PV.scatter_max_resident_rows.launches)
+    got = PV.scatter_max_resident_rows(p, f, rows)
+    assert (PV.scatter_max_rows.launches, PV.scatter_max_resident_rows.launches) == (
+        before[0], before[1] + 1)
+    want = PV._scatter_max_rows_plain(p, f, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(TypeError):
+        PV.scatter_max_resident_rows(p.long(), f, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows", [(65, 128 * 128), (1, 4096), (32, 300)])
+def test_gather_rows_kernel_bitwise_equals_plain(cuda_device, c, rows):
+    rng = np.random.default_rng(c + rows)
+    image = _t(rng.normal(size=(2, rows, c)).astype(np.float32)).to(cuda_device)
+    ids = rng.integers(0, rows, size=(2, 20000)).astype(np.int32)
+    ids[:, :100] = rows + 5  # clamped to the last row
+    ids[:, 100:200] = 0
+    i = _t(ids).to(cuda_device)
+    before = PV.gather_rows.launches
+    got = PV.gather_rows(image, i)
+    assert PV.gather_rows.launches == before + 1
+    want = PV._gather_rows_plain(image, i)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[:, :100], image[:, -1:].expand(-1, 100, -1))
+    with pytest.raises(TypeError):
+        PV.gather_rows(image.double(), i)
+    with pytest.raises(ValueError):
+        PV.gather_rows(image[:, ::2], i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows,long_run", [(32, 512 * 64, 0), (65, 512 * 64, 0),
+                                             (1, 4096, 0), (32, 4096, 50000)])
+def test_sorted_scatter_kernels_match_plain(cuda_device, c, rows, long_run):
+    """K2 max bitwise against the plain version; K2 sum within
+    1e-5 * sum|x| + 1e-6 of the plain version on the card (atomics), bitwise
+    from launch to launch and bitwise against the CPU plain version (the
+    same sequential order)."""
+    rng = np.random.default_rng(c + rows + long_run)
+    ids, vals = _sorted_case(rng, 2, max(60000, long_run + 5000), c, rows, long_run)
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    before = (PV.sorted_scatter_max_rows.launches, PV.sorted_scatter_sum_rows.launches)
+    got_max = PV.sorted_scatter_max_rows(i, v, rows)
+    got_sum = PV.sorted_scatter_sum_rows(i, v, rows)
+    again = PV.sorted_scatter_sum_rows(i, v, rows)
+    assert (PV.sorted_scatter_max_rows.launches, PV.sorted_scatter_sum_rows.launches) == (
+        before[0] + 1, before[1] + 2)
+    want_max = PV._scatter_max_rows_plain(i, v, rows)
+    want_sum = PV._scatter_sum_rows_plain(i, v, rows)
+    mag = PV._scatter_sum_rows_plain(i, v.abs(), rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got_max.view(torch.int32), want_max.view(torch.int32))
+    assert ((got_sum - want_sum).abs() <= 1e-5 * mag + 1e-6).all()
+    assert torch.equal(got_sum.view(torch.int32), again.view(torch.int32))
+    cpu = PV._scatter_sum_rows_plain(_t(ids), _t(vals), rows)
+    assert torch.equal(got_sum.cpu().view(torch.int32), cpu.view(torch.int32))
+    with pytest.raises(TypeError):
+        PV.sorted_scatter_sum_rows(i, v.double(), rows)

@@ -41,10 +41,19 @@ class _Event:
 @pytest.fixture()
 def rehearsal(monkeypatch):
     from himo_tpu_torch.models import feedforward as pf
+    from himo_tpu_torch.ops import voxelize as pv
     from himo_tpu_torch.ops.dt import DTConfig
     from himo_tpu_torch.training import trainer as pt
 
+    # Route thresholds shrunk with the shapes: the main paths' toy 256x256
+    # grid at 2,048 points takes the table route (as 512x512 at 65,536),
+    # path A's 128x128 grid the resident route, path B's 4,096 points the
+    # stream route; 3 x 2,048 points do not fuse.
+    monkeypatch.setattr(pv, "_RESIDENT_BYTES", 16 * 1024 * 1024)
+    monkeypatch.setattr(pv, "_TABLE_BYTES", 1536 * 1024)
     for name, value in (("BATCH", 2), ("NUM_POINTS", 2048), ("FUSED_POINTS", 256),
+                        ("GRID_256", {"pillar.voxel_size": (0.8, 0.8)}),
+                        ("BIG_POINTS", 4096),
                         ("NN_SHAPES", ((128, 256), (256, 128))),
                         ("SEGMENT_SHAPES", ((256, 2048), (512, 256))),
                         ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
@@ -74,13 +83,26 @@ def rehearsal(monkeypatch):
 def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     dev = rehearsal
     clouds = cs._clouds(dev)
+    big = cs._clouds(dev, cs.BIG_POINTS)
     scatter = cs.phase_scatter(dev, clouds)
+    resident = cs.phase_scatter_resident(dev, clouds)
     scatter_sum = cs.phase_scatter_sum(dev, clouds)
+    gather = cs.phase_gather(dev, clouds)
+    sorted_max, sorted_sum = cs.phase_sorted(dev, big)
     segment = cs.phase_segment_sum(dev)
     nn = cs.phase_nn(dev)
     fused = cs.phase_fused(dev)
     launches, run_frame, frame_ms = cs.phase_slice(dev, clouds)
+    launches_256, _, _ = cs.phase_slice(dev, clouds, name="inference_256",
+                                        expected=cs.INFER_256_LAUNCHES, **cs.GRID_256)
+    launches_big, _, _ = cs.phase_slice(dev, big, name="inference_big",
+                                        expected=cs.INFER_BIG_LAUNCHES)
     train, run_step, step_ms = cs.phase_train(dev)
+    train_256 = cs.phase_train(dev, name="train_256", steps=cs.ROUTE_TRAIN_STEPS,
+                               expected=cs.TRAIN_256_LAUNCHES, val=False, **cs.GRID_256)[0]
+    train_big = cs.phase_train(dev, name="train_big", steps=cs.ROUTE_TRAIN_STEPS,
+                               expected=cs.TRAIN_BIG_LAUNCHES, val=False,
+                               num_points=cs.BIG_POINTS)[0]
     pair = cs._nsfp_pair(dev)
     knn = cs.phase_knn(dev, pair)
     nsfp, run_nsfp, nsfp_ms = cs.phase_nsfp(dev, pair)
@@ -90,27 +112,43 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     run_step()
     flow, loss = run_nsfp()
     assert flow.shape == (512, 3)
-    none = dict.fromkeys(("scatter_max_rows", "scatter_sum_rows", "nn_argmin_rows",
+    none = dict.fromkeys(("scatter_max_rows", "scatter_max_resident_rows",
+                          "scatter_sum_rows", "sorted_scatter_max_rows",
+                          "sorted_scatter_sum_rows", "gather_rows", "nn_argmin_rows",
                           "nn_min_rows", "segment_rows_sum", "fused_nn", "fused_nn_idx",
                           "knn_rows"), 0)
     assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
                         "nn_min_rows": 1}
+    assert launches_256 == {**none, "scatter_max_resident_rows": 3, "gather_rows": 1,
+                            "nn_argmin_rows": 10, "nn_min_rows": 1}
+    assert launches_big == {**none, "sorted_scatter_max_rows": 3, "nn_argmin_rows": 10,
+                            "nn_min_rows": 1}
     steps = cs.TRAIN_STEPS
     assert train == {**none, "scatter_max_rows": 4 * steps + 4, "scatter_sum_rows": steps,
                      "segment_rows_sum": 3 * steps, "fused_nn": 1, "fused_nn_idx": steps}
+    steps = cs.ROUTE_TRAIN_STEPS
+    assert train_256 == {**none, "scatter_max_resident_rows": 4 * steps,
+                         "gather_rows": steps, "segment_rows_sum": 4 * steps,
+                         "fused_nn_idx": steps}
+    assert train_big == {**none, "sorted_scatter_max_rows": 4 * steps,
+                         "sorted_scatter_sum_rows": steps, "segment_rows_sum": 3 * steps,
+                         "fused_nn_idx": steps}
     iters = cs.NSFP_ITERS  # knn_k 0, then 4
     assert nsfp == {**none, "nn_argmin_rows": 2 * iters * 2, "segment_rows_sum": iters * 2,
                     "knn_rows": 2 * iters}
-    entries = [scatter, scatter_sum, *segment.values(), *nn[cs.NN_SHAPES[0]].values(),
-               *fused.values(), knn]
+    entries = [scatter, resident, scatter_sum, gather, sorted_max, sorted_sum,
+               *segment.values(), *nn[cs.NN_SHAPES[0]].values(), *fused.values(), knn]
     keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
     for e in entries:
         assert set(e) == keys and e["bound_ms"] > 0
         json.dumps(e)
     assert scatter["library_ms"] is not None and fused["idx"]["library_ms"] is None
+    assert gather["bound_by"] == "bytes" and sorted_sum["library_ms"] is not None
     assert knn["library_ms"] is None and knn["bound_by"] == "operations"
     out = capsys.readouterr().out
     assert "step 1 terms, kernels/plain" in out and "val step" in out
+    assert "bitwise equal from launch to launch" in out and "at equal work" in out
+    assert "[inference_256] forward + de-skew" in out and "[train_big] step 2" in out
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
@@ -125,6 +163,9 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
                  "(anonymous namespace)::scatter_max_rows(int const*)",
                  "(anonymous namespace)::fill_neg_inf(float*, long long)",
                  "(anonymous namespace)::finalize(float*, long long)",
+                 "(anonymous namespace)::gather_rows(int const*, float const*)",
+                 "(anonymous namespace)::mark_runs(int const*, int*, long long)",
+                 "void (anonymous namespace)::reduce_runs<true>(int const*)",
                  "void (anonymous namespace)::knn_kernel<4>(float const*, float const*, "
                  "float*, int, int)"):
         assert pattern.match(name), name
