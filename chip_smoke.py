@@ -17,8 +17,8 @@ Six main paths, at full width with random weights from seeded generators:
   0.4 m (``bench.py``'s "256x256 throughput config"), where the pillar max
   and gather take the resident route (K3 max, K4, K3 sum);
 - path B, the same inference and two train steps at 131,072 points per
-  sweep on the 512x512 grid (the largest bucket of dense multi-LiDAR
-  superframes), where the pillar max and the gather's backward take the
+  sweep on the 512x512 grid (one of the buckets the data pipeline pads
+  dense multi-LiDAR superframes to), where the pillar max and the gather's backward take the
   stream route (K2 max and sum);
 - the ``nsfp`` estimator through the registry, ``NSFPConfig(cluster_prior=
   False)`` (hidden 128, 8 layers, lr 8e-3, 500 Adam steps, 2 m truncation),
@@ -303,7 +303,18 @@ def _sparse_cotangents(device, shape, seed):
                        vals, torch.zeros_like(vals))
 
 
-def _check_max(name, fn, plain, pids, feats, rows):
+def _reduce_bound(pids, rows, c, stream):
+    """Bound of a per-row reduce of (B, N, c) values into (B, rows, c): the
+    values of points with an id below ``rows`` read once, every id read
+    once (a sorted ``stream`` only up to its first trash id), the table
+    written once; one fp32 operation per value read."""
+    b, n = pids.shape
+    live = int((pids < rows).sum())
+    return bound((live if stream else b * n) * 4 + live * c * 4 + b * rows * c * 4,
+                 live * c)
+
+
+def _check_max(name, fn, plain, pids, feats, rows, stream=False):
     """Hold a per-row max kernel ``fn(pids, feats, rows)`` bitwise against
     its plain version; time both and ``torch.zeros`` + ``scatter_reduce_``
     amax on the same inputs (a new table, unreached rows 0, as the
@@ -327,10 +338,8 @@ def _check_max(name, fn, plain, pids, feats, rows):
     ).scatter_reduce_(0, flat, src, "amax", include_self=False))
     log(f"{name} B={b} N={n} C={c} rows={rows} trash={trash:.3f}: bitwise equal; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax {library_ms:.4f} ms")
-    pts = b * n
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms,
-                **bound(pts * 4 + pts * c * 4 + b * rows * c * 4, pts * c))
+                library_ms=library_ms, **_reduce_bound(pids, rows, c, stream))
 
 
 def phase_scatter(device, clouds):
@@ -366,7 +375,7 @@ def _check_sum(name, got, want, mag):
     return float(err.max())
 
 
-def _check_sum_kernel(name, fn, plain, ids, vals, rows):
+def _check_sum_kernel(name, fn, plain, ids, vals, rows, stream=False):
     """Hold a per-row sum kernel ``fn(ids, vals, rows)`` against its plain
     version within 1e-5 * sum|x| + 1e-6; time both and ``torch.zeros`` +
     ``index_add_`` on the same inputs (a new zeroed table, as the
@@ -388,9 +397,8 @@ def _check_sum_kernel(name, fn, plain, ids, vals, rows):
     log(f"{name} B={b} N={n} C={c} rows={rows}: within 1e-5*sum|x|+1e-6 "
         f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"index_add_ {library_ms:.4f} ms")
-    pts = b * n
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(pts * 4 + pts * c * 4 + b * rows * c * 4, pts * c))
+                **_reduce_bound(ids, rows, c, stream))
 
 
 def phase_scatter_sum(device, clouds):
@@ -428,11 +436,13 @@ def phase_gather(device, clouds):
     flat = _flat_rows(ids, rows)
     table = image.reshape(-1, c)
     library_ms = cuda_ms(lambda: torch.index_select(table, 0, flat))
-    log(f"gather_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows}: bitwise equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select {library_ms:.4f} ms")
+    reached = int(torch.unique(flat).numel())  # image rows the points read
+    log(f"gather_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows} reached rows "
+        f"{reached / (BATCH * rows):.3f}: bitwise equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_select {library_ms:.4f} ms")
     pts = BATCH * NUM_POINTS
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(pts * 4 + BATCH * rows * c * 4 + pts * c * 4, 0))
+                **bound(pts * 4 + reached * c * 4 + pts * c * 4, 0))
 
 
 def phase_sorted(device, big):
@@ -451,14 +461,15 @@ def phase_sorted(device, big):
     feats = _relu_feats(device, (BATCH, n, SCATTER_CHANNELS), 4)
     spids, sfeats = pvox._sort_rows(pids, feats)
     out_max = _check_max("sorted_scatter_max_rows", pvox.sorted_scatter_max_rows,
-                         pvox._scatter_max_rows_plain, spids, sfeats, rows)
+                         pvox._scatter_max_rows_plain, spids, sfeats, rows, stream=True)
     sort_max = cuda_ms(lambda: pvox._sort_rows(pids, feats))
     k1_max = cuda_ms(lambda: pvox.scatter_max_rows(pids, feats, rows))
     del feats, sfeats
     vals = _sparse_cotangents(device, (BATCH, n, GATHER_CHANNELS), 5)
     _, svals = pvox._sort_rows(pids, vals)
     out_sum = _check_sum_kernel("sorted_scatter_sum_rows", pvox.sorted_scatter_sum_rows,
-                                pvox._scatter_sum_rows_plain, spids, svals, rows)
+                                pvox._scatter_sum_rows_plain, spids, svals, rows,
+                                stream=True)
     first = pvox.sorted_scatter_sum_rows(spids, svals, rows)
     again = pvox.sorted_scatter_sum_rows(spids, svals, rows)
     plain = pvox._scatter_sum_rows_plain(spids, svals, rows)

@@ -52,7 +52,9 @@ from himo_tpu_torch.kernels import _build
 # (``_SCATTER_CHUNK``, ``_VMEM_BUDGET_BYTES``, ``_TABLE_BUDGET_BYTES`` and
 # ``_window_bytes``' (8, 128) padding). Here they choose which kernel serves
 # a pillar scatter or gather, so that each CUDA kernel runs where its TPU
-# kernel runs; they are not a memory budget of the GPU.
+# kernel runs; they are not a memory budget of the GPU. On the H100 the
+# stream route is slower than the table route at equal work (PERF.md), so
+# these are to be replaced by measured thresholds (ROADMAP.md, Queue 2).
 _ROUTE_CHUNK = 2048
 _RESIDENT_BYTES = 72 * 1024 * 1024
 _TABLE_BYTES = 40 * 1024 * 1024
