@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six main paths, at full width with random weights from seeded generators:
+Seven main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -20,6 +20,11 @@ Six main paths, at full width with random weights from seeded generators:
   sweep on the 512x512 grid (one of the buckets the data pipeline pads
   dense multi-LiDAR superframes to), where the pillar max and the gather's backward take the
   stream route (K2 max and sum);
+- ``pooling='mean_sorted'``: the same inference and two train steps on the
+  512x512 headline's clouds, each sweep sorted by pillar id, pooled by a
+  mean from K10 (``sorted_segment_sum``), the decoder's pillar features
+  gathered by K11 (``sorted_segment_gather``), K11 and K10 each other's
+  backward;
 - the ``nsfp`` estimator through the registry, ``NSFPConfig(cluster_prior=
   False)`` (hidden 128, 8 layers, lr 8e-3, 500 Adam steps, 2 m truncation),
   once with the single-NN chamfer (``knn_k=0``) and once with the 4-NN
@@ -41,10 +46,12 @@ and prints no result):
 4. slice: the full inference forward through the kernels (launch counts
    checked: 3 scatter_max_rows, 10 nn_argmin_rows, 1 nn_min_rows; path A
    3 scatter_max_resident_rows and 1 gather_rows instead of the first,
-   path B 3 sorted_scatter_max_rows), checked against the same forward with
-   the plain versions on the card, and timed;
+   path B 3 sorted_scatter_max_rows, mean_sorted 3 sorted_segment_sum and
+   1 sorted_segment_gather), checked against the same forward with the
+   plain versions on the card, and timed;
 5. train: four steps through the kernels (launches checked per step:
-   4 scatter_max_rows, 1 scatter_sum_rows, 1 fused_nn_idx, 3 segment_rows_sum);
+   4 scatter_max_rows, 1 scatter_sum_rows, 1 fused_nn_idx, 3 segment_rows_sum,
+   3 sorted_gather_rows, the scatter-max backward's take);
    before each, the same loss terms and gradients with the plain versions
    on the card, held against the step's (loss terms within 1e-4 relative,
    gradient norm within 1e-3, cosine >= 0.999; enforced at step 1, logged
@@ -54,7 +61,9 @@ and prints no result):
    each the same way (path A per step: 4 scatter_max_resident_rows, 1
    gather_rows, 1 fused_nn_idx, 4 segment_rows_sum; path B: 4
    sorted_scatter_max_rows, 1 sorted_scatter_sum_rows, 1 fused_nn_idx, 3
-   segment_rows_sum);
+   segment_rows_sum, 3 sorted_gather_rows); so does mean_sorted (1
+   scatter_max_rows for the dynamic-image loss, 4 sorted_segment_sum, 4
+   sorted_segment_gather, 1 fused_nn_idx, 4 segment_rows_sum);
 6. nsfp, at ``knn_k`` 0 and 4: before the run, the step-1 loss and
    gradient through the kernels against the same through the plain
    versions on the card (loss within 1e-4 relative, at ``knn_k=4`` once
@@ -69,8 +78,8 @@ and prints no result):
 7. fastnsf: the distance-field build timed alone, then the 500-step run
    (no launch of the port's kernels); the same loss and flow checks;
 8. profile: after each of the first two paths, three more calls of it
-   under ``torch.profiler``, one call each of path A's and path B's
-   inference, and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of
+   under ``torch.profiler``, one call each of path A's, path B's and
+   mean_sorted's inference, and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of
    ``fastnsf``:
    device busy share, launches per call, the kernels with the most device
    time and each of the port's kernels' device time per launch.
@@ -102,6 +111,7 @@ BIG_POINTS = 131072  # path B: points per sweep (the stream route)
 ROUTE_TRAIN_STEPS = 2  # train steps of paths A and B
 SCATTER_CHANNELS = 32
 GATHER_CHANNELS = 65  # 64 UNet feature channels + the slot channel
+MEAN_CHANNELS = 33  # mean_sorted's pooled rows: 32 PFN channels + the count
 NN_SHAPES = ((4096, 8192), (8192, 4096))  # ICP/null/score passes, claim pass
 SEGMENT_SHAPES = ((16384, 65536), (32768, 16384))  # take_rows bwd, fused bwd
 FUSED_POINTS = 16384  # TrainConfig().loss_points
@@ -167,10 +177,14 @@ def bound(bytes_moved: float, ops: float) -> dict:
 
 def _wrappers():
     from himo_tpu_torch.ops import knn as pknn
+    from himo_tpu_torch.ops import mxu_scatter as pms
     from himo_tpu_torch.ops import nn as pnn
     from himo_tpu_torch.ops import voxelize as pvox
 
     return {
+        (pms, "sorted_segment_sum"): pms._sorted_segment_sum_plain,
+        (pms, "sorted_segment_gather"): pms._sorted_segment_gather_plain,
+        (pvox, "sorted_gather_rows"): pvox._sorted_gather_rows_plain,
         (pknn, "knn_rows"): pknn._knn_plain,
         (pvox, "scatter_max_rows"): pvox._scatter_max_rows_plain,
         (pvox, "scatter_max_resident_rows"): pvox._scatter_max_rows_plain,
@@ -490,6 +504,127 @@ def phase_sorted(device, big):
     return out_max, out_sum
 
 
+def phase_sorted_sum(device, clouds):
+    """K10 at the mean_sorted path's pooling shape: the 512x512 pillar ids
+    of the main path's first sweep, sorted as the model sorts them (stable),
+    and (B, N, 33) values (32 features and the count; normal values, half
+    of them zero, not bf16 values, so that the rounding shows), with the
+    rounding flag off and on, each bitwise from launch to launch. The flag
+    on is the path's (bf16)."""
+    import torch
+
+    from himo_tpu_torch.ops import mxu_scatter as pms
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    pids, rows = _pillar_ids(clouds)
+    vals = _sparse_cotangents(device, (BATCH, NUM_POINTS, MEAN_CHANNELS), 6)
+    spids, svals = pvox._sort_rows(pids, vals)
+    del vals
+    out = {}
+    for bf16 in (False, True):
+        name = f"sorted_segment_sum bf16={int(bf16)}"
+
+        def fn(i, v, r, _b=bf16):
+            return pms.sorted_segment_sum(i, v, r, _b)
+
+        def plain(i, v, r, _b=bf16):
+            return pms._sorted_segment_sum_plain(i, v, r, _b)
+
+        out[bf16] = _check_sum_kernel(name, fn, plain, spids, svals, rows, stream=True)
+        first, again = fn(spids, svals, rows), fn(spids, svals, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"{name} differs from launch to launch")
+        log(f"{name}: bitwise equal from launch to launch")
+    return out[True]
+
+
+def _check_gather(name, fn, plain, args, ids, library):
+    """Hold a row gather ``fn(image, ids, ...)`` bitwise against its plain
+    version; time both and the ``library`` call. Bound: the (B, N) id
+    tensors among ``args`` read once, the image rows the ids reach read
+    once, the output written once."""
+    import torch
+
+    image = args[0]
+    b, rows, c = image.shape
+    n = ids.shape[1]
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"{name} kernel differs from plain in {bad} values")
+    ms = cuda_ms(lambda: fn(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    library_ms = cuda_ms(library)
+    flat = _flat_rows(ids, rows)
+    reached = int(torch.unique(flat[flat < b * rows]).numel())
+    id_tensors = sum(1 for a in args[1:] if torch.is_tensor(a))
+    log(f"{name} B={b} N={n} C={c} rows={rows} ids past the grid "
+        f"{float((ids >= rows).float().mean()):.3f}, reached rows {reached / (b * rows):.3f}: "
+        f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms")
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                **bound(b * n * 4 * id_tensors + reached * c * 4 + b * n * c * 4, 0))
+
+
+def phase_sorted_gathers(device, clouds, big):
+    """K11 at the mean_sorted path's gather: a (B, 512^2, 65) fp32 image at
+    the main path's first sweep's sorted 512x512 ids (8 % past the grid,
+    the padded points), flag off and on (the path's), beside
+    ``index_select`` of the flat rows with one zero row appended for ids
+    past the grid (the appended table made beforehand). K5 at the 512x512
+    train step's take: a (B, 512^2, 64) (cotangent, max) image at the same
+    ids, read in sorted order and written back through the stable sort's
+    order, beside ``index_select`` of the flat rows at the unsorted ids (the
+    plain take it replaces) and the stable argsort the table route runs for
+    it; then K5 at path B's 131,072 points."""
+    import torch
+
+    from himo_tpu_torch.ops import mxu_scatter as pms
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    pids, rows = _pillar_ids(clouds)
+    spids, order = pvox._stable_sort(pids)
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def image_and_table(c):
+        """A (B, rows, c) normal image and its flat rows with one zero row
+        appended (index B * rows, where ``_flat_rows`` sends ids past the
+        grid): the library calls' table."""
+        image = torch.randn(BATCH, rows, c, device=device, generator=gen)
+        return image, torch.cat([image.reshape(-1, c), image.new_zeros(1, c)])
+
+    image, table = image_and_table(GATHER_CHANNELS)
+    flat = _flat_rows(spids, rows)
+    for bf16 in (False, True):  # the path's flag (bf16) last
+        k11 = _check_gather(
+            f"sorted_segment_gather bf16={int(bf16)}",
+            lambda im, i, _b=bf16: pms.sorted_segment_gather(im, i, _b),
+            lambda im, i, _b=bf16: pms._sorted_segment_gather_plain(im, i, _b),
+            (image, spids), spids, lambda: torch.index_select(table, 0, flat))
+
+    image, table = image_and_table(2 * SCATTER_CHANNELS)
+    flat = _flat_rows(pids, rows)
+    k5 = _check_gather("sorted_gather_rows", pvox.sorted_gather_rows,
+                       pvox._sorted_gather_rows_plain, (image, spids, order), pids,
+                       lambda: torch.index_select(table, 0, flat))
+    sort_ms = cuda_ms(lambda: pvox._stable_sort(pids))
+    bpids, _ = _pillar_ids(big)
+    bsorted, border = pvox._stable_sort(bpids)
+    bflat = _flat_rows(bpids, rows)
+    _check_gather(f"sorted_gather_rows (path B, {bpids.shape[1]} points)",
+                  pvox.sorted_gather_rows, pvox._sorted_gather_rows_plain,
+                  (image, bsorted, border), bpids, lambda: torch.index_select(table, 0, bflat))
+    big_sort_ms = cuda_ms(lambda: pvox._stable_sort(bpids))
+    log(f"sorted_gather_rows: the table route's stable argsort of the ids "
+        f"{sort_ms:.4f} ms ({NUM_POINTS} points), {big_sort_ms:.4f} ms "
+        f"({bpids.shape[1]} points; the stream route reuses its forward's)")
+    return k11, k5
+
+
 def phase_segment_sum(device):
     """K3 sum at both train-step shapes: take_rows' backward (16,384 rows
     of 3 into 65,536) and the fused NN backward (32,768 into 16,384)."""
@@ -772,6 +907,8 @@ INFER_LAUNCHES = dict(scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
 INFER_256_LAUNCHES = dict(scatter_max_resident_rows=3, gather_rows=1, nn_argmin_rows=10,
                           nn_min_rows=1)
 INFER_BIG_LAUNCHES = dict(sorted_scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
+INFER_SORTED_LAUNCHES = dict(sorted_segment_sum=3, sorted_segment_gather=1,
+                             nn_argmin_rows=10, nn_min_rows=1)
 
 
 def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES, **overrides):
@@ -786,7 +923,7 @@ def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES, **ove
     init_params(model, torch.Generator().manual_seed(0))
     model.eval()
     log(f"[{name}] seflowpp: grid {cfg.pillar.grid_shape}, {pc0.shape[1]} points per "
-        f"sweep, pfn {cfg.point_feat_dim}, "
+        f"sweep, pooling {cfg.pooling}, pfn {cfg.point_feat_dim}, "
         f"base {cfg.base_channels}, depths {cfg.depths}, slots {cfg.instance_slots}, "
         f"refine {cfg.refine.num_query}x{cfg.refine.num_ref}, dtype {cfg.dtype}")
     torch.cuda.reset_peak_memory_stats()
@@ -937,12 +1074,19 @@ def _grads(model):
     ])
 
 
+# K5 (sorted_gather_rows) is the scatter-max backward's take of the three
+# sweep pools on the table and stream routes (the dynamic-image loss's max
+# carries no gradient).
 TRAIN_LAUNCHES = dict(scatter_max_rows=4, scatter_sum_rows=1, fused_nn_idx=1,
-                      segment_rows_sum=3)
+                      segment_rows_sum=3, sorted_gather_rows=3)
 TRAIN_256_LAUNCHES = dict(scatter_max_resident_rows=4, gather_rows=1, fused_nn_idx=1,
                           segment_rows_sum=4)
 TRAIN_BIG_LAUNCHES = dict(sorted_scatter_max_rows=4, sorted_scatter_sum_rows=1,
-                          fused_nn_idx=1, segment_rows_sum=3)
+                          fused_nn_idx=1, segment_rows_sum=3, sorted_gather_rows=3)
+# mean_sorted: K10 pools three sweeps, K11 gathers; their backwards are each
+# other (K11 x 3, K10 x 1); the un-sort's take_rows adds one K3 sum.
+TRAIN_SORTED_LAUNCHES = dict(scatter_max_rows=1, sorted_segment_sum=4,
+                             sorted_segment_gather=4, fused_nn_idx=1, segment_rows_sum=4)
 
 
 def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES,
@@ -967,7 +1111,8 @@ def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES
     model, cfg = make_model(config.model, device=device, dtype="bfloat16", **overrides)
     init_params(model, torch.Generator().manual_seed(0))
     batch = _train_batch(device, config)
-    log(f"[{name}] {config.model} {cfg.dtype}, grid {cfg.pillar.grid_shape}, "
+    log(f"[{name}] {config.model} {cfg.dtype}, pooling {cfg.pooling}, grid "
+        f"{cfg.pillar.grid_shape}, "
         f"B={config.batch_size} N={config.num_points} K={config.loss_points}, lr "
         f"{config.lr}, warmup {config.warmup_steps} (capped), clip {config.grad_clip}, "
         f"steps_per_epoch {STEPS_PER_EPOCH}")
@@ -1293,6 +1438,8 @@ def main() -> int:
     scatter_sum = phase_scatter_sum(device, clouds)
     gather = phase_gather(device, clouds)
     sorted_max, sorted_sum = phase_sorted(device, big)
+    segment_sum_k10 = phase_sorted_sum(device, clouds)
+    segment_gather_k11, sorted_gather_k5 = phase_sorted_gathers(device, clouds, big)
     segment = phase_segment_sum(device)
     nn = phase_nn(device)
     fused = phase_fused(device)
@@ -1311,6 +1458,11 @@ def main() -> int:
         device, big, name=f"inference_{BIG_POINTS}", expected=INFER_BIG_LAUNCHES)
     phase_profile(f"inference_{BIG_POINTS}", run_frame, frame_ms, calls=1)
     paths.append(launches)
+    launches, run_frame, frame_ms = phase_slice(
+        device, clouds, name="inference_mean_sorted", expected=INFER_SORTED_LAUNCHES,
+        pooling="mean_sorted")
+    phase_profile("inference_mean_sorted", run_frame, frame_ms, calls=1)
+    paths.append(launches)
     del clouds, big, run_frame
     torch.cuda.empty_cache()
     train, run_step, step_ms = phase_train(device)
@@ -1324,6 +1476,10 @@ def main() -> int:
     paths.append(phase_train(device, name=f"train_{BIG_POINTS}", steps=ROUTE_TRAIN_STEPS,
                              expected=TRAIN_BIG_LAUNCHES, val=False,
                              num_points=BIG_POINTS)[0])
+    torch.cuda.empty_cache()
+    paths.append(phase_train(device, name="train_mean_sorted", steps=ROUTE_TRAIN_STEPS,
+                             expected=TRAIN_SORTED_LAUNCHES, val=False,
+                             pooling="mean_sorted")[0])
     torch.cuda.empty_cache()
     nsfp, run_nsfp, nsfp_ms = phase_nsfp(device, pair)
     paths.append(nsfp)
@@ -1375,6 +1531,18 @@ def main() -> int:
         dict(name="knn_rows", route="cuda", source="himo_tpu_torch/csrc/knn.cu",
              replaces="himo_tpu/ops/knn.py:49",
              launches=total["knn_rows"], **knn),
+        dict(name="sorted_segment_sum", route="cuda",
+             source="himo_tpu_torch/csrc/sorted_scatter.cu",
+             replaces="himo_tpu/ops/mxu_scatter.py:75",
+             launches=total["sorted_segment_sum"], **segment_sum_k10),
+        dict(name="sorted_segment_gather", route="cuda",
+             source="himo_tpu_torch/csrc/sorted_gather.cu",
+             replaces="himo_tpu/ops/mxu_scatter.py:300",
+             launches=total["sorted_segment_gather"], **segment_gather_k11),
+        dict(name="sorted_gather_rows", route="cuda",
+             source="himo_tpu_torch/csrc/sorted_gather.cu",
+             replaces="himo_tpu/ops/voxelize.py:630",
+             launches=total["sorted_gather_rows"], **sorted_gather_k5),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

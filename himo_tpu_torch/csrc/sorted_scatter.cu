@@ -42,17 +42,33 @@
 // written once, 8 bytes per row of `first`). A long run (a near-sensor
 // pillar) is walked by one warp alone; that imbalance is not tuned here.
 //
+// The same sum also replaces himo_tpu/ops/mxu_scatter.py
+// `_scatter_sum_band_kernel` (K10, called through `_scatter_sum_call` from
+// `scatter_sum_sorted`): the per-pillar sum of `pooling='mean_sorted'`, over
+// a stream the model sorts itself (PFN features plus a count column, C = 33),
+// and the backward of that mode's sorted gather (C = 65). The TPU kernel
+// accumulates one-hot matmuls over a window of rows; with `mxu_bf16` it
+// rounds its operands to bf16 first. Here `himo_sorted_segment_sum_f32`
+// takes that as a flag: each value is rounded to bf16 (round to nearest
+// even) as it is loaded, then added in fp32 in stream order. The wrapper is
+// `ops.mxu_scatter.sorted_segment_sum`.
+//
 // Inputs: spids (B, N) int32 sorted in each frame, sfeats (B, N, C) fp32 in
 // the same order, first (B * rows) int32 scratch, out (B * rows, C) fp32,
 // all contiguous on one device. The Python wrappers check them (not the
 // order).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __global__ void mark_runs(const int* __restrict__ spids, int* __restrict__ first,
                           long long points, int n, int rows) {
@@ -66,7 +82,7 @@ __global__ void mark_runs(const int* __restrict__ spids, int* __restrict__ first
   first[b * rows + id] = j;
 }
 
-template <bool kMax>
+template <bool kMax, bool kRound>
 __global__ void reduce_runs(const int* __restrict__ spids,
                             const float* __restrict__ sfeats,
                             const int* __restrict__ first,
@@ -101,14 +117,15 @@ __global__ void reduce_runs(const int* __restrict__ spids,
     float acc = kMax ? -INFINITY : 0.0f;
     const float* p = src + ch;
     for (int k = 0; k < len; ++k, p += c) {
-      acc = kMax ? fmaxf(acc, *p) : __fadd_rn(acc, *p);
+      const float v = kRound ? round_bf16(*p) : *p;
+      acc = kMax ? fmaxf(acc, v) : __fadd_rn(acc, v);
     }
     if (kMax) acc = acc == -INFINITY ? 0.0f : __fadd_rn(acc, 0.0f);
     dst[ch] = acc;
   }
 }
 
-template <bool kMax>
+template <bool kMax, bool kRound>
 int sorted_scatter(const void* spids, const void* sfeats, void* first, void* out,
                    int batch, int n, int c, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -127,7 +144,7 @@ int sorted_scatter(const void* spids, const void* sfeats, void* first, void* out
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long blocks = (cells * 32 + kThreads - 1) / kThreads;
-  reduce_runs<kMax><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+  reduce_runs<kMax, kRound><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
       ids, static_cast<const float*>(sfeats), marks, static_cast<float*>(out),
       cells, n, c, rows);
   return static_cast<int>(cudaGetLastError());
@@ -138,11 +155,26 @@ int sorted_scatter(const void* spids, const void* sfeats, void* first, void* out
 extern "C" int himo_sorted_scatter_max_f32(const void* spids, const void* sfeats,
                                            void* first, void* out, int batch,
                                            int n, int c, int rows, void* stream) {
-  return sorted_scatter<true>(spids, sfeats, first, out, batch, n, c, rows, stream);
+  return sorted_scatter<true, false>(spids, sfeats, first, out, batch, n, c, rows,
+                                     stream);
 }
 
 extern "C" int himo_sorted_scatter_sum_f32(const void* spids, const void* sfeats,
                                            void* first, void* out, int batch,
                                            int n, int c, int rows, void* stream) {
-  return sorted_scatter<false>(spids, sfeats, first, out, batch, n, c, rows, stream);
+  return sorted_scatter<false, false>(spids, sfeats, first, out, batch, n, c, rows,
+                                      stream);
+}
+
+// K10: the sum above, each value rounded to bf16 on load when round_bf16 != 0.
+extern "C" int himo_sorted_segment_sum_f32(const void* spids, const void* svals,
+                                           void* first, void* out, int batch,
+                                           int n, int c, int rows, int round_bf16,
+                                           void* stream) {
+  if (round_bf16) {
+    return sorted_scatter<false, true>(spids, svals, first, out, batch, n, c, rows,
+                                       stream);
+  }
+  return sorted_scatter<false, false>(spids, svals, first, out, batch, n, c, rows,
+                                      stream);
 }

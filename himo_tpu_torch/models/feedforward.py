@@ -19,11 +19,15 @@ place where a plain PyTorch layer would compute something else:
 
 The pillar max-pool (``ops/voxelize.scatter_max``) and the refine head's
 nearest-neighbour passes (``ops/nn``) run hand-written CUDA kernels on the
-GPU. The ``soft_gate=True, with_aux=True`` forward of training (refine head
-off) differentiates end to end: the max-pool's and the pillar gather's
-gradients follow the reference's custom VJPs, the latter through the
-scatter-add kernel. Inference runs under ``torch.inference_mode()`` (as
-:func:`frame` and the registry estimator do).
+GPU. With ``pooling='mean_sorted'`` each sweep's points are sorted by
+pillar id, pooled by a mean from one sorted sum (``ops/mxu_scatter``, K10),
+the decoder's pillar features gathered at sweep 0's sorted ids (K11), and
+the outputs taken back to input order (``ops/nn.take_rows``). The
+``soft_gate=True, with_aux=True`` forward of training (refine head off)
+differentiates end to end: the pooling's and the pillar gather's
+gradients follow the reference's custom VJPs, on the kernels. Inference
+runs under ``torch.inference_mode()`` (as :func:`frame` and the registry
+estimator do).
 
 :func:`make_model` and the registry's estimators build the network on the
 GPU unless given ``device="cpu"``, and raise when CUDA is absent.
@@ -46,9 +50,13 @@ from himo_tpu_torch.ops.components import (
     connected_components_grid,
     pool_by_slot,
 )
+from himo_tpu_torch.ops.mxu_scatter import gather_rows_sorted, scatter_sum_sorted
+from himo_tpu_torch.ops.nn import take_rows
 from himo_tpu_torch.ops.refine import RefineConfig, refine_flow
 from himo_tpu_torch.ops.voxelize import (
     PillarConfig,
+    _stable_sort,
+    _take_rows_at,
     gather_pillars,
     scatter_max_multi,
     voxelize_pillars,
@@ -70,7 +78,7 @@ class FlowNetConfig:
     prior_feat: bool = False  # host cluster priors: not ported yet
     prior_residual: bool = False  # not ported yet
     prior_trust: bool = False  # not ported yet
-    pooling: str = "max"  # 'max' | 'mean_sorted' (not ported yet)
+    pooling: str = "max"  # 'max' | 'mean_sorted' (sorted-stream mean, K10/K11)
     instance_head: bool = False
     instance_stride: int = 2  # coarse CC cell = stride x pillar voxel
     instance_reach: int = 2  # Chebyshev connect radius in coarse cells
@@ -358,8 +366,6 @@ class SceneFlowNet(nn.Module):
         cfg = config
         if cfg.prior_feat or cfg.prior_residual or cfg.prior_trust:
             raise NotImplementedError("cluster-prior variants are not ported yet")
-        if cfg.pooling != "max":
-            raise NotImplementedError(f"pooling={cfg.pooling!r} is not ported yet")
         if cfg.instance_head and not cfg.gate_head:
             raise ValueError("instance_head requires gate_head")
         self.config = cfg
@@ -382,6 +388,25 @@ class SceneFlowNet(nn.Module):
                 hidden, cfg.point_feat_dim, hidden, dtype, gate=cfg.gate_head
             )
 
+    def _pool_sorted(self, pc: torch.Tensor, grid):
+        """``pooling='mean_sorted'`` for one sweep: the points reordered by
+        a stable sort of their pillar ids, the PFN on them (points out of
+        range zeroed), and the per-pillar mean from one sorted sum (K10) of
+        the fp32 features with a count column, divided in fp32 and then cast
+        to the model dtype. Returns the (B, H, W, C) image, the sorted point
+        features and ``(order, sorted ids)``."""
+        h, w = self.config.pillar.grid_shape
+        spids, order = _stable_sort(grid.pillar_ids)
+        in_s = torch.gather(grid.in_range, 1, order.long())
+        f = self.pfn(_take_rows_at(pc[..., :3], order),
+                     _take_rows_at(grid.centers_offset, order))
+        f = torch.where(in_s[..., None], f, torch.zeros_like(f))
+        aug = torch.cat([f.to(torch.float32), in_s.to(torch.float32)[..., None]], dim=-1)
+        out = scatter_sum_sorted(spids, aug, num_rows=h * w,
+                                 mxu_bf16=self.dtype == torch.bfloat16)
+        img = out[..., :-1] / torch.clamp(out[..., -1:], min=1.0)
+        return img.reshape(-1, h, w, img.shape[-1]).to(self.dtype), f, (order, spids)
+
     def forward(
         self, sweeps, valids, with_gate: bool = False, soft_gate: bool = False,
         with_aux: bool = False, refine: Optional[bool] = None, dts=None,
@@ -403,18 +428,26 @@ class SceneFlowNet(nn.Module):
         dtype = self.dtype
         h, w = cfg.pillar.grid_shape
 
-        grids, feats = [], []
-        for pc, valid in zip(sweeps, valids):
+        sorted_mode = cfg.pooling == "mean_sorted"
+        grids, feats, images = [], [], []
+        sweep0 = None  # (order, sorted pillar ids) of sweep 0, for the decoder
+        for idx, (pc, valid) in enumerate(zip(sweeps, valids)):
             grid = voxelize_pillars(pc, valid, cfg.pillar)
-            f = self.pfn(pc, grid.centers_offset)
-            f = torch.where(grid.in_range[..., None], f, torch.zeros_like(f))
+            if sorted_mode:
+                img, f, sort = self._pool_sorted(pc, grid)
+                images.append(img)
+                if idx == 0:
+                    sweep0 = sort
+            else:
+                f = self.pfn(pc, grid.centers_offset)
+                f = torch.where(grid.in_range[..., None], f, torch.zeros_like(f))
             grids.append(grid)
             feats.append(f)
+        if not sorted_mode:
+            images = scatter_max_multi(feats, grids)
 
         # (B, H, W, C) per sweep -> NCHW for the backbone.
-        images = [
-            im.permute(0, 3, 1, 2) for im in scatter_max_multi(feats, grids)
-        ]
+        images = [im.permute(0, 3, 1, 2) for im in images]
         x = torch.cat(images, dim=1).to(dtype)
         extra = None
         if cfg.corr_volume:
@@ -450,10 +483,21 @@ class SceneFlowNet(nn.Module):
         else:
             out_img = self.unet(x, extra)
 
-        img = out_img
-        if slot_img is not None:
-            img = torch.cat([out_img, slot_img[:, None].to(out_img.dtype)], dim=1)
-        gathered = gather_pillars(img.permute(0, 2, 3, 1), grids[0])
+        if sorted_mode:
+            # fp32 (B, H*W, C) rows (+ the slot channel) gathered at sweep
+            # 0's sorted ids: ids past the grid read 0, where the reference
+            # reads the 8 zero rows it appends.
+            flat = out_img.permute(0, 2, 3, 1).reshape(out_img.shape[0], h * w, -1)
+            flat = flat.to(torch.float32)
+            if slot_img is not None:
+                flat = torch.cat([flat, slot_img.reshape(-1, h * w, 1)], dim=-1)
+            gathered = gather_rows_sorted(sweep0[1], flat, num_rows=h * w,
+                                          mxu_bf16=dtype == torch.bfloat16)
+        else:
+            img = out_img
+            if slot_img is not None:
+                img = torch.cat([out_img, slot_img[:, None].to(out_img.dtype)], dim=1)
+            gathered = gather_pillars(img.permute(0, 2, 3, 1), grids[0])
         slot_pt = None
         if slot_img is not None:
             pillar_feat = gathered[..., :-1].to(dtype)
@@ -468,6 +512,20 @@ class SceneFlowNet(nn.Module):
         else:
             flow = out
         flow = flow.to(torch.float32)
+        if sorted_mode:
+            # Back to input point order with one row take at the inverse
+            # permutation (the reference's argsort of the order), whose
+            # backward is the K3 sum.
+            order = sweep0[0].long()
+            inv = torch.empty_like(order).scatter_(
+                1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+            cols = [flow] + [t[..., None] for t in (gate_logit, slot_pt) if t is not None]
+            cols = take_rows(torch.cat(cols, dim=-1), inv)
+            flow = cols[..., :3]
+            if gate_logit is not None:
+                gate_logit = cols[..., 3]
+            if slot_pt is not None:
+                slot_pt = cols[..., -1]
 
         slot = None
         gate_w = None

@@ -31,8 +31,12 @@ Gradients follow the JAX package's custom VJPs (``_diff_scatter_fn``,
 - :func:`scatter_max`'s backward takes ``(g, out)`` at each point's pillar
   in one row take and gives the cotangent to every point whose feature
   equals the max: each tied winner gets all of it (the TPU rule; XLA's CPU
-  ``segment_max`` would split it). The take is plain indexing on every
-  route, as it is an XLA take in the reference.
+  ``segment_max`` would split it). On the resident route the take is plain
+  indexing, as in the reference's K3 VJP. On the table and stream routes it
+  is :func:`sorted_gather_rows` (``csrc/sorted_gather.cu``, K5), the
+  reference's take under ``HIMO_MAXBWD_PALLAS=1``: the stream route reuses
+  the stable sort its forward made, the table route sorts once. No option
+  selects it (a gather is exact, so the values are those of the XLA take).
 - :func:`gather_pillars`' forward is K4 on the resident route and plain
   indexing otherwise (an XLA take in the reference); its backward is the
   row scatter-add of the fp32 cotangent on the same route.
@@ -194,6 +198,25 @@ def _gather_rows_plain(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
     """Plain version of the gather kernel: ``image[b, pids[b, i]]`` with
     ids clamped to [0, rows - 1]."""
     return _take_rows_at(image, torch.clamp(pids.to(torch.int64), 0, image.shape[1] - 1))
+
+
+def _take_live_rows(image: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``image[b, ids[b, i]]`` of a (B, R, C) table, 0 for ids outside
+    [0, R)."""
+    idx = ids.to(torch.int64)
+    live = (idx >= 0) & (idx < image.shape[1])
+    out = _take_rows_at(image, torch.clamp(idx, 0, max(image.shape[1] - 1, 0)))
+    return torch.where(live[..., None], out, torch.zeros_like(out))
+
+
+def _sorted_gather_rows_plain(
+    image: torch.Tensor, spids: torch.Tensor, order: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of K5: ``out[b, order[b, j]] = image[b, spids[b, j]]``,
+    0 for ids >= rows."""
+    vals = _take_live_rows(image, spids)
+    idx = order.to(torch.int64)[..., None].expand(-1, -1, vals.shape[-1])
+    return torch.zeros_like(vals).scatter_(1, idx, vals)
 
 
 _ROWS_ARGTYPES = (
@@ -375,6 +398,24 @@ def sorted_scatter_sum_rows(
 sorted_scatter_sum_rows.launches = 0
 
 
+def _check_gather_args(entry: str, image: torch.Tensor, *ids: torch.Tensor,
+                       min_rows: int = 0) -> None:
+    """Raise unless a (B, rows, C) fp32 image with at least ``min_rows``
+    rows and (B, N) int32 id tensors of one shape are what the gather
+    kernels take: contiguous, on one device."""
+    if image.dtype != torch.float32 or any(t.dtype != torch.int32 for t in ids):
+        raise TypeError(f"{entry} takes an fp32 image and int32 ids, got "
+                        f"{image.dtype} and {[t.dtype for t in ids]}")
+    if not (image.is_contiguous() and all(t.is_contiguous() for t in ids)):
+        raise ValueError(f"{entry} needs contiguous inputs")
+    first = ids[0]
+    if (image.dim() != 3 or first.dim() != 2 or first.shape[0] != image.shape[0]
+            or image.shape[1] < min_rows or any(t.shape != first.shape for t in ids)):
+        raise ValueError(f"shapes {[tuple(t.shape) for t in ids]} / {tuple(image.shape)}")
+    if any(t.device != image.device for t in ids):
+        raise ValueError("ids and image on different devices")
+
+
 def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
     """The resident route's gather (K4): ``image[b, pids[b, i]]`` of a
     (B, rows, C) fp32 image at (B, N) int32 ids -> (B, N, C), ids clamped to
@@ -388,16 +429,7 @@ def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
     if image.device.type == "cpu":
         return _gather_rows_plain(image, pids)
     entry = "himo_gather_rows_f32"
-    if image.dtype != torch.float32 or pids.dtype != torch.int32:
-        raise TypeError(f"{entry} takes an fp32 image and int32 ids, got "
-                        f"{image.dtype} and {pids.dtype}")
-    if not (image.is_contiguous() and pids.is_contiguous()):
-        raise ValueError(f"{entry} needs contiguous inputs")
-    if (image.dim() != 3 or pids.dim() != 2 or pids.shape[0] != image.shape[0]
-            or image.shape[1] == 0):
-        raise ValueError(f"shapes {tuple(pids.shape)} / {tuple(image.shape)}")
-    if pids.device != image.device:
-        raise ValueError("ids and image on different devices")
+    _check_gather_args(entry, image, pids, min_rows=1)
     b, rows, c = image.shape
     n = pids.shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
@@ -414,16 +446,63 @@ def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
+def sorted_gather_rows(
+    image: torch.Tensor, spids: torch.Tensor, order: torch.Tensor
+) -> torch.Tensor:
+    """K5, the scatter-max backward's row take on the table and stream
+    routes: ``out[b, order[b, j]] = image[b, spids[b, j]]`` for (B, N) ids
+    sorted in each frame and ``order``, the stable sort that sorted them (a
+    permutation of 0..N-1 per frame, int32), from a (B, rows, C) fp32 image
+    -> (B, N, C) in the points' own order; ids >= rows read 0.
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/sorted_gather.cu``'s ``himo_sorted_gather_rows_f32`` (counted in
+    ``sorted_gather_rows.launches``) or raise: the kernel takes a
+    contiguous fp32 image and contiguous int32 ids and order."""
+    if image.device.type == "cpu":
+        return _sorted_gather_rows_plain(image, spids, order)
+    entry = "himo_sorted_gather_rows_f32"
+    _check_gather_args(entry, image, spids, order)
+    b, rows, c = image.shape
+    n = spids.shape[1]
+    out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
+    lib = _build.load("sorted_gather", {entry: (_build.PTR,) * 4 + (_build.INT,) * 4
+                                        + (_build.PTR,)})
+    code = getattr(lib, entry)(
+        spids.data_ptr(), order.data_ptr(), image.data_ptr(), out.data_ptr(), b, n, c,
+        rows, _build.stream_handle(image.device),
+    )
+    _build.check(code, entry)
+    sorted_gather_rows.launches += 1
+    return out
+
+
+sorted_gather_rows.launches = 0
+
+
+def _stable_sort(ids: torch.Tensor):
+    """(sorted ids, order): each frame's (N,) ids in the order of a stable
+    sort, as the reference's argsort (equal ids keep their point order),
+    and that order (int32); both contiguous."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    return (torch.gather(ids, 1, order).contiguous(),
+            order.to(torch.int32).contiguous())
+
+
 def _sort_rows(ids: torch.Tensor, vals: torch.Tensor):
     """Each frame's (N,) ids and (N, C) rows in the order of a stable sort
     of the ids: the reference's argsort plus one row take
-    (``_sort_rows_by_key``); stable, so equal ids keep their point order."""
-    order = torch.argsort(ids, dim=1, stable=True)
-    return torch.gather(ids, 1, order).contiguous(), _take_rows_at(vals, order).contiguous()
+    (``_sort_rows_by_key``)."""
+    sids, order = _stable_sort(ids)
+    return sids, _take_rows_at(vals, order).contiguous()
 
 
-def _sorted_max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int) -> torch.Tensor:
-    return sorted_scatter_max_rows(*_sort_rows(pids, feats), rows)
+def _sorted_max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int):
+    """The stream route's max: a stable sort, then K2 max. Returns the
+    image and the sort, which the backward's take reuses."""
+    spids, order = _stable_sort(pids)
+    out = sorted_scatter_max_rows(spids, _take_rows_at(feats, order).contiguous(), rows)
+    return out, (spids, order)
 
 
 def _sorted_sum_rows(ids: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
@@ -438,9 +517,33 @@ def _resident_sum_rows(ids: torch.Tensor, vals: torch.Tensor, rows: int) -> torc
     return nn.segment_rows_sum(vals, ids, rows)
 
 
+def _resident_max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int):
+    return scatter_max_resident_rows(pids, feats, rows), ()
+
+
+def _table_max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int):
+    return scatter_max_rows(pids, feats, rows), ()
+
+
+def _plain_take(table: torch.Tensor, pids: torch.Tensor, sort) -> torch.Tensor:
+    """The resident route's take: plain indexing, ids clamped to the last row."""
+    return _take_rows_at(table, torch.clamp(pids.to(torch.int64), max=table.shape[1] - 1))
+
+
+def _sorted_take(table: torch.Tensor, pids: torch.Tensor, sort) -> torch.Tensor:
+    """The table and stream routes' take (K5), at the forward's stable sort
+    when it made one (stream), else after one stable argsort (table)."""
+    spids, order = sort if sort else _stable_sort(pids)
+    return sorted_gather_rows(table, spids, order)
+
+
 def _routed_max(route: str):
-    return {"resident": scatter_max_resident_rows, "table": scatter_max_rows,
-            "stream": _sorted_max_rows}[route]
+    """(scatter, take) of the route: ``scatter(pids, feats, rows)`` returns
+    the image and the sort it made (or ``()``); ``take(table, pids, sort)``
+    is the backward's row take."""
+    return {"resident": (_resident_max_rows, _plain_take),
+            "table": (_table_max_rows, _sorted_take),
+            "stream": (_sorted_max_rows, _sorted_take)}[route]
 
 
 def _routed_sum(route: str):
@@ -449,24 +552,27 @@ def _routed_sum(route: str):
 
 
 class _ScatterMax(torch.autograd.Function):
-    """Per-row max ``scatter(pids, feats, rows)`` with the TPU custom VJP:
-    every tied winner gets the whole cotangent of its (row, channel)."""
+    """Per-row max with the TPU custom VJP: every tied winner gets the whole
+    cotangent of its (row, channel). ``scatter(pids, feats, rows)`` returns
+    the image and the sort it made; the backward takes (g, out) at each
+    point's row with one ``take(table, pids, sort)``, as the reference
+    takes them together."""
 
     @staticmethod
-    def forward(ctx, pids, feats, rows, scatter):
-        out = scatter(pids, feats, rows)
-        ctx.save_for_backward(pids, feats, out)
+    def forward(ctx, pids, feats, rows, scatter, take):
+        out, sort = scatter(pids, feats, rows)
+        ctx.save_for_backward(pids, feats, out, *sort)
+        ctx.take = take
         return out
 
     @staticmethod
     def backward(ctx, g):
-        pids, feats, out = ctx.saved_tensors
+        pids, feats, out, *sort = ctx.saved_tensors
         rows, c = out.shape[1], out.shape[2]
-        # One row take of (g, out) together, as the reference does.
-        safe = torch.clamp(pids.to(torch.int64), max=rows - 1)
-        both = _take_rows_at(torch.cat([g, out], dim=-1), safe)
+        both = ctx.take(torch.cat([g, out], dim=-1), pids, tuple(sort))
         winner = (feats == both[..., c:]) & (pids < rows)[..., None]
-        return None, torch.where(winner, both[..., :c], torch.zeros_like(feats)), None, None
+        return (None, torch.where(winner, both[..., :c], torch.zeros_like(feats)),
+                None, None, None)
 
 
 class _ScatterSum(torch.autograd.Function):
@@ -515,8 +621,8 @@ class _RowTake(torch.autograd.Function):
 def _max_rows(pids: torch.Tensor, feats: torch.Tensor, rows: int) -> torch.Tensor:
     """Differentiable per-row max of (B, N, C) fp32 features on the
     reference's route for these shapes."""
-    scatter = _routed_max(_route(rows, feats.shape[1], feats.shape[2]))
-    return _ScatterMax.apply(pids, feats, rows, scatter)
+    scatter, take = _routed_max(_route(rows, feats.shape[1], feats.shape[2]))
+    return _ScatterMax.apply(pids, feats, rows, scatter, take)
 
 
 def scatter_max(features: torch.Tensor, grid: PillarGrid) -> torch.Tensor:

@@ -159,7 +159,7 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for name in ('core.transforms', 'training.losses', 'training.trainer',\n"
         "             'ops.knn', 'ops.dt', 'models.coordinate_mlp', 'models.opt_loop',\n"
-        "             'models.nsfp', 'models.fastnsf'):\n"
+        "             'models.nsfp', 'models.fastnsf', 'ops.mxu_scatter'):\n"
         "    assert 'himo_tpu_torch.' + name in names, names\n"
         "print(len(names))\n"
     )

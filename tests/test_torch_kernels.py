@@ -15,7 +15,9 @@ does not depend on order); scatter-add (``scatter_sum_rows``,
 add in no fixed order); the sorted sum (``sorted_scatter_sum_rows``) within
 that bound of the plain version on the card, and bitwise from launch to
 launch and against the plain version on the CPU (both add in stream order);
-NN squared distances, plain and fused, within ``1e-5 * (|q|^2 + |r|^2) +
+K10's sorted sum (``sorted_segment_sum``, with and without bf16 rounding)
+the same way; the sorted gathers K11 (``sorted_segment_gather``) and K5
+(``sorted_gather_rows``) bitwise; NN squared distances, plain and fused, within ``1e-5 * (|q|^2 + |r|^2) +
 1e-6`` (the kernels compute ``sum((q - r)^2)``, the plain versions
 ``|q|^2 + |r|^2 - 2 q.r``), the kernel's argmin at a distance equal to the
 plain min within the same bound, and exact duplicates resolved to the
@@ -481,3 +483,148 @@ def test_sorted_scatter_kernels_match_plain(cuda_device, c, rows, long_run):
     assert torch.equal(got_sum.cpu().view(torch.int32), cpu.view(torch.int32))
     with pytest.raises(TypeError):
         PV.sorted_scatter_sum_rows(i, v.double(), rows)
+
+
+# ------------------------------------------------ K10, K11 and K5: sorted streams
+
+
+def _round_bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c", [33, 65, 1])
+def test_sorted_segment_sum_plain_matches_sequential_loop(c, bf16):
+    """K10's plain version: the sequential fp32 sum of the (bf16-rounded)
+    values, bitwise (``index_add_`` adds in stream order on the CPU)."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rng = np.random.default_rng(20 + c)
+    rows = 300
+    ids, vals = _sorted_case(rng, 2, 1200, c, rows)
+    before = PM.sorted_segment_sum.launches
+    got = PM.sorted_segment_sum(_t(ids), _t(vals), rows, bf16).numpy()
+    assert PM.sorted_segment_sum.launches == before
+    want = _sequential_rows(ids, _round_bf16(vals) if bf16 else vals, rows, "sum")
+    np.testing.assert_array_equal(got, want)
+    empty = np.ones((2, rows), bool)
+    for b in range(2):
+        empty[b, ids[b][ids[b] < rows]] = False
+    assert empty.any() and (got[empty] == 0).all()  # rows no id reaches
+
+
+@pytest.mark.parametrize("c", [65, 1])
+def test_sorted_gathers_plain_match_numpy(c):
+    """K11's and K5's plain versions against numpy loops: ids >= rows read
+    0; K11 rounds the image with ``bf16``; K5 writes each sorted position's
+    row to ``order``, a random permutation here."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rng = np.random.default_rng(30 + c)
+    rows, n = 400, 900
+    image = rng.normal(size=(2, rows, c)).astype(np.float32)
+    ids = np.sort(rng.integers(0, rows + 3, size=(2, n)), axis=1).astype(np.int32)
+    order = np.stack([rng.permutation(n) for _ in range(2)]).astype(np.int32)
+    before = (PM.sorted_segment_gather.launches, PV.sorted_gather_rows.launches)
+    for bf16 in (False, True):
+        img = _round_bf16(image) if bf16 else image
+        want = np.zeros((2, n, c), np.float32)
+        for b in range(2):
+            for j in range(n):
+                if ids[b, j] < rows:
+                    want[b, j] = img[b, ids[b, j]]
+        got = PM.sorted_segment_gather(_t(image), _t(ids), bf16).numpy()
+        np.testing.assert_array_equal(got, want)
+    want = np.zeros((2, n, c), np.float32)
+    for b in range(2):
+        for j in range(n):
+            if ids[b, j] < rows:
+                want[b, order[b, j]] = image[b, ids[b, j]]
+    got = PV.sorted_gather_rows(_t(image), _t(ids), _t(order)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (PM.sorted_segment_gather.launches, PV.sorted_gather_rows.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c,rows,long_run", [(33, 512 * 64, 0), (65, 512 * 64, 0),
+                                             (1, 4096, 0), (33, 4096, 50000)])
+def test_sorted_segment_sum_kernel_matches_plain(cuda_device, c, rows, long_run, bf16):
+    """K10 within 1e-5 * sum|x| + 1e-6 of its plain version on the card
+    (index_add_'s atomics), bitwise from launch to launch and against the
+    CPU plain version (the same sequential order, the same rounding)."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rng = np.random.default_rng(c + rows + long_run)
+    ids, vals = _sorted_case(rng, 2, max(60000, long_run + 5000), c, rows, long_run)
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    before = PM.sorted_segment_sum.launches
+    got = PM.sorted_segment_sum(i, v, rows, bf16)
+    again = PM.sorted_segment_sum(i, v, rows, bf16)
+    assert PM.sorted_segment_sum.launches == before + 2
+    want = PM._sorted_segment_sum_plain(i, v, rows, bf16)
+    mag = PM._sorted_segment_sum_plain(i, v.abs(), rows, bf16)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-5 * mag + 1e-6).all()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    cpu = PM._sorted_segment_sum_plain(_t(ids), _t(vals), rows, bf16)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    with pytest.raises(TypeError):
+        PM.sorted_segment_sum(i, v.double(), rows, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows,long_run", [(65, 512 * 64, 0), (1, 4096, 0),
+                                             (65, 4096, 50000)])
+def test_sorted_segment_gather_kernel_bitwise_equals_plain(cuda_device, c, rows,
+                                                           long_run):
+    """K11 bitwise against its plain version in both modes: empty rows,
+    ids >= rows (read 0), one run of 50,000 equal ids."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rng = np.random.default_rng(40 + c + rows + long_run)
+    ids, _ = _sorted_case(rng, 2, max(60000, long_run + 5000), 1, rows, long_run)
+    image = _t(rng.normal(size=(2, rows, c)).astype(np.float32)).to(cuda_device)
+    i = _t(ids).to(cuda_device)
+    for bf16 in (False, True):
+        before = PM.sorted_segment_gather.launches
+        got = PM.sorted_segment_gather(image, i, bf16)
+        assert PM.sorted_segment_gather.launches == before + 1
+        want = PM._sorted_segment_gather_plain(image, i, bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (got[i >= rows] == 0).all()
+    with pytest.raises(TypeError):
+        PM.sorted_segment_gather(image, i.long())
+    with pytest.raises(ValueError):
+        PM.sorted_segment_gather(image[:, ::2], i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows,long_run", [(64, 512 * 64, 0), (2, 4096, 0),
+                                             (64, 4096, 50000)])
+def test_sorted_gather_rows_kernel_bitwise_equals_plain(cuda_device, c, rows, long_run):
+    """K5 bitwise against its plain version: sorted ids with empty rows,
+    ids >= rows and a 50,000-id run, and a random permutation as ``order``;
+    and the scatter-max backward's take (the stable sort's order) against
+    plain indexing."""
+    rng = np.random.default_rng(50 + c + rows + long_run)
+    n = max(60000, long_run + 5000)
+    ids, _ = _sorted_case(rng, 2, n, 1, rows, long_run)
+    order = np.stack([rng.permutation(n) for _ in range(2)]).astype(np.int32)
+    image = _t(rng.normal(size=(2, rows, c)).astype(np.float32)).to(cuda_device)
+    i, o = _t(ids).to(cuda_device), _t(order).to(cuda_device)
+    before = PV.sorted_gather_rows.launches
+    got = PV.sorted_gather_rows(image, i, o)
+    assert PV.sorted_gather_rows.launches == before + 1
+    want = PV._sorted_gather_rows_plain(image, i, o)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pids = _t(rng.integers(0, rows + 1, size=(2, n)).astype(np.int32)).to(cuda_device)
+    spids, sorder = PV._stable_sort(pids)
+    got = PV.sorted_gather_rows(image, spids, sorder)
+    want = PV._take_live_rows(image, pids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        PV.sorted_gather_rows(image, i, o[:, 1:].contiguous())

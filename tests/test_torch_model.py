@@ -190,8 +190,8 @@ def test_make_model_presets_and_unported_options():
     for name in ("seflowpp_trust", "seflowpp_prior"):
         with pytest.raises(NotImplementedError):
             PF.make_model(name)
-    with pytest.raises(NotImplementedError):
-        PF.make_model("seflowpp", pooling="mean_sorted")
+    model, cfg = PF.make_model("seflowpp", device="cpu", depths=(16,), pooling="mean_sorted")
+    assert cfg.pooling == "mean_sorted" and isinstance(model, PF.SceneFlowNet)
     with pytest.raises(KeyError):
         PF.make_model("nope")
 

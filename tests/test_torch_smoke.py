@@ -89,6 +89,8 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     scatter_sum = cs.phase_scatter_sum(dev, clouds)
     gather = cs.phase_gather(dev, clouds)
     sorted_max, sorted_sum = cs.phase_sorted(dev, big)
+    segment_sum_k10 = cs.phase_sorted_sum(dev, clouds)
+    segment_gather_k11, sorted_gather_k5 = cs.phase_sorted_gathers(dev, clouds, big)
     segment = cs.phase_segment_sum(dev)
     nn = cs.phase_nn(dev)
     fused = cs.phase_fused(dev)
@@ -97,12 +99,18 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
                                         expected=cs.INFER_256_LAUNCHES, **cs.GRID_256)
     launches_big, _, _ = cs.phase_slice(dev, big, name="inference_big",
                                         expected=cs.INFER_BIG_LAUNCHES)
+    launches_sorted, _, _ = cs.phase_slice(dev, clouds, name="inference_mean_sorted",
+                                           expected=cs.INFER_SORTED_LAUNCHES,
+                                           pooling="mean_sorted")
     train, run_step, step_ms = cs.phase_train(dev)
     train_256 = cs.phase_train(dev, name="train_256", steps=cs.ROUTE_TRAIN_STEPS,
                                expected=cs.TRAIN_256_LAUNCHES, val=False, **cs.GRID_256)[0]
     train_big = cs.phase_train(dev, name="train_big", steps=cs.ROUTE_TRAIN_STEPS,
                                expected=cs.TRAIN_BIG_LAUNCHES, val=False,
                                num_points=cs.BIG_POINTS)[0]
+    train_sorted = cs.phase_train(dev, name="train_mean_sorted", steps=cs.ROUTE_TRAIN_STEPS,
+                                  expected=cs.TRAIN_SORTED_LAUNCHES, val=False,
+                                  pooling="mean_sorted")[0]
     pair = cs._nsfp_pair(dev)
     knn = cs.phase_knn(dev, pair)
     nsfp, run_nsfp, nsfp_ms = cs.phase_nsfp(dev, pair)
@@ -116,28 +124,36 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
                           "scatter_sum_rows", "sorted_scatter_max_rows",
                           "sorted_scatter_sum_rows", "gather_rows", "nn_argmin_rows",
                           "nn_min_rows", "segment_rows_sum", "fused_nn", "fused_nn_idx",
-                          "knn_rows"), 0)
+                          "knn_rows", "sorted_segment_sum", "sorted_segment_gather",
+                          "sorted_gather_rows"), 0)
     assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
                         "nn_min_rows": 1}
     assert launches_256 == {**none, "scatter_max_resident_rows": 3, "gather_rows": 1,
                             "nn_argmin_rows": 10, "nn_min_rows": 1}
     assert launches_big == {**none, "sorted_scatter_max_rows": 3, "nn_argmin_rows": 10,
                             "nn_min_rows": 1}
+    assert launches_sorted == {**none, "sorted_segment_sum": 3, "sorted_segment_gather": 1,
+                               "nn_argmin_rows": 10, "nn_min_rows": 1}
     steps = cs.TRAIN_STEPS
     assert train == {**none, "scatter_max_rows": 4 * steps + 4, "scatter_sum_rows": steps,
-                     "segment_rows_sum": 3 * steps, "fused_nn": 1, "fused_nn_idx": steps}
+                     "segment_rows_sum": 3 * steps, "fused_nn": 1, "fused_nn_idx": steps,
+                     "sorted_gather_rows": 3 * steps}
     steps = cs.ROUTE_TRAIN_STEPS
     assert train_256 == {**none, "scatter_max_resident_rows": 4 * steps,
                          "gather_rows": steps, "segment_rows_sum": 4 * steps,
                          "fused_nn_idx": steps}
     assert train_big == {**none, "sorted_scatter_max_rows": 4 * steps,
                          "sorted_scatter_sum_rows": steps, "segment_rows_sum": 3 * steps,
-                         "fused_nn_idx": steps}
+                         "fused_nn_idx": steps, "sorted_gather_rows": 3 * steps}
+    assert train_sorted == {**none, "scatter_max_rows": steps, "sorted_segment_sum": 4 * steps,
+                            "sorted_segment_gather": 4 * steps,
+                            "segment_rows_sum": 4 * steps, "fused_nn_idx": steps}
     iters = cs.NSFP_ITERS  # knn_k 0, then 4
     assert nsfp == {**none, "nn_argmin_rows": 2 * iters * 2, "segment_rows_sum": iters * 2,
                     "knn_rows": 2 * iters}
     entries = [scatter, resident, scatter_sum, gather, sorted_max, sorted_sum,
-               *segment.values(), *nn[cs.NN_SHAPES[0]].values(), *fused.values(), knn]
+               *segment.values(), *nn[cs.NN_SHAPES[0]].values(), *fused.values(), knn,
+               segment_sum_k10, segment_gather_k11, sorted_gather_k5]
     keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
     for e in entries:
         assert set(e) == keys and e["bound_ms"] > 0
@@ -145,10 +161,15 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert scatter["library_ms"] is not None and fused["idx"]["library_ms"] is None
     assert gather["bound_by"] == "bytes" and sorted_sum["library_ms"] is not None
     assert knn["library_ms"] is None and knn["bound_by"] == "operations"
+    assert segment_gather_k11["bound_by"] == sorted_gather_k5["bound_by"] == "bytes"
+    assert segment_sum_k10["library_ms"] is not None
     out = capsys.readouterr().out
     assert "step 1 terms, kernels/plain" in out and "val step" in out
     assert "bitwise equal from launch to launch" in out and "at equal work" in out
     assert "[inference_256] forward + de-skew" in out and "[train_big] step 2" in out
+    assert "[inference_mean_sorted] forward + de-skew" in out
+    assert "[train_mean_sorted] step 2" in out and "sorted_segment_sum bf16=1" in out
+    assert "stable argsort" in out
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
