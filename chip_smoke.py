@@ -42,7 +42,11 @@ and prints no result):
    one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, timed with CUDA events beside the plain version and, where
-   one PyTorch call computes the same function, beside that call;
+   one PyTorch call computes the same function, beside that call; the
+   kernel and that call also by their traced device time (``device_ms``),
+   since at small shapes CUDA events over back-to-back calls time the host;
+   then the host cost per call of every kernel wrapper, and of K3 sum's
+   split by part, now and as its parent ran it (``phase_host_cost``);
 4. slice: the full inference forward through the kernels (launch counts
    checked: 3 scatter_max_rows, 10 nn_argmin_rows, 1 nn_min_rows; path A
    3 scatter_max_resident_rows and 1 gather_rows instead of the first,
@@ -88,6 +92,11 @@ Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
 kernel entry point (``launches`` summed over the path runs); the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+    python3 chip_smoke.py --host-cost ROOT
+
+builds and times only the wrappers of the checkout at ROOT (host us per
+call, one JSON line), so that two checkouts compare in one run.
 """
 
 from __future__ import annotations
@@ -126,6 +135,8 @@ TERM_RTOL = 1e-4
 NORM_RTOL = 1e-3  # step-1 gradient global norm
 MIN_COSINE = 0.999  # step-1 gradients
 PROFILE_CALLS = 3  # traced calls of each main path
+HOST_CALLS, HOST_RUNS = 100, 10  # host cost: 1,000 calls per wrapper or part
+HOST_POINTS, HOST_ROWS = 256, 1024  # the host-cost phase's tiny shapes
 PROFILE_TOP = 12  # kernels listed by device time
 NSFP_POINTS = 65536  # one frame pair of the optimisation estimators
 NSFP_ITERS = 500  # NSFPConfig().iterations, FastNSFConfig().iterations
@@ -164,6 +175,69 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_events(prof) -> list:
+    """The kernel, memcpy and memset events of a finished torch.profiler
+    trace (chrome-trace dicts: ``name``, ``cat``, ``ts`` and ``dur`` in us)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` (warm): the summed kernel,
+    memset and memcpy durations of a torch.profiler trace of ``iters``
+    calls, over ``iters``. :func:`cuda_ms` times back-to-back calls, so
+    where the host takes longer per call than the device it measures the
+    host; this leaves out the gaps in which the device waits. A trace whose
+    device events are not a whole number per call lost some (seen once in
+    a CUDA-only trace) and is taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events and len(events) % iters == 0:
+            return sum(e["dur"] for e in events) / 1e3 / iters
+    raise AssertionError(f"device_ms: {len(events)} device events in a trace of {iters} calls")
+
+
+def device_times(fn, library=None, iters: int = 20) -> dict:
+    """``device_ms`` of a kernel wrapper call and of its library call (None
+    where there is none), as the kernels line carries them."""
+    return dict(device_ms=device_ms(fn, iters),
+                library_device_ms=None if library is None else device_ms(library, iters))
+
+
+def host_us(fn, calls: int = HOST_CALLS, runs: int = HOST_RUNS) -> float:
+    """Host microseconds per call of ``fn``: ``time.perf_counter`` over
+    ``runs`` runs of ``calls`` calls with no synchronise within a run. The
+    device is drained between runs, outside the timing, so that a full
+    launch queue never holds the host back."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        total += time.perf_counter() - start
+    torch.cuda.synchronize()
+    return total / (calls * runs) * 1e6
 
 
 def bound(bytes_moved: float, ops: float) -> dict:
@@ -347,13 +421,18 @@ def _check_max(name, fn, plain, pids, feats, rows, stream=False):
     plain_ms = cuda_ms(lambda: plain(pids, feats, rows))
     flat = _flat_rows(pids, rows)[:, None].expand(-1, c)
     src = feats.reshape(-1, c)
-    library_ms = cuda_ms(lambda: torch.zeros(
-        b * rows + 1, c, device=feats.device
-    ).scatter_reduce_(0, flat, src, "amax", include_self=False))
+
+    def library():
+        return torch.zeros(b * rows + 1, c, device=feats.device).scatter_reduce_(
+            0, flat, src, "amax", include_self=False)
+
+    library_ms = cuda_ms(library)
+    dev = device_times(lambda: fn(pids, feats, rows), library)
     log(f"{name} B={b} N={n} C={c} rows={rows} trash={trash:.3f}: bitwise equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax {library_ms:.4f} ms")
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax {library_ms:.4f} ms; "
+        f"device {dev['device_ms']:.4f} / {dev['library_device_ms']:.4f} ms")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **_reduce_bound(pids, rows, c, stream))
+                library_ms=library_ms, **dev, **_reduce_bound(pids, rows, c, stream))
 
 
 def phase_scatter(device, clouds):
@@ -406,12 +485,17 @@ def _check_sum_kernel(name, fn, plain, ids, vals, rows, stream=False):
     plain_ms = cuda_ms(lambda: plain(ids, vals, rows))
     flat = _flat_rows(ids, rows)
     src = vals.reshape(-1, c)
-    library_ms = cuda_ms(
-        lambda: torch.zeros(b * rows + 1, c, device=vals.device).index_add_(0, flat, src))
+
+    def library():
+        return torch.zeros(b * rows + 1, c, device=vals.device).index_add_(0, flat, src)
+
+    library_ms = cuda_ms(library)
+    dev = device_times(lambda: fn(ids, vals, rows), library)
     log(f"{name} B={b} N={n} C={c} rows={rows}: within 1e-5*sum|x|+1e-6 "
         f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_add_ {library_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        f"index_add_ {library_ms:.4f} ms; device {dev['device_ms']:.4f} / "
+        f"{dev['library_device_ms']:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **dev,
                 **_reduce_bound(ids, rows, c, stream))
 
 
@@ -449,13 +533,19 @@ def phase_gather(device, clouds):
     plain_ms = cuda_ms(lambda: pvox._gather_rows_plain(image, ids))
     flat = _flat_rows(ids, rows)
     table = image.reshape(-1, c)
-    library_ms = cuda_ms(lambda: torch.index_select(table, 0, flat))
+
+    def library():
+        return torch.index_select(table, 0, flat)
+
+    library_ms = cuda_ms(library)
+    dev = device_times(lambda: pvox.gather_rows(image, ids), library)
     reached = int(torch.unique(flat).numel())  # image rows the points read
     log(f"gather_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows} reached rows "
         f"{reached / (BATCH * rows):.3f}: bitwise equal; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_select {library_ms:.4f} ms")
+        f"{plain_ms:.4f} ms, index_select {library_ms:.4f} ms; device "
+        f"{dev['device_ms']:.4f} / {dev['library_device_ms']:.4f} ms")
     pts = BATCH * NUM_POINTS
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **dev,
                 **bound(pts * 4 + reached * c * 4 + pts * c * 4, 0))
 
 
@@ -558,24 +648,29 @@ def _check_gather(name, fn, plain, args, ids, library):
     ms = cuda_ms(lambda: fn(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
     library_ms = cuda_ms(library)
+    dev = device_times(lambda: fn(*args), library)
     flat = _flat_rows(ids, rows)
     reached = int(torch.unique(flat[flat < b * rows]).numel())
     id_tensors = sum(1 for a in args[1:] if torch.is_tensor(a))
+    lower = bound(b * n * 4 * id_tensors + reached * c * 4 + b * n * c * 4, 0)
     log(f"{name} B={b} N={n} C={c} rows={rows} ids past the grid "
         f"{float((ids >= rows).float().mean()):.3f}, reached rows {reached / (b * rows):.3f}: "
         f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{library_ms:.4f} ms")
+        f"{library_ms:.4f} ms; device {dev['device_ms']:.4f} / "
+        f"{dev['library_device_ms']:.4f} ms; bound {lower['bound_ms']:.4f} ms")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms,
-                **bound(b * n * 4 * id_tensors + reached * c * 4 + b * n * c * 4, 0))
+                library_ms=library_ms, **dev, **lower)
 
 
 def phase_sorted_gathers(device, clouds, big):
-    """K11 at the mean_sorted path's gather: a (B, 512^2, 65) fp32 image at
-    the main path's first sweep's sorted 512x512 ids (8 % past the grid,
-    the padded points), flag off and on (the path's), beside
-    ``index_select`` of the flat rows with one zero row appended for ids
-    past the grid (the appended table made beforehand). K5 at the 512x512
+    """K11 at the mean_sorted path's gathers: a (B, 512^2, 65) fp32 image
+    (the forward's) and a (B, 512^2, 33) one (K10's backward, 3 of the 4
+    launches of a train step) at the main path's first sweep's sorted
+    512x512 ids (8 % past the grid, the padded points), flag off and on
+    (the path's), beside ``index_select`` of the flat rows with one zero
+    row appended for ids past the grid (the appended table made
+    beforehand); the forward's shape with the flag on is the kernels line's.
+    K5 at the 512x512
     train step's take: a (B, 512^2, 64) (cotangent, max) image at the same
     ids, read in sorted order and written back through the stable sort's
     order, beside ``index_select`` of the flat rows at the unsorted ids (the
@@ -597,14 +692,17 @@ def phase_sorted_gathers(device, clouds, big):
         image = torch.randn(BATCH, rows, c, device=device, generator=gen)
         return image, torch.cat([image.reshape(-1, c), image.new_zeros(1, c)])
 
-    image, table = image_and_table(GATHER_CHANNELS)
     flat = _flat_rows(spids, rows)
-    for bf16 in (False, True):  # the path's flag (bf16) last
-        k11 = _check_gather(
-            f"sorted_segment_gather bf16={int(bf16)}",
-            lambda im, i, _b=bf16: pms.sorted_segment_gather(im, i, _b),
-            lambda im, i, _b=bf16: pms._sorted_segment_gather_plain(im, i, _b),
-            (image, spids), spids, lambda: torch.index_select(table, 0, flat))
+    k11 = {}
+    for c in (MEAN_CHANNELS, GATHER_CHANNELS):
+        image, table = image_and_table(c)
+        for bf16 in (False, True):  # the path's flag (bf16) last
+            k11[c] = _check_gather(
+                f"sorted_segment_gather bf16={int(bf16)}",
+                lambda im, i, _b=bf16: pms.sorted_segment_gather(im, i, _b),
+                lambda im, i, _b=bf16: pms._sorted_segment_gather_plain(im, i, _b),
+                (image, spids), spids, lambda: torch.index_select(table, 0, flat))
+        del image, table
 
     image, table = image_and_table(2 * SCATTER_CHANNELS)
     flat = _flat_rows(pids, rows)
@@ -622,12 +720,16 @@ def phase_sorted_gathers(device, clouds, big):
     log(f"sorted_gather_rows: the table route's stable argsort of the ids "
         f"{sort_ms:.4f} ms ({NUM_POINTS} points), {big_sort_ms:.4f} ms "
         f"({bpids.shape[1]} points; the stream route reuses its forward's)")
-    return k11, k5
+    return k11[GATHER_CHANNELS], k5
 
 
 def phase_segment_sum(device):
     """K3 sum at both train-step shapes: take_rows' backward (16,384 rows
-    of 3 into 65,536) and the fused NN backward (32,768 into 16,384)."""
+    of 3 into 65,536) and the fused NN backward (32,768 into 16,384). At
+    these shapes CUDA events over back-to-back calls time the host's work
+    per call as much as the device's, so each call, and ``torch.zeros`` +
+    ``index_add_``, is also timed by the device alone (``device_ms``:
+    kernels plus memsets per call, from a trace of the same loop)."""
     import torch
 
     from himo_tpu_torch.ops import nn as pnn
@@ -647,16 +749,188 @@ def phase_segment_sum(device):
         plain_ms = cuda_ms(lambda: pnn._segment_rows_sum_plain(vals, ids, rows), iters=50)
         flat = _flat_rows(ids, rows)
         src = vals.reshape(-1, 3)
-        library_ms = cuda_ms(lambda: torch.zeros(  # a new zeroed table, as the wrapper
-            BATCH * rows + 1, 3, device=device).index_add_(0, flat, src), iters=50)
+
+        def library():  # a new zeroed table, as the wrapper returns
+            return torch.zeros(BATCH * rows + 1, 3, device=device).index_add_(0, flat, src)
+
+        library_ms = cuda_ms(library, iters=50)
+        dev = device_times(lambda: pnn.segment_rows_sum(vals, ids, rows), library, iters=50)
         log(f"segment_rows_sum B={BATCH} {n}x3 -> {rows}: within 1e-5*sum|x|+1e-6 "
-            f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_add_ {library_ms:.4f} ms")
+            f"(max abs err {err:.3e}); events per call: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, zeros + index_add_ {library_ms:.4f} ms; device per call "
+            f"(kernels + memsets): kernel {dev['device_ms'] * 1e3:.3f} us, zeros + "
+            f"index_add_ {dev['library_device_ms'] * 1e3:.3f} us")
         pts = BATCH * n
         out[(n, rows)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms,
+                              library_ms=library_ms, **dev,
                               **bound(pts * 4 + pts * 12 + BATCH * rows * 12, pts * 3))
     return out
+
+
+def wrapper_host_us(device) -> dict:
+    """Host microseconds per call (:func:`host_us`) of every kernel wrapper
+    at a tiny shape: 1 frame of HOST_POINTS points into HOST_ROWS rows (32
+    channels for the maxes, 65 for the gathers, 33 for K10, 3 for the sums
+    and clouds), where the device needs a few microseconds per launch and
+    the host's work is what a caller waits for. Only the wrappers' public
+    signatures are used, so that ``--host-cost ROOT`` times an earlier
+    checkout's wrappers the same way."""
+    import torch
+
+    from himo_tpu_torch.ops import knn as pknn
+    from himo_tpu_torch.ops import mxu_scatter as pms
+    from himo_tpu_torch.ops import nn as pnn
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    n, rows = HOST_POINTS, HOST_ROWS
+
+    def normal(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    ids = torch.randint(0, rows + 8, (1, n), device=device, generator=gen,
+                        dtype=torch.int32).sort(dim=1).values.contiguous()  # sorted
+    order = torch.randperm(n, device=device, generator=gen).to(torch.int32)[None].contiguous()
+    v3, v32, v33, image = normal(1, n, 3), normal(1, n, 32), normal(1, n, 33), normal(1, rows, 65)
+    q, r = normal(1, n, 3) * 10, normal(1, n, 3) * 10
+    pen = torch.zeros(1, n, device=device)
+    calls = {
+        "scatter_max_rows": lambda: pvox.scatter_max_rows(ids, v32, rows),
+        "scatter_max_resident_rows": lambda: pvox.scatter_max_resident_rows(ids, v32, rows),
+        "scatter_sum_rows": lambda: pvox.scatter_sum_rows(ids, v3, rows),
+        "sorted_scatter_max_rows": lambda: pvox.sorted_scatter_max_rows(ids, v32, rows),
+        "sorted_scatter_sum_rows": lambda: pvox.sorted_scatter_sum_rows(ids, v3, rows),
+        "gather_rows": lambda: pvox.gather_rows(image, ids),
+        "sorted_gather_rows": lambda: pvox.sorted_gather_rows(image, ids, order),
+        "segment_rows_sum": lambda: pnn.segment_rows_sum(v3, ids, rows),
+        "nn_min_rows": lambda: pnn.nn_min_rows(q, r),
+        "nn_argmin_rows": lambda: pnn.nn_argmin_rows(q, r),
+        "fused_nn": lambda: pnn.fused_nn(q, r, pen, pen, pen, pen),
+        "fused_nn_idx": lambda: pnn.fused_nn_idx(q, r, pen, pen, pen, pen),
+        "knn_rows": lambda: pknn.knn_rows(q, r, KNN_K),
+        "sorted_segment_sum": lambda: pms.sorted_segment_sum(ids, v33, rows, True),
+        "sorted_segment_gather": lambda: pms.sorted_segment_gather(image, ids, True),
+    }
+    return {name: host_us(fn) for name, fn in calls.items()}
+
+
+def _parent_rows_checks(name, ids, vals):
+    """The row wrappers' argument checks as the parent of the launch helper
+    ran them (``ops.voxelize._check_rows_args`` before it), for the host-cost
+    replay."""
+    import torch
+
+    if vals.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError(f"{name}: {vals.dtype} / {ids.dtype}")
+    if not (vals.is_contiguous() and ids.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous inputs")
+    if vals.dim() != 3 or ids.shape != vals.shape[:2]:
+        raise ValueError(f"shapes {tuple(ids.shape)} / {tuple(vals.shape)}")
+    if ids.device != vals.device:
+        raise ValueError("ids and values on different devices")
+
+
+def phase_host_cost(device):
+    """The kernel wrappers' host work per call. First every wrapper whole
+    (:func:`wrapper_host_us`). Then K3 sum's wrapper at the fused NN
+    backward's shape split by part (checks, allocation, binding, stream,
+    the ctypes call), as it runs now and as its parent ran it, replayed
+    step by step: the earlier checks, ``torch.zeros``, a signature dict
+    built and walked per call as the parent's ``_build.load`` did, and a
+    ``torch.cuda.Stream`` object per call. The replay's ctypes call goes to
+    today's entry point, which also zeroes the table (the parent's did
+    not). Last, the raw stream handle the launch helper reads is held
+    against ``torch.cuda.current_stream`` outside and inside a side
+    stream, and a launch inside the side stream against the plain version."""
+    import ctypes
+
+    import torch
+
+    from himo_tpu_torch.kernels import _build
+    from himo_tpu_torch.ops import nn as pnn
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    whole = wrapper_host_us(device)
+    log("host us per call, every wrapper (1 frame, "
+        f"{HOST_POINTS} points, {HOST_ROWS} rows): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in whole.items()))
+    n, rows = SEGMENT_SHAPES[1]
+    gen = torch.Generator(device=device).manual_seed(12)
+    ids = torch.randint(0, rows, (BATCH, n), device=device, generator=gen, dtype=torch.int32)
+    vals = torch.randn(BATCH, n, 3, device=device, generator=gen)
+    b, c = BATCH, 3
+    entry = pvox._SCATTER_SUM
+    fn = entry.bind()
+    raw = torch._C._cuda_getCurrentRawStream
+    index = vals.get_device()
+    out = torch.empty((b, rows, c), device=device)
+    stream = raw(index)
+    stream_arg = ctypes.c_void_p(stream)  # as the parent's stream part gave it
+    name = entry.name
+    loaded, bound = {"scatter_sum": _build.library("scatter_sum")}, {("scatter_sum", name)}
+
+    def parent_binding():
+        signatures = {name: pvox._ROWS_ARGTYPES + (_build.PTR,)}
+        lib = loaded.get("scatter_sum")
+        for fn_name, _ in signatures.items():
+            if ("scatter_sum", fn_name) in bound:
+                continue
+        return getattr(lib, name)
+
+    def parent_stream():
+        return ctypes.c_void_p(torch.cuda.current_stream(vals.device).cuda_stream)
+
+    def parent_call():
+        if vals.device.type == "cpu":
+            raise AssertionError("not on the card")
+        _parent_rows_checks(name, ids, vals)
+        table = torch.zeros((b, rows, c), dtype=torch.float32, device=vals.device)
+        code = parent_binding()(ids.data_ptr(), vals.data_ptr(), table.data_ptr(), b, n, c,
+                                rows, parent_stream())
+        _build.check(code, name)
+        return table
+
+    parts = {
+        "after": {
+            "checks": lambda: pvox._check_rows_args(name, ids, vals),
+            "allocation": lambda: vals.new_empty((b, rows, c)),
+            "binding": lambda: entry._fn or entry.bind(),
+            "stream": lambda: raw(index),
+            "ctypes call": lambda: fn(ids.data_ptr(), vals.data_ptr(), out.data_ptr(), b, n,
+                                      c, rows, stream),
+            "whole call": lambda: pnn.segment_rows_sum(vals, ids, rows),
+        },
+        "before (replayed)": {
+            "checks": lambda: _parent_rows_checks(name, ids, vals),
+            "allocation": lambda: torch.zeros((b, rows, c), dtype=torch.float32,
+                                              device=vals.device),
+            "binding": parent_binding,
+            "stream": parent_stream,
+            "ctypes call": lambda: fn(ids.data_ptr(), vals.data_ptr(), out.data_ptr(), b, n,
+                                      c, rows, stream_arg),
+            "whole call": parent_call,
+        },
+    }
+    split = {}
+    for when, steps in parts.items():
+        split[when] = {part: host_us(step) for part, step in steps.items()}
+        log(f"segment_rows_sum B={b} {n}x{c} -> {rows}, host us per call {when}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split[when].items()))
+    side = torch.cuda.Stream(device)
+    torch.cuda.synchronize()
+    if raw(index) != torch.cuda.current_stream(device).cuda_stream:
+        raise AssertionError("raw stream handle differs from the current stream's")
+    with torch.cuda.stream(side):
+        if raw(index) != side.cuda_stream:
+            raise AssertionError("raw stream handle ignores torch.cuda.stream(...)")
+        got = pnn.segment_rows_sum(vals, ids, rows)
+    side.synchronize()
+    _check_sum("segment_rows_sum on a side stream", got,
+               pnn._segment_rows_sum_plain(vals, ids, rows),
+               pnn._segment_rows_sum_plain(vals.abs(), ids, rows))
+    log("raw stream handle equals torch.cuda.current_stream's, inside a side stream too; "
+        "a launch there matches the plain version")
+    return whole, split
 
 
 def _nn_inputs(device, n, m, seed):
@@ -719,10 +993,11 @@ def phase_nn(device):
         io = BATCH * (n + m) * 12
         out[(n, m)] = dict(
             argmin=dict(max_abs_err=float(err[qv].max()), ms=ms_arg, plain_ms=plain_arg,
-                        library_ms=None,
+                        library_ms=None, **device_times(lambda: pnn.nn_argmin_rows(q, r)),
                         **bound(io + BATCH * n * 8, pairs * NN_OPS_PER_PAIR)),
             min=dict(max_abs_err=float(err_min[qv].max()), ms=ms_min, plain_ms=plain_min,
-                     library_ms=None, **bound(io + BATCH * n * 4, pairs * NN_OPS_PER_PAIR)),
+                     library_ms=None, **device_times(lambda: pnn.nn_min_rows(q, r)),
+                     **bound(io + BATCH * n * 4, pairs * NN_OPS_PER_PAIR)),
         )
     return out
 
@@ -807,8 +1082,10 @@ def phase_fused(device):
     out_min = BATCH * (n + m) * 8  # two fp32 mins per point
     return dict(
         idx=dict(max_abs_err=max(errs), ms=ms_idx, plain_ms=plain_ms, library_ms=None,
+                 **device_times(lambda: pnn.fused_nn_idx(*args), iters=10),
                  **bound(io + 2 * out_min, pairs * FUSED_OPS_PER_PAIR)),
         min=dict(max_abs_err=max(min_errs), ms=ms_min, plain_ms=plain_ms, library_ms=None,
+                 **device_times(lambda: pnn.fused_nn(*args), iters=10),
                  **bound(io + out_min, pairs * FUSED_OPS_PER_PAIR)),
     )
 
@@ -900,6 +1177,7 @@ def phase_knn(device, pair):
         f"{aligned:.6f} of queries slot by slot; duplicates collapse alike; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **device_times(lambda: pknn.knn_rows(q, r, KNN_K), iters=10),
                 **bound((n + m) * 12 + n * KNN_K * 4, n * m * NN_OPS_PER_PAIR))
 
 
@@ -1024,8 +1302,6 @@ def phase_profile(name: str, fn, wall_ms: float, calls: int = PROFILE_CALLS) -> 
     path's unprofiled median ``wall_ms``, kernel launches per call, the
     kernels with the most device time, and the device time per launch of
     each of the port's own kernels."""
-    import tempfile
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1035,12 +1311,7 @@ def phase_profile(name: str, fn, wall_ms: float, calls: int = PROFILE_CALLS) -> 
             fn()
             torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - start) * 1e3 / calls
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    device = [e for e in events
-              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device = _device_events(prof)
     if not device:
         raise AssertionError(f"{name}: the trace holds no device activity")
     busy = _busy_ms((e["ts"], e["ts"] + e["dur"]) for e in device) / calls
@@ -1414,13 +1685,19 @@ def phase_fastnsf(device, pair):
     return _profile_run("fastnsf", pair, dt=dt)
 
 
-def main() -> int:
-    here = Path(__file__).resolve().parent
-    if not (here / "himo_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke.py: run it from a checkout of the repository "
-              "(himo_tpu_torch/ not found beside it)", file=sys.stderr)
+def main(argv) -> int:
+    """No arguments: every phase. ``--host-cost ROOT``: only the host cost
+    per call of every wrapper (:func:`wrapper_host_us`) of the checkout at
+    ROOT, as one JSON line, to compare two checkouts in one call."""
+    if argv and (len(argv) != 2 or argv[0] != "--host-cost"):
+        print("usage: chip_smoke.py [--host-cost ROOT]", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(here))
+    root = Path(argv[1]).resolve() if argv else Path(__file__).resolve().parent
+    if not (root / "himo_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              f"(himo_tpu_torch/ not found in {root})", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
     import torch
 
     if not torch.cuda.is_available():
@@ -1431,6 +1708,9 @@ def main() -> int:
 
     device, smi = phase_device()
     phase_build()
+    if argv:
+        print(json.dumps({"root": str(root), "host_us": wrapper_host_us(device)}))
+        return 0
     clouds = _clouds(device)
     big = _clouds(device, BIG_POINTS)
     scatter = phase_scatter(device, clouds)
@@ -1441,6 +1721,7 @@ def main() -> int:
     segment_sum_k10 = phase_sorted_sum(device, clouds)
     segment_gather_k11, sorted_gather_k5 = phase_sorted_gathers(device, clouds, big)
     segment = phase_segment_sum(device)
+    phase_host_cost(device)
     nn = phase_nn(device)
     fused = phase_fused(device)
     pair = _nsfp_pair(device)
@@ -1554,4 +1835,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

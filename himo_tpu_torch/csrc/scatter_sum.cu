@@ -19,28 +19,41 @@
 // image) resident in VMEM, because the TPU has no scatter-add into HBM;
 // none of that is carried over. What is kept is the function.
 //
-// Design on the H100: the wrapper zeroes the output; one launch then adds
-// every point's row with fp32 atomics whose result is unused (the compiler
-// emits `red.global.add.f32`), at random rows.
+// Design on the H100: the entry point zeroes the table (cudaMemsetAsync on
+// the caller's stream, so the wrapper makes one Python-to-C crossing and
+// no `torch.zeros` dispatch); one launch then adds every point's row with
+// fp32 atomics whose result is unused (the compiler emits
+// `red.global.add.f32`), at random rows.
 // - C >= 32: one warp per point, lanes over channels. A 65-channel row is
 //   260 bytes, not 16-byte aligned, so loads are scalar: the warp's reads
 //   of one row are still contiguous.
-// - C < 32: one thread per (point, channel) element, so consecutive
-//   threads read consecutive floats of the (points, C) input.
+// - C < 32 (the train step's 3- and 5-channel backwards): one thread per
+//   (point, channel) element of one frame, the frame from blockIdx.y, so
+//   consecutive lanes read consecutive floats and add into consecutive
+//   floats of a few rows: one warp's `red` instruction reaches about
+//   32 / C rows, so the L2 sees one sector request per row, not per value.
+//   The only division is the element's point, e / C in 32 bits. Index
+//   arithmetic is 32-bit when the values and the table have fewer than
+//   2^31 floats, 64-bit otherwise. Two designs before it, both slower
+//   (PERF.md): one thread per element with two 64-bit divisions each
+//   (4.8 us per launch at 32,768 x 3 points), and one thread per point
+//   adding its C values (7.2 us: each red instruction reached 32 rows).
 // - A zero value is not added: the table starts at +0.0 and adding +-0.0
 //   to a sum leaves it unchanged, so skipping is exact. Cotangents of the
 //   ReLU'd pillar features are zero in about half the channels.
 //
 // What bounds it: bytes. At the 512x512 shape the table of 8 x 262,144 x
-// 65 fp32 (545 MB, zeroed by the wrapper) dwarfs the 136 MB of point rows;
-// the atomics land at random rows, mostly in the 50 MB L2. At the 3-channel
-// shapes the work is a few MB and the launch itself dominates.
+// 65 fp32 (545 MB, zeroed first) dwarfs the 136 MB of point rows; the
+// atomics land at random rows, mostly in the 50 MB L2. At the 3-channel
+// shapes the work is a few MB: the launch and the caller's host work
+// dominate.
 //
 // The order of the additions is not fixed, so results differ from a
 // sequential sum by rounding, from run to run.
 //
 // Inputs: ids (B, N) int32, vals (B, N, C) fp32, out (B * rows, C) fp32
-// zeroed, all contiguous on one device. The Python wrappers check them.
+// (any contents: zeroed here), all contiguous on one device. The Python
+// wrappers check them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,20 +81,24 @@ __global__ void scatter_sum_warp(const int* __restrict__ ids,
   }
 }
 
+// One thread per element e = point * c + channel of frame blockIdx.y (and
+// every gridDim.y-th frame after it); Index is int or long long.
+template <typename Index>
 __global__ void scatter_sum_elem(const int* __restrict__ ids,
                                  const float* __restrict__ vals,
-                                 float* __restrict__ out, long long count,
-                                 int n, int c, int rows) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= count) return;
-  const long long p = e / c;
-  const int ch = static_cast<int>(e - p * c);
-  const int id = ids[p];
-  if (static_cast<unsigned int>(id) >= static_cast<unsigned int>(rows)) return;
-  const float v = vals[e];
-  if (v == 0.0f) return;
-  const long long b = p / n;
-  atomicAdd(out + (b * rows + id) * static_cast<long long>(c) + ch, v);
+                                 float* __restrict__ out, int batch, int n,
+                                 int c, int rows) {
+  const Index e = static_cast<Index>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const Index per_frame = static_cast<Index>(n) * c;
+  if (e >= per_frame) return;
+  const Index point = e / c;
+  const int ch = static_cast<int>(e - point * c);
+  for (int b = blockIdx.y; b < batch; b += gridDim.y) {
+    const int id = ids[b * static_cast<Index>(n) + point];
+    if (static_cast<unsigned int>(id) >= static_cast<unsigned int>(rows)) continue;
+    const float v = vals[b * per_frame + e];
+    if (v != 0.0f) atomicAdd(out + (b * static_cast<Index>(rows) + id) * c + ch, v);
+  }
 }
 
 }  // namespace
@@ -91,7 +108,12 @@ extern "C" int himo_scatter_sum_f32(const void* ids, const void* vals,
                                     int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long points = static_cast<long long>(batch) * n;
-  if (points == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const long long table = static_cast<long long>(batch) * rows * c;
+  if (table > 0) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, table * sizeof(float), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (points == 0 || c == 0 || rows == 0) return static_cast<int>(cudaGetLastError());
   const int* i = static_cast<const int*>(ids);
   const float* v = static_cast<const float*>(vals);
   float* o = static_cast<float*>(out);
@@ -100,10 +122,15 @@ extern "C" int himo_scatter_sum_f32(const void* ids, const void* vals,
     scatter_sum_warp<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
         i, v, o, points, n, c, rows);
   } else {
-    const long long count = points * c;
-    const long long blocks = (count + kThreads - 1) / kThreads;
-    scatter_sum_elem<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-        i, v, o, count, n, c, rows);
+    const long long per_frame = static_cast<long long>(n) * c;
+    const dim3 grid(static_cast<unsigned int>((per_frame + kThreads - 1) / kThreads),
+                    batch < 65535 ? batch : 65535);
+    const long long limit = 1LL << 31;
+    if (points * c < limit && table < limit) {
+      scatter_sum_elem<int><<<grid, kThreads, 0, s>>>(i, v, o, batch, n, c, rows);
+    } else {
+      scatter_sum_elem<long long><<<grid, kThreads, 0, s>>>(i, v, o, batch, n, c, rows);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

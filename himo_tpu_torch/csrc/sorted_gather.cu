@@ -27,22 +27,41 @@
 //
 // Design on the H100: what sortedness buys over gather_rows.cu (one warp per
 // point, one image row read per point) is that all points of a pillar are
-// neighbours in the stream. One warp per 32 sorted positions of a frame,
-// one id per lane: the warp takes the chunk's runs of equal ids in turn
-// (the run's first id by a shuffle, its end by a ballot), reads each run's
-// image row once, 32 channels at a time into registers, and writes them to
-// every point of the run: contiguous rows for K11, one row per point at
-// `order` for K5. Each point's row is a 32-lane contiguous write. A run that
-// crosses chunks is read once per chunk, still far fewer reads than one per
-// point. Each warp writes at most 32 rows, so a long run (the ids past the
-// grid, 8 % of a padded frame, or a near-sensor pillar) spreads over many
-// warps: a first version with one warp per whole run left those to one warp
-// and ran 2-4x slower (PERF.md). No scratch, no atomics; every output row is
-// written exactly once (ids >= rows form runs too, which write zeros). The
-// kernel is right for unsorted ids too, only slower.
+// neighbours in the stream, so each distinct row is read from device memory
+// about once. Every output row is written exactly once; no scratch, no
+// atomics. Both kernels are right for unsorted ids too, only slower.
 //
-// What bounds it: bytes (the ids, and `order` for K5, read once; the image
-// rows the ids reach read once; the (B, N, C) output written once).
+// K11 (`gather_tile`): the output rows of consecutive sorted positions are
+// one contiguous span, so a block takes a tile of 128 consecutive positions
+// of the flattened (B * N) stream (a tile may straddle two frames), puts
+// each position's image row offset in shared memory (-1 for ids >= rows;
+// one 32-bit division per position finds its frame), and walks the tile's
+// span of 128 * C floats as 16-byte words, one `st.global.v4.f32` each:
+// consecutive threads write consecutive words. Each word's four floats
+// resolve to (position, channel) pairs with one division per word, then a
+// step per float. A run's row is read again by the next position, and that
+// read hits L1. The few floats before the span's first 16-byte boundary
+// and after its last are stored one by one (N * C is not a multiple of 4
+// for odd C). Index arithmetic is 32-bit when the output and the image
+// have fewer than 2^31 floats, 64-bit otherwise. An earlier design gave
+// one warp to 32 sorted positions with lanes over channels: at C = 65 each
+// run took passes of 32, 32 and 1 live lanes and three store instructions
+// per point into rows that are not 16-byte aligned, and it ran at 1.35x
+// `index_select` (PERF.md).
+//
+// K5 (`gather_runs`): its output rows are scattered through `order`, so
+// the span trick does not apply. One warp per 32 sorted positions of a
+// frame, one id per lane: the warp takes the chunk's runs of equal ids in
+// turn (the run's first id by a shuffle, its end by a ballot), reads each
+// run's image row once, 32 channels at a time into registers, and writes
+// them to every point of the run at `order`. Each point's row is a 32-lane
+// contiguous write. Each warp writes at most 32 rows, so a long run (the
+// ids past the grid, 8 % of a padded frame, or a near-sensor pillar)
+// spreads over many warps: a first version with one warp per whole run
+// left those to one warp and ran 2-4x slower (PERF.md).
+//
+// What bounds both: bytes (the ids, and `order` for K5, read once; the
+// image rows the ids reach read once; the (B, N, C) output written once).
 //
 // Inputs: spids (B, N) int32 sorted in each frame, order (B, N) int32 (K5: a
 // permutation of 0..N-1 in each frame), image (B * rows, C) fp32, out
@@ -60,7 +79,63 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool kOrder, bool kRound>
+constexpr int kTile = 128;  // K11: sorted positions per block
+
+// K11: one block per tile of kTile consecutive positions; Index is int or
+// long long.
+template <typename Index, bool kRound>
+__global__ void gather_tile(const int* __restrict__ spids,
+                            const float* __restrict__ image,
+                            float* __restrict__ out, Index positions, int n,
+                            int c, int rows) {
+  __shared__ Index src[kTile];  // image offset of each position's row, or -1
+  const Index p0 = static_cast<Index>(blockIdx.x) * kTile;
+  const int count = static_cast<int>(min(static_cast<Index>(kTile), positions - p0));
+  for (int k = threadIdx.x; k < count; k += blockDim.x) {
+    const Index p = p0 + k;
+    const int id = spids[p];
+    const bool live = static_cast<unsigned int>(id) < static_cast<unsigned int>(rows);
+    src[k] = live ? (p / n * rows + id) * c : Index(-1);
+  }
+  __syncthreads();
+  auto value = [&](int k, int ch) {
+    const Index at = src[k];
+    if (at < 0) return 0.0f;
+    return kRound ? round_bf16(image[at + ch]) : image[at + ch];
+  };
+  // The tile's output is floats [lo, hi) of out; [head, tail) is its
+  // 16-byte-aligned part (out itself is aligned: PyTorch's allocator).
+  const Index lo = p0 * c;
+  const Index hi = lo + static_cast<Index>(count) * c;
+  const Index head = min(hi, (lo + 3) / 4 * 4);
+  const Index tail = max(head, hi / 4 * 4);
+  for (Index f = lo + threadIdx.x; f < head; f += blockDim.x) {
+    const int off = static_cast<int>(f - lo);
+    out[f] = value(off / c, off % c);
+  }
+  for (Index f = tail + threadIdx.x; f < hi; f += blockDim.x) {
+    const int off = static_cast<int>(f - lo);
+    out[f] = value(off / c, off % c);
+  }
+  for (Index w = head + 4 * static_cast<Index>(threadIdx.x); w < tail;
+       w += 4 * static_cast<Index>(blockDim.x)) {
+    const int off = static_cast<int>(w - lo);
+    int k = off / c;
+    int ch = off - k * c;
+    float e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      e[j] = value(k, ch);
+      if (++ch == c) {
+        ch = 0;
+        ++k;
+      }
+    }
+    *reinterpret_cast<float4*>(out + w) = make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+// K5: one warp per 32 sorted positions of a frame, rows written at `order`.
 __global__ void gather_runs(const int* __restrict__ spids,
                             const int* __restrict__ order,
                             const float* __restrict__ image,
@@ -76,7 +151,7 @@ __global__ void gather_runs(const int* __restrict__ spids,
   const int count = min(32, n - first);
   const int* ids = spids + b * n + first;
   const int mine = lane < count ? ids[lane] : 0;
-  const int* dst = kOrder ? order + b * n + first : nullptr;
+  const int* dst = order + b * n + first;
   float* frame = out + b * n * static_cast<long long>(c);
   for (int start = 0; start < count;) {
     const int id = __shfl_sync(0xffffffffu, mine, start);
@@ -86,28 +161,13 @@ __global__ void gather_runs(const int* __restrict__ spids,
     const bool live = static_cast<unsigned int>(id) < static_cast<unsigned int>(rows);
     const float* src = image + (b * rows + (live ? id : 0)) * static_cast<long long>(c);
     for (int ch = lane; ch < c; ch += 32) {
-      float v = 0.0f;
-      if (live) v = kRound ? round_bf16(src[ch]) : src[ch];
+      const float v = live ? src[ch] : 0.0f;
       for (int p = start; p < end; ++p) {
-        const long long row = kOrder ? dst[p] : first + p;
-        frame[row * c + ch] = v;
+        frame[static_cast<long long>(dst[p]) * c + ch] = v;
       }
     }
     start = end;
   }
-}
-
-template <bool kOrder, bool kRound>
-int launch(const void* spids, const void* order, const void* image, void* out,
-           int batch, int n, int c, int rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long chunks = static_cast<long long>(batch) * ((n + 31) / 32);
-  if (chunks == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const long long blocks = (chunks * 32 + kThreads - 1) / kThreads;
-  gather_runs<kOrder, kRound><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-      static_cast<const int*>(spids), static_cast<const int*>(order),
-      static_cast<const float*>(image), static_cast<float*>(out), chunks, n, c, rows);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -118,15 +178,39 @@ extern "C" int himo_sorted_segment_gather_f32(const void* spids, const void* ima
                                               void* out, int batch, int n, int c,
                                               int rows, int round_bf16,
                                               void* stream) {
-  if (round_bf16) {
-    return launch<false, true>(spids, nullptr, image, out, batch, n, c, rows, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long positions = static_cast<long long>(batch) * n;
+  if (positions == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned int blocks = static_cast<unsigned int>((positions + kTile - 1) / kTile);
+  const int* i = static_cast<const int*>(spids);
+  const float* im = static_cast<const float*>(image);
+  float* o = static_cast<float*>(out);
+  const long long limit = 1LL << 31;
+  const bool narrow = positions * c < limit && static_cast<long long>(batch) * rows * c < limit;
+  if (narrow && round_bf16) {
+    gather_tile<int, true><<<blocks, kThreads, 0, s>>>(i, im, o, static_cast<int>(positions),
+                                                      n, c, rows);
+  } else if (narrow) {
+    gather_tile<int, false><<<blocks, kThreads, 0, s>>>(i, im, o, static_cast<int>(positions),
+                                                       n, c, rows);
+  } else if (round_bf16) {
+    gather_tile<long long, true><<<blocks, kThreads, 0, s>>>(i, im, o, positions, n, c, rows);
+  } else {
+    gather_tile<long long, false><<<blocks, kThreads, 0, s>>>(i, im, o, positions, n, c, rows);
   }
-  return launch<false, false>(spids, nullptr, image, out, batch, n, c, rows, stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K5: out[b, order[b, j]] = image[b, spids[b, j]] (0 for ids >= rows).
 extern "C" int himo_sorted_gather_rows_f32(const void* spids, const void* order,
                                            const void* image, void* out, int batch,
                                            int n, int c, int rows, void* stream) {
-  return launch<true, false>(spids, order, image, out, batch, n, c, rows, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long chunks = static_cast<long long>(batch) * ((n + 31) / 32);
+  if (chunks == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const long long blocks = (chunks * 32 + kThreads - 1) / kThreads;
+  gather_runs<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+      static_cast<const int*>(spids), static_cast<const int*>(order),
+      static_cast<const float*>(image), static_cast<float*>(out), chunks, n, c, rows);
+  return static_cast<int>(cudaGetLastError());
 }

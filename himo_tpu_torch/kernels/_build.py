@@ -18,6 +18,16 @@ builder: a source that includes PyTorch's headers takes minutes to compile,
 one with a plain C interface seconds. Pointers and the CUDA stream pass as
 ``ctypes.c_void_p``; every entry point returns ``cudaGetLastError()``, and
 :func:`check` raises when it is not 0.
+
+Every kernel wrapper launches through an :class:`Entry`, which keeps its
+per-call host work small (kernels at the train step's small shapes take
+about 5 us of device time, so the wrapper's host time is what a caller
+waits for): the entry point is built, loaded and given its ``argtypes`` on
+its first launch and called as a cached ctypes function afterwards, and
+PyTorch's current stream is read as a raw handle, with no
+``torch.cuda.Stream`` object made per call. :func:`check_args` is the
+wrappers' shared argument check, one pass over the tensors when they are
+what the kernels take.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -39,7 +51,6 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-_BOUND: set[tuple[str, str]] = set()  # (library, entry point) with argtypes set
 
 
 def nvcc_path() -> str:
@@ -87,39 +98,84 @@ def build(name: str) -> Path:
     return lib
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; ``signatures`` maps
-    each C entry point to its ``argtypes``. Every entry point returns an int
-    (a ``cudaError_t``).
-
-    The library is loaded once per process, and every entry point named by
-    any call gets its signature: modules that bind different entry points
-    of one library each get theirs (an entry point without ``argtypes``
-    would pass its pointers as 32-bit ints)."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
-    for fn_name, argtypes in signatures.items():
-        if (name, fn_name) in _BOUND:
-            continue
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _BOUND.add((name, fn_name))
-    return lib
-
-
 def check(code: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} (a cudaError_t)")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, as the kernels take it."""
-    import torch
+def library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library, built if needed and loaded once per
+    process."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return lib
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+class Entry:
+    """One C entry point ``name`` of ``csrc/<source>.cu`` taking ``argtypes``
+    and then the CUDA stream, returning a ``cudaError_t``.
+
+    The first :meth:`launch` builds and loads the library and sets the
+    entry point's ``argtypes`` (without them ctypes would pass pointers as
+    32-bit ints); later launches reuse that ctypes function. Two entries of
+    one library share its one load."""
+
+    __slots__ = ("source", "name", "argtypes", "_fn", "_stream")
+
+    def __init__(self, source: str, name: str, argtypes):
+        self.source, self.name = source, name
+        self.argtypes = (*argtypes, PTR)
+        self._fn = None
+        self._stream = None
+
+    def bind(self):
+        """Bind the entry point (once) and return its ctypes function."""
+        if self._fn is None:
+            fn = getattr(library(self.source), self.name)
+            fn.argtypes = list(self.argtypes)
+            fn.restype = ctypes.c_int
+            # PyTorch's current stream on a device index, as an int: what
+            # ``torch.cuda.current_stream(i).cuda_stream`` gives, without
+            # the Stream object (torch._inductor launches its kernels the
+            # same way).
+            self._stream = torch._C._cuda_getCurrentRawStream
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device_index: int, *args) -> None:
+        """Call the entry point with ``args`` and PyTorch's current stream
+        on CUDA device ``device_index`` (a ``torch.cuda.stream(...)``
+        context is honoured); raise on a CUDA error."""
+        fn = self._fn or self.bind()
+        check(fn(*args, self._stream(device_index)), self.name)
+
+
+def check_args(what: str, f32=(), i32=()) -> None:
+    """Raise unless every tensor of ``f32`` is float32 and every tensor of
+    ``i32`` int32 (``TypeError``), all contiguous and on one device
+    (``ValueError``): what the kernels take. Shapes are the caller's to
+    check. One pass when the tensors pass."""
+    tensors = (*f32, *i32)
+    device = tensors[0].device
+    for want, group in ((torch.float32, f32), (torch.int32, i32)):
+        for t in group:
+            if t.dtype is not want or not t.is_contiguous() or t.device != device:
+                break
+        else:
+            continue
+        break
+    else:
+        return
+    if any(t.dtype is not torch.float32 for t in f32) or any(
+            t.dtype is not torch.int32 for t in i32):
+        raise TypeError(f"{what} takes float32 values and int32 ids, got "
+                        f"{[t.dtype for t in f32]} and {[t.dtype for t in i32]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous inputs")
+    raise ValueError(f"{what}: inputs on different devices "
+                     f"{sorted({str(t.device) for t in tensors})}")
 
 
 PTR = ctypes.c_void_p

@@ -34,12 +34,8 @@ _INF = 3.0e38  # the value of an empty slot
 _REF_TILE = 1024  # the reference pads references to a multiple of this
 MAX_K = 16  # the largest k the kernel is built for
 
-_KNN_SIGNATURES = {
-    "himo_knn_f32": (
-        _build.PTR, _build.PTR, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
-    ),
-}
+# (q, r, out, B, N, M, k), then the stream.
+_KNN = _build.Entry("knn", "himo_knn_f32", (_build.PTR,) * 3 + (_build.INT,) * 4)
 
 
 def _knn_plain(q: torch.Tensor, r: torch.Tensor, k: int) -> torch.Tensor:
@@ -66,7 +62,7 @@ def knn_rows(q: torch.Tensor, r: torch.Tensor, k: int) -> torch.Tensor:
     CPU tensors take the plain version. CUDA tensors launch ``knn.cu``'s
     ``himo_knn_f32`` (counted in ``knn_rows.launches``) or raise; the kernel
     is built for k in 1..16."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return _knn_plain(q, r, k)
     _check_kernel_args(q, r)
     if not 1 <= k <= MAX_K:
@@ -75,13 +71,8 @@ def knn_rows(q: torch.Tensor, r: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
     if n == 0:
         return out
-    lib = _build.load("knn", _KNN_SIGNATURES)
-    code = lib.himo_knn_f32(
-        q.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, m, k,
-        _build.stream_handle(q.device),
-    )
+    _KNN.launch(q.get_device(), q.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, m, k)
     knn_rows.launches += 1
-    _build.check(code, "knn kernel")
     return out
 
 

@@ -41,10 +41,17 @@ import torch
 from himo_tpu_torch.kernels import _build
 from himo_tpu_torch.ops.voxelize import (
     _check_gather_args,
-    _check_rows_args,
+    _run_sorted_kernel,
     _scatter_sum_rows_plain,
     _take_live_rows,
 )
+
+# (spids, svals, first, out, B, N, C, rows, round_bf16), then the stream.
+_SEGMENT_SUM = _build.Entry("sorted_scatter", "himo_sorted_segment_sum_f32",
+                            (_build.PTR,) * 4 + (_build.INT,) * 5)
+# (spids, image, out, B, N, C, rows, round_bf16), then the stream.
+_SEGMENT_GATHER = _build.Entry("sorted_gather", "himo_sorted_segment_gather_f32",
+                               (_build.PTR,) * 3 + (_build.INT,) * 5)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -74,20 +81,9 @@ def sorted_segment_sum(
     ``csrc/sorted_scatter.cu``'s ``himo_sorted_segment_sum_f32`` (counted
     in ``sorted_segment_sum.launches``) or raise: the kernel takes
     contiguous fp32 values and int32 ids."""
-    if svals.device.type == "cpu":
+    if svals.is_cpu:
         return _sorted_segment_sum_plain(spids, svals, rows, bf16)
-    entry = "himo_sorted_segment_sum_f32"
-    _check_rows_args(entry, spids, svals)
-    b, n, c = svals.shape
-    out = torch.empty((b, rows, c), dtype=torch.float32, device=svals.device)
-    first = torch.empty((b, rows), dtype=torch.int32, device=svals.device)
-    lib = _build.load("sorted_scatter", {entry: (_build.PTR,) * 4 + (_build.INT,) * 5
-                                         + (_build.PTR,)})
-    code = getattr(lib, entry)(
-        spids.data_ptr(), svals.data_ptr(), first.data_ptr(), out.data_ptr(), b, n, c,
-        rows, int(bf16), _build.stream_handle(svals.device),
-    )
-    _build.check(code, entry)
+    out = _run_sorted_kernel(_SEGMENT_SUM, spids, svals, rows, int(bf16))
     sorted_segment_sum.launches += 1
     return out
 
@@ -115,20 +111,14 @@ def sorted_segment_gather(
     ``csrc/sorted_gather.cu``'s ``himo_sorted_segment_gather_f32`` (counted
     in ``sorted_segment_gather.launches``) or raise: the kernel takes a
     contiguous fp32 image and contiguous int32 ids."""
-    if image.device.type == "cpu":
+    if image.is_cpu:
         return _sorted_segment_gather_plain(image, spids, bf16)
-    entry = "himo_sorted_segment_gather_f32"
-    _check_gather_args(entry, image, spids)
+    _check_gather_args(_SEGMENT_GATHER.name, image, spids)
     b, rows, c = image.shape
     n = spids.shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
-    lib = _build.load("sorted_gather", {entry: (_build.PTR,) * 3 + (_build.INT,) * 5
-                                        + (_build.PTR,)})
-    code = getattr(lib, entry)(
-        spids.data_ptr(), image.data_ptr(), out.data_ptr(), b, n, c, rows, int(bf16),
-        _build.stream_handle(image.device),
-    )
-    _build.check(code, entry)
+    _SEGMENT_GATHER.launch(image.get_device(), spids.data_ptr(), image.data_ptr(),
+                           out.data_ptr(), b, n, c, rows, int(bf16))
     sorted_segment_gather.launches += 1
     return out
 

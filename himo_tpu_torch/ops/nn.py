@@ -36,6 +36,7 @@ import torch
 
 from himo_tpu_torch.kernels import _build
 from himo_tpu_torch.ops.voxelize import (
+    _SCATTER_SUM,
     _RowTake,
     _run_rows_kernel,
     _scatter_sum_rows_plain,
@@ -86,27 +87,21 @@ def _nn_argmin_plain(q: torch.Tensor, r: torch.Tensor):
     return torch.cat(d2, dim=1), torch.cat(idx, dim=1)
 
 
-_NN_SIGNATURES = {
-    "himo_nn_min_f32": (
-        _build.PTR, _build.PTR, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.PTR,
-    ),
-    "himo_nn_argmin_f32": (
-        _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.PTR,
-    ),
-}
+# (q, r, d2, B, N, M) and (q, r, d2, idx, B, N, M), then the stream.
+_NN_MIN = _build.Entry("nn", "himo_nn_min_f32", (_build.PTR,) * 3 + (_build.INT,) * 3)
+_NN_ARGMIN = _build.Entry("nn", "himo_nn_argmin_f32",
+                          (_build.PTR,) * 4 + (_build.INT,) * 3)
 
 
-def _check_clouds(q: torch.Tensor, r: torch.Tensor) -> None:
-    if q.dtype != torch.float32 or r.dtype != torch.float32:
-        raise TypeError(f"nn kernels take fp32, got {q.dtype} / {r.dtype}")
+def _check_clouds(q: torch.Tensor, r: torch.Tensor, *penalties: torch.Tensor) -> None:
+    """Raise unless (B, N, 3) queries, (B, M, 3) references and any
+    penalties are contiguous fp32 tensors on one device (the penalties'
+    shapes are the caller's to check)."""
+    _build.check_args("nn kernels", f32=(q, r, *penalties))
     if q.dim() != 3 or r.dim() != 3 or q.shape[2] != 3 or r.shape[2] != 3:
         raise ValueError(f"shapes {tuple(q.shape)} / {tuple(r.shape)}")
-    if q.shape[0] != r.shape[0] or q.device != r.device:
-        raise ValueError("queries and references differ in batch or device")
-    if not (q.is_contiguous() and r.is_contiguous()):
-        raise ValueError("nn kernels need contiguous inputs")
+    if q.shape[0] != r.shape[0]:
+        raise ValueError("queries and references differ in batch")
 
 
 def _check_kernel_args(q: torch.Tensor, r: torch.Tensor) -> None:
@@ -122,20 +117,15 @@ def nn_min_rows(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch ``nn.cu``'s
     ``himo_nn_min_f32`` (counted in ``nn_min_rows.launches``) or raise."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return _nn_min_plain(q, r)
     _check_kernel_args(q, r)
     b, n, m = q.shape[0], q.shape[1], r.shape[1]
     d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
     if n == 0:
         return d2
-    lib = _build.load("nn", _NN_SIGNATURES)
-    code = lib.himo_nn_min_f32(
-        q.data_ptr(), r.data_ptr(), d2.data_ptr(), b, n, m,
-        _build.stream_handle(q.device),
-    )
+    _NN_MIN.launch(q.get_device(), q.data_ptr(), r.data_ptr(), d2.data_ptr(), b, n, m)
     nn_min_rows.launches += 1
-    _build.check(code, "nn_min kernel")
     return d2
 
 
@@ -150,7 +140,7 @@ def nn_argmin_rows(q: torch.Tensor, r: torch.Tensor):
     CPU tensors take the plain version; CUDA tensors launch ``nn.cu``'s
     ``himo_nn_argmin_f32`` (counted in ``nn_argmin_rows.launches``) or
     raise."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return _nn_argmin_plain(q, r)
     _check_kernel_args(q, r)
     b, n, m = q.shape[0], q.shape[1], r.shape[1]
@@ -158,13 +148,9 @@ def nn_argmin_rows(q: torch.Tensor, r: torch.Tensor):
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
     if n == 0:
         return d2, idx
-    lib = _build.load("nn", _NN_SIGNATURES)
-    code = lib.himo_nn_argmin_f32(
-        q.data_ptr(), r.data_ptr(), d2.data_ptr(), idx.data_ptr(), b, n, m,
-        _build.stream_handle(q.device),
-    )
+    _NN_ARGMIN.launch(q.get_device(), q.data_ptr(), r.data_ptr(), d2.data_ptr(),
+                      idx.data_ptr(), b, n, m)
     nn_argmin_rows.launches += 1
-    _build.check(code, "nn_argmin kernel")
     return d2, idx
 
 
@@ -312,11 +298,11 @@ def segment_rows_sum(
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32``, the kernel behind
     ``ops.voxelize.scatter_sum_rows`` (counted here in
-    ``segment_rows_sum.launches``), into a zeroed table, or raise."""
-    if vals.device.type == "cpu":
+    ``segment_rows_sum.launches``), which zeroes its table and adds, or
+    raise."""
+    if vals.is_cpu:
         return _segment_rows_sum_plain(vals, idx, num_segments)
-    out = _run_rows_kernel("scatter_sum", "himo_scatter_sum_f32", idx, vals,
-                           num_segments, zeroed=True)
+    out = _run_rows_kernel(_SCATTER_SUM, idx, vals, num_segments)
     segment_rows_sum.launches += 1
     return out
 
@@ -368,36 +354,29 @@ def _fused_nn_plain(q, r, qa, qd, ra, rd):
     return dq_a, dq_d, col_d[0], col_d[1], iq_a, iq_d, col_i[0], col_i[1]
 
 
-_FUSED_SIGNATURES = {
-    "himo_fused_nn_f32": (_build.PTR,) * 10 + (_build.INT,) * 3 + (_build.PTR,),
-    "himo_fused_nn_idx_f32": (_build.PTR,) * 14 + (_build.INT,) * 3 + (_build.PTR,),
-}
+# (q, r, qa, qd, ra, rd, four mins[, four indices], B, N, M), then the stream.
+_FUSED = _build.Entry("fused_nn", "himo_fused_nn_f32", (_build.PTR,) * 10 + (_build.INT,) * 3)
+_FUSED_IDX = _build.Entry("fused_nn", "himo_fused_nn_idx_f32",
+                          (_build.PTR,) * 14 + (_build.INT,) * 3)
 
 
-def _run_fused_kernel(entry: str, q, r, penalties, with_idx: bool):
-    """Launch ``csrc/fused_nn.cu``'s ``entry`` on validated inputs; returns
-    the four mins and, ``with_idx``, the four int32 indices."""
-    _check_clouds(q, r)
+def _run_fused_kernel(entry: _build.Entry, q, r, penalties, with_idx: bool):
+    """Launch a ``csrc/fused_nn.cu`` entry on validated inputs; returns the
+    four mins and, ``with_idx``, the four int32 indices."""
+    _check_clouds(q, r, *penalties)
     b, n, m = q.shape[0], q.shape[1], r.shape[1]
     if n == 0 or m == 0:
         raise ValueError("fused nn kernels need points on both sides")
     for p, size in zip(penalties, (n, n, m, m)):
-        if p.dtype != torch.float32 or p.shape != (b, size) or not p.is_contiguous():
-            raise ValueError(f"penalty {tuple(p.shape)} {p.dtype}: need contiguous "
-                             f"fp32 ({b}, {size})")
-        if p.device != q.device:
-            raise ValueError("penalties on another device than the clouds")
+        if p.shape != (b, size):
+            raise ValueError(f"penalty {tuple(p.shape)}: need ({b}, {size})")
     outs = [torch.empty((b, k), dtype=torch.float32, device=q.device)
             for k in (n, n, m, m)]
     if with_idx:
         outs += [torch.empty((b, k), dtype=torch.int32, device=q.device)
                  for k in (n, n, m, m)]
-    lib = _build.load("fused_nn", _FUSED_SIGNATURES)
-    code = getattr(lib, entry)(
-        q.data_ptr(), r.data_ptr(), *(p.data_ptr() for p in penalties),
-        *(o.data_ptr() for o in outs), b, n, m, _build.stream_handle(q.device),
-    )
-    _build.check(code, entry)
+    entry.launch(q.get_device(), q.data_ptr(), r.data_ptr(),
+                 *(p.data_ptr() for p in penalties), *(o.data_ptr() for o in outs), b, n, m)
     return tuple(outs)
 
 
@@ -408,9 +387,9 @@ def fused_nn(q, r, qa, qd, ra, rd):
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/fused_nn.cu``'s ``himo_fused_nn_f32`` (counted in
     ``fused_nn.launches``) or raise."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return _fused_nn_plain(q, r, qa, qd, ra, rd)[:4]
-    outs = _run_fused_kernel("himo_fused_nn_f32", q, r, (qa, qd, ra, rd), False)
+    outs = _run_fused_kernel(_FUSED, q, r, (qa, qd, ra, rd), False)
     fused_nn.launches += 1
     return outs
 
@@ -426,9 +405,9 @@ def fused_nn_idx(q, r, qa, qd, ra, rd):
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/fused_nn.cu``'s ``himo_fused_nn_idx_f32`` (counted in
     ``fused_nn_idx.launches``) or raise."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return _fused_nn_plain(q, r, qa, qd, ra, rd)
-    outs = _run_fused_kernel("himo_fused_nn_idx_f32", q, r, (qa, qd, ra, rd), True)
+    outs = _run_fused_kernel(_FUSED_IDX, q, r, (qa, qd, ra, rd), True)
     fused_nn_idx.launches += 1
     return outs
 

@@ -219,46 +219,36 @@ def _sorted_gather_rows_plain(
     return torch.zeros_like(vals).scatter_(1, idx, vals)
 
 
-_ROWS_ARGTYPES = (
-    _build.PTR, _build.PTR, _build.PTR,
-    _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
-)
+# (ids or pids, values or image, out, B, N, C, rows), then the stream.
+_ROWS_ARGTYPES = (_build.PTR,) * 3 + (_build.INT,) * 4
+_SCATTER_MAX = _build.Entry("scatter_max", "himo_scatter_max_f32", _ROWS_ARGTYPES)
+# Zeroes its (B, rows, C) table itself (cudaMemsetAsync), then adds.
+_SCATTER_SUM = _build.Entry("scatter_sum", "himo_scatter_sum_f32", _ROWS_ARGTYPES)
 
 
 def _check_rows_args(name: str, ids: torch.Tensor, vals: torch.Tensor) -> None:
     """Raise unless (B, N) int32 ids and (B, N, C) fp32 values are what the
-    row kernels take: contiguous, on one device."""
-    if vals.dtype != torch.float32 or ids.dtype != torch.int32:
-        raise TypeError(
-            f"{name} kernel takes fp32 values and int32 ids, got "
-            f"{vals.dtype} and {ids.dtype}"
-        )
-    if not (vals.is_contiguous() and ids.is_contiguous()):
-        raise ValueError(f"{name} kernel needs contiguous inputs")
-    if vals.dim() != 3 or ids.shape != vals.shape[:2]:
-        raise ValueError(f"shapes {tuple(ids.shape)} / {tuple(vals.shape)}")
-    if ids.device != vals.device:
-        raise ValueError("ids and values on different devices")
+    row kernels take: contiguous, on one device. One expression when they
+    are (every launch pays for it)."""
+    if (vals.dtype is torch.float32 and ids.dtype is torch.int32
+            and vals.is_contiguous() and ids.is_contiguous() and ids.device == vals.device
+            and vals.dim() == 3 and ids.shape == vals.shape[:2]):
+        return
+    _build.check_args(name, f32=(vals,), i32=(ids,))
+    raise ValueError(f"{name}: shapes {tuple(ids.shape)} / {tuple(vals.shape)}")
 
 
 def _run_rows_kernel(
-    library: str, entry: str, ids: torch.Tensor, vals: torch.Tensor, rows: int,
-    zeroed: bool,
+    entry: _build.Entry, ids: torch.Tensor, vals: torch.Tensor, rows: int
 ) -> torch.Tensor:
-    """Launch a row kernel ``entry(ids, vals, out, B, N, C, rows, stream)``
-    of ``csrc/<library>.cu`` into a new (B, rows, C) fp32 table (zeroed
-    first when ``zeroed``); raises on inputs it does not take and on a CUDA
-    error."""
-    _check_rows_args(entry, ids, vals)
+    """Launch a row kernel ``entry(ids, vals, out, B, N, C, rows)`` into a
+    new (B, rows, C) fp32 table, which the kernel fills; raises on inputs
+    it does not take and on a CUDA error."""
+    _check_rows_args(entry.name, ids, vals)
     b, n, c = vals.shape
-    alloc = torch.zeros if zeroed else torch.empty
-    out = alloc((b, rows, c), dtype=torch.float32, device=vals.device)
-    lib = _build.load(library, {entry: _ROWS_ARGTYPES})
-    code = getattr(lib, entry)(
-        ids.data_ptr(), vals.data_ptr(), out.data_ptr(), b, n, c, rows,
-        _build.stream_handle(vals.device),
-    )
-    _build.check(code, entry)
+    out = vals.new_empty((b, rows, c))
+    entry.launch(vals.get_device(), ids.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                 b, n, c, rows)
     return out
 
 
@@ -273,10 +263,9 @@ def scatter_max_rows(
     CPU tensors take the plain PyTorch version. CUDA tensors launch
     ``csrc/scatter_max.cu`` (counted in ``scatter_max_rows.launches``) or
     raise: the kernel takes contiguous fp32 features and int32 ids."""
-    if feats.device.type == "cpu":
+    if feats.is_cpu:
         return _scatter_max_rows_plain(pids, feats, rows)
-    out = _run_rows_kernel("scatter_max", "himo_scatter_max_f32", pids, feats, rows,
-                           zeroed=False)
+    out = _run_rows_kernel(_SCATTER_MAX, pids, feats, rows)
     scatter_max_rows.launches += 1
     return out
 
@@ -295,10 +284,9 @@ def scatter_max_resident_rows(
     ``csrc/scatter_max.cu``'s ``himo_scatter_max_f32``, the kernel behind
     :func:`scatter_max_rows` (counted here in
     ``scatter_max_resident_rows.launches``), or raise."""
-    if feats.device.type == "cpu":
+    if feats.is_cpu:
         return _scatter_max_rows_plain(pids, feats, rows)
-    out = _run_rows_kernel("scatter_max", "himo_scatter_max_f32", pids, feats, rows,
-                           zeroed=False)
+    out = _run_rows_kernel(_SCATTER_MAX, pids, feats, rows)
     scatter_max_resident_rows.launches += 1
     return out
 
@@ -316,11 +304,11 @@ def scatter_sum_rows(
 
     CPU tensors take the plain version (``index_add_``). CUDA tensors launch
     ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32`` (counted in
-    ``scatter_sum_rows.launches``) into a zeroed table, or raise."""
-    if feats.device.type == "cpu":
+    ``scatter_sum_rows.launches``), which zeroes its table and adds, or
+    raise."""
+    if feats.is_cpu:
         return _scatter_sum_rows_plain(pids, feats, rows)
-    out = _run_rows_kernel("scatter_sum", "himo_scatter_sum_f32", pids, feats, rows,
-                           zeroed=True)
+    out = _run_rows_kernel(_SCATTER_SUM, pids, feats, rows)
     scatter_sum_rows.launches += 1
     return out
 
@@ -328,29 +316,27 @@ def scatter_sum_rows(
 scatter_sum_rows.launches = 0
 
 
-_SORTED_ARGTYPES = (
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-    _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
-)
+# (spids, svals, first, out, B, N, C, rows), then the stream.
+_SORTED_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 4
+_SORTED_MAX = _build.Entry("sorted_scatter", "himo_sorted_scatter_max_f32",
+                           _SORTED_ARGTYPES)
+_SORTED_SUM = _build.Entry("sorted_scatter", "himo_sorted_scatter_sum_f32",
+                           _SORTED_ARGTYPES)
 
 
 def _run_sorted_kernel(
-    entry: str, spids: torch.Tensor, svals: torch.Tensor, rows: int
+    entry: _build.Entry, spids: torch.Tensor, svals: torch.Tensor, rows: int, *flags
 ) -> torch.Tensor:
-    """Launch ``csrc/sorted_scatter.cu``'s ``entry(spids, svals, first,
-    out, B, N, C, rows, stream)`` into a new (B, rows, C) fp32 table, with a
-    (B, rows) int32 scratch map of run starts; raises on inputs it does not
-    take and on a CUDA error."""
-    _check_rows_args(entry, spids, svals)
+    """Launch a ``csrc/sorted_scatter.cu`` entry ``entry(spids, svals,
+    first, out, B, N, C, rows, *flags)`` into a new (B, rows, C) fp32
+    table, with a (B, rows) int32 scratch map of run starts; raises on
+    inputs it does not take and on a CUDA error."""
+    _check_rows_args(entry.name, spids, svals)
     b, n, c = svals.shape
     out = torch.empty((b, rows, c), dtype=torch.float32, device=svals.device)
     first = torch.empty((b, rows), dtype=torch.int32, device=svals.device)
-    lib = _build.load("sorted_scatter", {entry: _SORTED_ARGTYPES})
-    code = getattr(lib, entry)(
-        spids.data_ptr(), svals.data_ptr(), first.data_ptr(), out.data_ptr(),
-        b, n, c, rows, _build.stream_handle(svals.device),
-    )
-    _build.check(code, entry)
+    entry.launch(svals.get_device(), spids.data_ptr(), svals.data_ptr(), first.data_ptr(),
+                 out.data_ptr(), b, n, c, rows, *flags)
     return out
 
 
@@ -366,9 +352,9 @@ def sorted_scatter_max_rows(
     depend on the order). CUDA tensors launch ``csrc/sorted_scatter.cu``'s
     ``himo_sorted_scatter_max_f32`` (counted in
     ``sorted_scatter_max_rows.launches``) or raise."""
-    if sfeats.device.type == "cpu":
+    if sfeats.is_cpu:
         return _scatter_max_rows_plain(spids, sfeats, rows)
-    out = _run_sorted_kernel("himo_sorted_scatter_max_f32", spids, sfeats, rows)
+    out = _run_sorted_kernel(_SORTED_MAX, spids, sfeats, rows)
     sorted_scatter_max_rows.launches += 1
     return out
 
@@ -388,9 +374,9 @@ def sorted_scatter_sum_rows(
     add in no fixed order). CUDA tensors launch ``csrc/sorted_scatter.cu``'s
     ``himo_sorted_scatter_sum_f32`` (counted in
     ``sorted_scatter_sum_rows.launches``) or raise."""
-    if svals.device.type == "cpu":
+    if svals.is_cpu:
         return _scatter_sum_rows_plain(spids, svals, rows)
-    out = _run_sorted_kernel("himo_sorted_scatter_sum_f32", spids, svals, rows)
+    out = _run_sorted_kernel(_SORTED_SUM, spids, svals, rows)
     sorted_scatter_sum_rows.launches += 1
     return out
 
@@ -403,17 +389,18 @@ def _check_gather_args(entry: str, image: torch.Tensor, *ids: torch.Tensor,
     """Raise unless a (B, rows, C) fp32 image with at least ``min_rows``
     rows and (B, N) int32 id tensors of one shape are what the gather
     kernels take: contiguous, on one device."""
-    if image.dtype != torch.float32 or any(t.dtype != torch.int32 for t in ids):
-        raise TypeError(f"{entry} takes an fp32 image and int32 ids, got "
-                        f"{image.dtype} and {[t.dtype for t in ids]}")
-    if not (image.is_contiguous() and all(t.is_contiguous() for t in ids)):
-        raise ValueError(f"{entry} needs contiguous inputs")
+    _build.check_args(entry, f32=(image,), i32=ids)
     first = ids[0]
     if (image.dim() != 3 or first.dim() != 2 or first.shape[0] != image.shape[0]
-            or image.shape[1] < min_rows or any(t.shape != first.shape for t in ids)):
-        raise ValueError(f"shapes {[tuple(t.shape) for t in ids]} / {tuple(image.shape)}")
-    if any(t.device != image.device for t in ids):
-        raise ValueError("ids and image on different devices")
+            or image.shape[1] < min_rows or any(t.shape != first.shape for t in ids[1:])):
+        raise ValueError(f"{entry}: shapes {[tuple(t.shape) for t in ids]} / "
+                         f"{tuple(image.shape)}")
+
+
+_GATHER = _build.Entry("gather_rows", "himo_gather_rows_f32", _ROWS_ARGTYPES)
+# (spids, order, image, out, B, N, C, rows), then the stream.
+_SORTED_GATHER = _build.Entry("sorted_gather", "himo_sorted_gather_rows_f32",
+                              (_build.PTR,) * 4 + (_build.INT,) * 4)
 
 
 def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
@@ -426,19 +413,14 @@ def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
     ``csrc/gather_rows.cu``'s ``himo_gather_rows_f32`` (counted in
     ``gather_rows.launches``) or raise: the kernel takes a contiguous fp32
     image with at least one row and contiguous int32 ids."""
-    if image.device.type == "cpu":
+    if image.is_cpu:
         return _gather_rows_plain(image, pids)
-    entry = "himo_gather_rows_f32"
-    _check_gather_args(entry, image, pids, min_rows=1)
+    _check_gather_args(_GATHER.name, image, pids, min_rows=1)
     b, rows, c = image.shape
     n = pids.shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
-    lib = _build.load("gather_rows", {entry: _ROWS_ARGTYPES})
-    code = getattr(lib, entry)(
-        pids.data_ptr(), image.data_ptr(), out.data_ptr(), b, n, c, rows,
-        _build.stream_handle(image.device),
-    )
-    _build.check(code, entry)
+    _GATHER.launch(image.get_device(), pids.data_ptr(), image.data_ptr(), out.data_ptr(),
+                   b, n, c, rows)
     gather_rows.launches += 1
     return out
 
@@ -459,20 +441,14 @@ def sorted_gather_rows(
     ``csrc/sorted_gather.cu``'s ``himo_sorted_gather_rows_f32`` (counted in
     ``sorted_gather_rows.launches``) or raise: the kernel takes a
     contiguous fp32 image and contiguous int32 ids and order."""
-    if image.device.type == "cpu":
+    if image.is_cpu:
         return _sorted_gather_rows_plain(image, spids, order)
-    entry = "himo_sorted_gather_rows_f32"
-    _check_gather_args(entry, image, spids, order)
+    _check_gather_args(_SORTED_GATHER.name, image, spids, order)
     b, rows, c = image.shape
     n = spids.shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
-    lib = _build.load("sorted_gather", {entry: (_build.PTR,) * 4 + (_build.INT,) * 4
-                                        + (_build.PTR,)})
-    code = getattr(lib, entry)(
-        spids.data_ptr(), order.data_ptr(), image.data_ptr(), out.data_ptr(), b, n, c,
-        rows, _build.stream_handle(image.device),
-    )
-    _build.check(code, entry)
+    _SORTED_GATHER.launch(image.get_device(), spids.data_ptr(), order.data_ptr(),
+                          image.data_ptr(), out.data_ptr(), b, n, c, rows)
     sorted_gather_rows.launches += 1
     return out
 

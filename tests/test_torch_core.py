@@ -189,28 +189,94 @@ def test_build_library_name_tracks_source_content(tmp_path, monkeypatch):
 
 
 def test_build_load_binds_every_callers_signatures(tmp_path, monkeypatch):
-    """Two modules bind different entry points of one library: the library
-    is opened once, and each call's argtypes are set (an entry point left
-    without them would pass its pointers as 32-bit ints)."""
+    """Two entry points of one library: the library is opened once, each
+    entry point gets its own argtypes (an entry point left without them
+    would pass its pointers as 32-bit ints) with the stream last, once;
+    every launch passes the current raw stream and raises on a CUDA
+    error."""
     import ctypes
 
     from himo_tpu_torch.kernels import _build
 
-    opened = []
+    opened, calls = [], []
+
+    class FakeFn:
+        def __call__(self, *args):
+            calls.append(args)
+            return 9 if args[0] == 99 else 0
 
     class FakeLib:
         def __init__(self, path):
             opened.append(path)
-            self.a = type("Fn", (), {})()
-            self.b = type("Fn", (), {})()
+            self.a, self.b = FakeFn(), FakeFn()
 
     monkeypatch.setattr(_build, "_LOADED", {})
-    monkeypatch.setattr(_build, "_BOUND", set())
     monkeypatch.setattr(_build, "build", lambda name: tmp_path / f"{name}.so")
     monkeypatch.setattr(ctypes, "CDLL", FakeLib)
-    first = _build.load("k", {"a": (_build.PTR, _build.INT)})
-    second = _build.load("k", {"b": (_build.PTR, _build.PTR, _build.INT)})
-    assert first is second and len(opened) == 1
-    assert first.a.argtypes == [_build.PTR, _build.INT]
-    assert first.b.argtypes == [_build.PTR, _build.PTR, _build.INT]
-    assert first.a.restype is first.b.restype is ctypes.c_int
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                        raising=False)
+    a = _build.Entry("k", "a", (_build.PTR, _build.INT))
+    b = _build.Entry("k", "b", (_build.PTR, _build.PTR, _build.INT))
+    a.launch(0, 5, 6)
+    b.launch(2, 7, 8, 9)
+    fn_a = a.bind()
+    fn_a.argtypes = None  # a second launch does not bind again
+    a.launch(0, 1, 2)
+    assert len(opened) == 1 and fn_a.argtypes is None
+    assert b.bind().argtypes == [_build.PTR, _build.PTR, _build.INT, _build.PTR]
+    assert fn_a.restype is b.bind().restype is ctypes.c_int
+    assert calls == [(5, 6, 1000), (7, 8, 9, 1002), (1, 2, 1000)]
+    with pytest.raises(RuntimeError, match="a: CUDA error 9"):
+        a.launch(0, 99, 0)
+
+
+@pytest.mark.parametrize("case", ["fp64 values", "int64 ids", "non-contiguous values",
+                                  "non-contiguous ids", "mixed devices"])
+def test_launch_checks_refuse_what_the_kernels_do_not_take(case):
+    """The launch helper's shared argument check, and the row and gather
+    wrappers' checks built on it, called on CPU tensors: each refuses the
+    input with a TypeError (dtype) or a ValueError (layout, device)."""
+    from himo_tpu_torch.kernels import _build
+    from himo_tpu_torch.ops import voxelize as PV
+
+    vals = torch.zeros(2, 10, 3)
+    ids = torch.zeros(2, 10, dtype=torch.int32)
+    image = torch.zeros(2, 7, 3)
+    _build.check_args("k", f32=(vals,), i32=(ids,))
+    PV._check_rows_args("k", ids, vals)
+    PV._check_gather_args("k", image, ids, ids)
+    bad_vals, bad_ids, error = {
+        "fp64 values": (vals.double(), ids, TypeError),
+        "int64 ids": (vals, ids.long(), TypeError),
+        "non-contiguous values": (torch.zeros(2, 3, 10).transpose(1, 2), ids, ValueError),
+        "non-contiguous ids": (vals, torch.zeros(10, 2, dtype=torch.int32).T, ValueError),
+        "mixed devices": (vals, ids.to("meta"), ValueError),
+    }[case]
+    with pytest.raises(error):
+        _build.check_args("k", f32=(bad_vals,), i32=(bad_ids,))
+    with pytest.raises(error):
+        PV._check_rows_args("k", bad_ids, bad_vals)
+    with pytest.raises(error):
+        PV._check_gather_args("k", bad_vals, bad_ids)
+
+
+def test_launch_checks_refuse_mismatched_shapes():
+    from himo_tpu_torch.ops import nn as PNN
+    from himo_tpu_torch.ops import voxelize as PV
+
+    vals = torch.zeros(2, 10, 3)
+    with pytest.raises(ValueError, match="shapes"):
+        PV._check_rows_args("k", torch.zeros(2, 9, dtype=torch.int32), vals)
+    with pytest.raises(ValueError, match="shapes"):
+        PV._check_rows_args("k", torch.zeros(2, 10, dtype=torch.int32), vals[0])
+    with pytest.raises(ValueError, match="shapes"):
+        PV._check_gather_args("k", vals, torch.zeros(3, 10, dtype=torch.int32))
+    with pytest.raises(ValueError, match="shapes"):
+        PV._check_gather_args("k", vals, torch.zeros(2, 10, dtype=torch.int32),
+                              torch.zeros(2, 9, dtype=torch.int32))
+    with pytest.raises(ValueError, match="shapes"):
+        PNN._check_clouds(vals, torch.zeros(2, 10, 4))
+    with pytest.raises(ValueError):
+        PNN._check_clouds(vals, torch.zeros(3, 10, 3))
+    with pytest.raises(TypeError):
+        PNN._check_clouds(vals, torch.zeros(2, 10, 3), torch.zeros(2, 10).double())

@@ -250,6 +250,64 @@ def test_scatter_sum_kernels_match_plain(cuda_device, c, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 5, 31])
+def test_segment_rows_sum_narrow_kernel_matches_plain(cuda_device, c):
+    """K3 sum's one-thread-per-point kernel (C < 32) within 1e-5 * sum|x| +
+    1e-6 of its plain version: 3 frames of 5,003 points (not a multiple of
+    the block), ids below 0 and at or past ``rows`` skipped, one crowded
+    row, zero values. The table is zeroed by the entry point itself: the
+    output lands on freed memory filled with NaN, and an empty stream
+    gives a zero table."""
+    rng = np.random.default_rng(60 + c)
+    b, n, rows = 3, 5003, 1000
+    ids, vals = _sum_case(rng, b, n, c, rows)
+    ids[:, 100:140] = -3
+    ids[:, 140:160] = rows + 1000
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    junk = torch.full((4 * b * rows * c,), float("nan"), device=cuda_device)
+    del junk
+    before = PNN.segment_rows_sum.launches
+    got = PNN.segment_rows_sum(v, i, rows)
+    empty = PNN.segment_rows_sum(v[:, :0].contiguous(), i[:, :0].contiguous(), rows)
+    assert PNN.segment_rows_sum.launches == before + 2
+    want = PNN._segment_rows_sum_plain(v, i, rows)
+    mag = PNN._segment_rows_sum_plain(v.abs(), i, rows)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-5 * mag + 1e-6).all()
+    assert torch.equal(empty, torch.zeros_like(empty))
+    loop, _ = _sum_loop(ids, vals, rows)
+    assert np.abs(got.cpu().numpy() - loop).max() <= 1e-5 * mag.max().item() + 1e-6
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_current_stream(cuda_device):
+    """The launch helper reads PyTorch's current stream: inside a
+    ``torch.cuda.stream`` context the raw handle is the side stream's, and
+    the launches there give the plain versions' results."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rng = np.random.default_rng(61)
+    ids, vals = _sum_case(rng, 2, 3000, 3, 500)
+    sids = np.sort(ids, axis=1)
+    i, v, si = (_t(a).to(cuda_device) for a in (ids, vals, sids))
+    image = _t(rng.normal(size=(2, 500, 33)).astype(np.float32)).to(cuda_device)
+    raw = torch._C._cuda_getCurrentRawStream
+    index = v.get_device()
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    assert raw(index) == torch.cuda.current_stream().cuda_stream
+    with torch.cuda.stream(side):
+        assert raw(index) == side.cuda_stream != torch.cuda.default_stream().cuda_stream
+        got_sum = PNN.segment_rows_sum(v, i, 500)
+        got_gather = PM.sorted_segment_gather(image, si, True)
+    side.synchronize()
+    want = PNN._segment_rows_sum_plain(v, i, 500)
+    mag = PNN._segment_rows_sum_plain(v.abs(), i, 500)
+    assert ((got_sum - want).abs() <= 1e-5 * mag + 1e-6).all()
+    assert torch.equal(got_gather, PM._sorted_segment_gather_plain(image, si, True))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,m", [(1000, 3000), (16384, 16384), (129, 1025)])
 def test_fused_nn_kernels_match_plain(cuda_device, n, m):
     rng = np.random.default_rng(n + 7 * m)
@@ -598,6 +656,50 @@ def test_sorted_segment_gather_kernel_bitwise_equals_plain(cuda_device, c, rows,
         PM.sorted_segment_gather(image, i.long())
     with pytest.raises(ValueError):
         PM.sorted_segment_gather(image[:, ::2], i)
+
+
+def _k11_edge_case(rng, n, rows):
+    """Four frames of ``n`` sorted ids: random ids with a run across three
+    128-position tiles and ids past the grid at the end; only ids >= rows;
+    one run of a single id; random ids up to the last row. The flattened
+    stream's tiles straddle frames when ``n`` is not a multiple of 128."""
+    ids = np.sort(rng.integers(0, rows + 4, size=(4, n)), axis=1).astype(np.int32)
+    if n > 300:
+        ids[0, 100:300] = ids[0, 100]
+    ids[1] = np.sort(rng.integers(rows, rows + 5, size=n))
+    ids[2] = rows // 3
+    ids[3] = np.sort(rng.integers(0, rows, size=n))
+    ids[3, -1] = rows - 1
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c", [1, 3, 33, 65])
+def test_sorted_segment_gather_kernel_edge_cases(cuda_device, c, bf16):
+    """K11 bitwise against its plain version (on the card and on the CPU)
+    where its tiles and 16-byte words meet their edges: N = 1,001 and N = 7
+    (multiples neither of 4 nor of the 128-position tile, so rows start
+    unaligned and tiles straddle frames), a run across tiles, a frame of
+    only ids >= rows (all zeros), a frame that is one run."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rng = np.random.default_rng(70 + c + 2 * bf16)
+    rows = 300
+    image_np = rng.normal(size=(4, rows, c)).astype(np.float32)
+    image = _t(image_np).to(cuda_device)
+    for n in (1001, 7):
+        ids = _k11_edge_case(rng, n, rows)
+        i = _t(ids).to(cuda_device)
+        before = PM.sorted_segment_gather.launches
+        got = PM.sorted_segment_gather(image, i, bf16)
+        assert PM.sorted_segment_gather.launches == before + 1
+        want = PM._sorted_segment_gather_plain(image, i, bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+        cpu = PM._sorted_segment_gather_plain(_t(image_np), _t(ids), bf16)
+        assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32)), n
+        assert (got[1] == 0).all() and (got[2] == got[2, :1]).all()
 
 
 @pytest.mark.cuda

@@ -57,7 +57,7 @@ def rehearsal(monkeypatch):
                         ("NN_SHAPES", ((128, 256), (256, 128))),
                         ("SEGMENT_SHAPES", ((256, 2048), (512, 256))),
                         ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
-                        ("KNN_DUPLICATES", 16),
+                        ("KNN_DUPLICATES", 16), ("HOST_POINTS", 64), ("HOST_ROWS", 128),
                         ("FASTNSF_DT", DTConfig(voxel_size=(3.2, 3.2, 1.6)))):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -65,6 +65,9 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    # No device to trace or to queue launches on: one timed call stands in.
+    monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0))
+    monkeypatch.setattr(cs, "host_us", lambda fn: cs.cuda_ms(fn, 1, 0) * 1e3)
     make = pf.make_model
     monkeypatch.setattr(pf, "make_model", lambda name, device=None, **kw: make(
         name, device="cpu", **{**TOY, **kw}))
@@ -154,11 +157,14 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     entries = [scatter, resident, scatter_sum, gather, sorted_max, sorted_sum,
                *segment.values(), *nn[cs.NN_SHAPES[0]].values(), *fused.values(), knn,
                segment_sum_k10, segment_gather_k11, sorted_gather_k5]
-    keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
+    keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "library_device_ms"}
     for e in entries:
-        assert set(e) == keys and e["bound_ms"] > 0
+        assert set(e) == keys and e["bound_ms"] > 0 and e["device_ms"] > 0
+        assert (e["library_ms"] is None) == (e["library_device_ms"] is None)
         json.dumps(e)
     assert scatter["library_ms"] is not None and fused["idx"]["library_ms"] is None
+    assert all(e["library_device_ms"] > 0 for e in segment.values())
     assert gather["bound_by"] == "bytes" and sorted_sum["library_ms"] is not None
     assert knn["library_ms"] is None and knn["bound_by"] == "operations"
     assert segment_gather_k11["bound_by"] == sorted_gather_k5["bound_by"] == "bytes"
@@ -170,6 +176,9 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert "[inference_mean_sorted] forward + de-skew" in out
     assert "[train_mean_sorted] step 2" in out and "sorted_segment_sum bf16=1" in out
     assert "stable argsort" in out
+    assert f"C={cs.MEAN_CHANNELS}" in out and "zeros + index_add_" in out
+    host = cs.wrapper_host_us(dev)
+    assert set(host) == set(none) and all(v > 0 for v in host.values())
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
@@ -179,7 +188,9 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
     pattern = cs.port_kernel_pattern()
     for name in ("void (anonymous namespace)::masked_min_kernel<true>(float const*, int)",
                  "void (anonymous namespace)::nn_kernel<false>(float const*)",
-                 "(anonymous namespace)::scatter_sum_elem(int const*, float const*)",
+                 "void (anonymous namespace)::scatter_sum_elem<int>(int const*, float const*)",
+                 "void (anonymous namespace)::gather_tile<int, true>(int const*, float const*)",
+                 "(anonymous namespace)::gather_runs(int const*, int const*)",
                  "(anonymous namespace)::scatter_sum_warp(int const*)",
                  "(anonymous namespace)::scatter_max_rows(int const*)",
                  "(anonymous namespace)::fill_neg_inf(float*, long long)",
