@@ -45,8 +45,11 @@ and prints no result):
    one PyTorch call computes the same function, beside that call; the
    kernel and that call also by their traced device time (``device_ms``),
    since at small shapes CUDA events over back-to-back calls time the host;
-   then the host cost per call of every kernel wrapper, and of K3 sum's
-   split by part, now and as its parent ran it (``phase_host_cost``);
+   the pillar max (K1 max, K3 max) also split by pass, beside its
+   flag-free decode (and both decodes at 1-8 channels), and bitwise on
+   signed features; K4 also at unclamped ids; then the host cost per call
+   of every kernel wrapper, and of K3 sum's split by part, now and as its
+   parent ran it (``phase_host_cost``);
 4. slice: the full inference forward through the kernels (launch counts
    checked: 3 scatter_max_rows, 10 nn_argmin_rows, 1 nn_min_rows; path A
    3 scatter_max_resident_rows and 1 gather_rows instead of the first,
@@ -119,6 +122,7 @@ GRID_256 = {"pillar.voxel_size": (0.4, 0.4)}  # path A: the 256x256 grid
 BIG_POINTS = 131072  # path B: points per sweep (the stream route)
 ROUTE_TRAIN_STEPS = 2  # train steps of paths A and B
 SCATTER_CHANNELS = 32
+DECODE_CHANNELS = (1, 2, 4, 8)  # the max kernel's two decodes, timed side by side
 GATHER_CHANNELS = 65  # 64 UNet feature channels + the slot channel
 MEAN_CHANNELS = 33  # mean_sorted's pooled rows: 32 PFN channels + the count
 NN_SHAPES = ((4096, 8192), (8192, 4096))  # ICP/null/score passes, claim pass
@@ -190,14 +194,19 @@ def _device_events(prof) -> list:
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
-    """Device milliseconds per call of ``fn`` (warm): the summed kernel,
+def short_name(name: str) -> str:
+    """A trace event's kernel name without its namespace, template arguments
+    and parameters (``Memset (Device)`` -> ``Memset``)."""
+    bare = re.sub(r"^(void )?\(anonymous namespace\)::", "", name)
+    return bare.split("<")[0].split("(")[0].strip()
+
+
+def device_split(fn, iters: int = 20, tries: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` (warm) by pass: the kernel,
     memset and memcpy durations of a torch.profiler trace of ``iters``
-    calls, over ``iters``. :func:`cuda_ms` times back-to-back calls, so
-    where the host takes longer per call than the device it measures the
-    host; this leaves out the gaps in which the device waits. A trace whose
-    device events are not a whole number per call lost some (seen once in
-    a CUDA-only trace) and is taken again, up to ``tries`` times."""
+    calls, summed by :func:`short_name` and divided by ``iters``. A trace
+    whose device events are not a whole number per call lost some (seen
+    once in a CUDA-only trace) and is taken again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -210,8 +219,21 @@ def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
             torch.cuda.synchronize()
         events = _device_events(prof)
         if events and len(events) % iters == 0:
-            return sum(e["dur"] for e in events) / 1e3 / iters
-    raise AssertionError(f"device_ms: {len(events)} device events in a trace of {iters} calls")
+            split = {}
+            for e in events:
+                name = short_name(e["name"])
+                split[name] = split.get(name, 0.0) + e["dur"] / 1e3 / iters
+            return split
+    raise AssertionError(f"device_split: {len(events)} device events in a trace of {iters} "
+                         f"calls")
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` (warm), every pass summed
+    (:func:`device_split`). :func:`cuda_ms` times back-to-back calls, so
+    where the host takes longer per call than the device it measures the
+    host; this leaves out the gaps in which the device waits."""
+    return sum(device_split(fn, iters).values())
 
 
 def device_times(fn, library=None, iters: int = 20) -> dict:
@@ -402,21 +424,29 @@ def _reduce_bound(pids, rows, c, stream):
                  live * c)
 
 
+def _bitwise(name, got, want) -> None:
+    """Raise unless a kernel's fp32 output equals its plain version's bit for
+    bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"{name} kernel differs from plain in {bad} values")
+
+
 def _check_max(name, fn, plain, pids, feats, rows, stream=False):
     """Hold a per-row max kernel ``fn(pids, feats, rows)`` bitwise against
     its plain version; time both and ``torch.zeros`` + ``scatter_reduce_``
     amax on the same inputs (a new table, unreached rows 0, as the
-    wrapper)."""
+    wrapper); split the kernel's device time by pass."""
     import torch
 
     b, n, c = feats.shape
     trash = float((pids >= rows).float().mean())
     got = fn(pids, feats, rows)
     want = plain(pids, feats, rows)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        raise AssertionError(f"{name} kernel differs from plain in {bad} values")
+    _bitwise(name, got, want)
     ms = cuda_ms(lambda: fn(pids, feats, rows))
     plain_ms = cuda_ms(lambda: plain(pids, feats, rows))
     flat = _flat_rows(pids, rows)[:, None].expand(-1, c)
@@ -427,34 +457,91 @@ def _check_max(name, fn, plain, pids, feats, rows, stream=False):
             0, flat, src, "amax", include_self=False)
 
     library_ms = cuda_ms(library)
-    dev = device_times(lambda: fn(pids, feats, rows), library)
+    split = device_split(lambda: fn(pids, feats, rows))
+    dev = dict(device_ms=sum(split.values()), library_device_ms=device_ms(library))
     log(f"{name} B={b} N={n} C={c} rows={rows} trash={trash:.3f}: bitwise equal; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax {library_ms:.4f} ms; "
-        f"device {dev['device_ms']:.4f} / {dev['library_device_ms']:.4f} ms")
+        f"device {dev['device_ms']:.4f} / {dev['library_device_ms']:.4f} ms; kernel's "
+        f"device ms by pass: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, **dev, **_reduce_bound(pids, rows, c, stream))
 
 
+def _check_signed_max(name, fn, pids, rows):
+    """Hold a per-row max kernel ``fn(pids, feats, rows)`` bitwise against
+    its plain version on signed features: (B, N, 32) normal values, a tenth
+    of them -0.0 and a thousandth -inf (ReLU'd features never reach the
+    keys of negative floats); a row reached only by -0.0 reads +0.0, and so
+    does a max of -inf."""
+    import torch
+
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    b, n = pids.shape
+    gen = torch.Generator(device=pids.device).manual_seed(9)
+    feats = torch.randn(b, n, SCATTER_CHANNELS, device=pids.device, generator=gen)
+    draw = torch.rand(feats.shape, device=pids.device, generator=gen)
+    feats = torch.where(draw < 0.1, torch.full_like(feats, -0.0), feats)
+    feats = torch.where(draw > 0.999, torch.full_like(feats, float("-inf")), feats)
+    want = pvox._scatter_max_rows_plain(pids, feats, rows)
+    _bitwise(f"{name} (signed)", fn(pids, feats, rows), want)
+    log(f"{name} B={b} N={n} C={SCATTER_CHANNELS} rows={rows}, signed features, "
+        f"{float((draw < 0.1).float().mean()):.3f} of them -0.0, "
+        f"{float((draw > 0.999).float().mean()):.4f} -inf: bitwise equal; "
+        f"{float((want < 0).float().mean()):.4f} of cells hold a negative max")
+
+
+def _check_decode(name, pids, feats, rows, flagged):
+    """The max kernel with the decode ``flagged`` picks (the table of
+    reached rows, or every word of the image read once more) whatever the
+    channel count: bitwise against the plain version, its device time split
+    by pass."""
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    def fn():
+        return pvox._run_max_kernel(pids, feats, rows, flagged=flagged)
+
+    kind = "flagged" if flagged else "flag-free"
+    _bitwise(f"{name} ({kind} decode)", fn(), pvox._scatter_max_rows_plain(pids, feats, rows))
+    split = device_split(fn)
+    log(f"{name} C={feats.shape[2]} {kind} decode: bitwise equal; device "
+        f"{sum(split.values()):.4f} ms; by pass: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+
+
 def phase_scatter(device, clouds):
     """K1 max: the 512x512 pillar pool, (B, N, 32) ReLU'd features at the
-    main path's pillar ids."""
+    main path's pillar ids (timed; the flag-free decode too), then signed
+    ones (bitwise only); then both decodes at the few channels around the
+    wrappers' switch (the dynamic-image loss's max has C = 1)."""
     from himo_tpu_torch.ops import voxelize as pvox
 
     pids, rows = _pillar_ids(clouds)
     feats = _relu_feats(device, (BATCH, NUM_POINTS, SCATTER_CHANNELS), 1)
-    return _check_max("scatter_max_rows", pvox.scatter_max_rows,
-                      pvox._scatter_max_rows_plain, pids, feats, rows)
+    out = _check_max("scatter_max_rows", pvox.scatter_max_rows,
+                     pvox._scatter_max_rows_plain, pids, feats, rows)
+    _check_decode("scatter_max_rows", pids, feats, rows, flagged=False)
+    _check_signed_max("scatter_max_rows", pvox.scatter_max_rows, pids, rows)
+    for c in DECODE_CHANNELS:
+        few = _relu_feats(device, (BATCH, NUM_POINTS, c), 7)
+        for flagged in (True, False):
+            _check_decode("scatter_max_rows", pids, few, rows, flagged)
+    return out
 
 
 def phase_scatter_resident(device, clouds):
     """K3 max: path A's 256x256 pillar pool, the same features at the
-    256x256 pillar ids."""
+    256x256 pillar ids (timed; the flag-free decode too), then signed ones
+    (bitwise only)."""
     from himo_tpu_torch.ops import voxelize as pvox
 
     pids, rows = _pillar_ids(clouds, GRID_256["pillar.voxel_size"])
     feats = _relu_feats(device, (BATCH, NUM_POINTS, SCATTER_CHANNELS), 1)
-    return _check_max("scatter_max_resident_rows", pvox.scatter_max_resident_rows,
-                      pvox._scatter_max_rows_plain, pids, feats, rows)
+    out = _check_max("scatter_max_resident_rows", pvox.scatter_max_resident_rows,
+                     pvox._scatter_max_rows_plain, pids, feats, rows)
+    _check_decode("scatter_max_resident_rows", pids, feats, rows, flagged=False)
+    _check_signed_max("scatter_max_resident_rows", pvox.scatter_max_resident_rows, pids, rows)
+    return out
 
 
 def _check_sum(name, got, want, mag):
@@ -512,41 +599,28 @@ def phase_scatter_sum(device, clouds):
 
 def phase_gather(device, clouds):
     """K4: path A's pillar gather, a (B, 256^2, 65) fp32 image at the
-    256x256 pillar ids clamped to the last row (as gather_pillars passes
-    them); bitwise against the plain version, beside ``index_select`` of
-    the flattened rows (the flat index made beforehand)."""
+    256x256 pillar ids clamped to the last row (the rows the kernel reads);
+    bitwise against the plain version, beside ``index_select`` of the
+    flattened rows (the flat index made beforehand); then bitwise at the
+    unclamped ids, as gather_pillars passes them (the trash id ``rows``,
+    which the kernel clamps)."""
     import torch
 
     from himo_tpu_torch.ops import voxelize as pvox
 
     pids, rows = _pillar_ids(clouds, GRID_256["pillar.voxel_size"])
     ids = torch.clamp(pids, max=rows - 1)
-    c = GATHER_CHANNELS
     gen = torch.Generator(device=device).manual_seed(3)
-    image = torch.randn(BATCH, rows, c, device=device, generator=gen)
-    got = pvox.gather_rows(image, ids)
-    want = pvox._gather_rows_plain(image, ids)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError("gather_rows kernel differs from plain")
-    ms = cuda_ms(lambda: pvox.gather_rows(image, ids))
-    plain_ms = cuda_ms(lambda: pvox._gather_rows_plain(image, ids))
+    image = torch.randn(BATCH, rows, GATHER_CHANNELS, device=device, generator=gen)
+    table = image.reshape(-1, GATHER_CHANNELS)
     flat = _flat_rows(ids, rows)
-    table = image.reshape(-1, c)
-
-    def library():
-        return torch.index_select(table, 0, flat)
-
-    library_ms = cuda_ms(library)
-    dev = device_times(lambda: pvox.gather_rows(image, ids), library)
-    reached = int(torch.unique(flat).numel())  # image rows the points read
-    log(f"gather_rows B={BATCH} N={NUM_POINTS} C={c} rows={rows} reached rows "
-        f"{reached / (BATCH * rows):.3f}: bitwise equal; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_select {library_ms:.4f} ms; device "
-        f"{dev['device_ms']:.4f} / {dev['library_device_ms']:.4f} ms")
-    pts = BATCH * NUM_POINTS
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **dev,
-                **bound(pts * 4 + reached * c * 4 + pts * c * 4, 0))
+    out = _check_gather("gather_rows", pvox.gather_rows, pvox._gather_rows_plain,
+                        (image, ids), ids, lambda: torch.index_select(table, 0, flat))
+    _bitwise("gather_rows (unclamped ids)", pvox.gather_rows(image, pids),
+             pvox._gather_rows_plain(image, pids))
+    log(f"gather_rows at the unclamped ids ({float((pids >= rows).float().mean()):.3f} "
+        f"at the trash id {rows}): bitwise equal")
+    return out
 
 
 def phase_sorted(device, big):
@@ -641,10 +715,7 @@ def _check_gather(name, fn, plain, args, ids, library):
     n = ids.shape[1]
     got = fn(*args)
     want = plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        raise AssertionError(f"{name} kernel differs from plain in {bad} values")
+    _bitwise(name, got, want)
     ms = cuda_ms(lambda: fn(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
     library_ms = cuda_ms(library)
@@ -1321,10 +1392,12 @@ def phase_profile(name: str, fn, wall_ms: float, calls: int = PROFILE_CALLS) -> 
             ms, n = by_name.get(e["name"], (0.0, 0))
             by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
     launches = sum(n for _, n in by_name.values()) / calls
+    memsets = [e["dur"] / 1e3 for e in device if e["cat"] == "gpu_memset"]
     log(f"[profile {name}] wall {wall_ms:.3f} ms per call unprofiled; profiled wall "
         f"{prof_wall:.3f} ms, device busy {busy:.3f} ms (busy share {busy / prof_wall:.4f} "
         f"of the profiled wall, {busy / wall_ms:.4f} of the unprofiled); "
-        f"{launches:.0f} kernel launches per call")
+        f"{launches:.0f} kernel launches per call; {len(memsets) / calls:.0f} memsets per "
+        f"call, {sum(memsets) / calls:.3f} ms")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     port_kernel = port_kernel_pattern()
     for kname, (ms, n) in ranked[:PROFILE_TOP]:
@@ -1792,7 +1865,7 @@ def main(argv) -> int:
              source="himo_tpu_torch/csrc/scatter_sum.cu",
              replaces="himo_tpu/ops/voxelize.py:63",
              launches=total["segment_rows_sum"], **segment[SEGMENT_SHAPES[1]]),
-        dict(name="gather_rows", route="cuda", source="himo_tpu_torch/csrc/gather_rows.cu",
+        dict(name="gather_rows", route="cuda", source="himo_tpu_torch/csrc/sorted_gather.cu",
              replaces="himo_tpu/ops/voxelize.py:554",
              launches=total["gather_rows"], **gather),
         dict(name="sorted_scatter_max_rows", route="cuda",

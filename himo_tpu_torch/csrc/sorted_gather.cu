@@ -1,10 +1,20 @@
-// Row gather at a stream of pillar ids sorted in each frame (fp32).
+// Row gathers from a dense pillar image (fp32).
 //
-//   out[b, dst(j), :] = image[b * rows + spids[b, j], :]   if spids[b, j] < rows
-//                     = 0                                  otherwise,
-//   dst(j) = j (K11) or order[b, j] (K5).
+//   K4:  out[b, j, :] = image[b * rows + min(max(ids[b, j], 0), rows - 1), :]
+//   K11: out[b, j, :] = image[b * rows + spids[b, j], :]   if spids[b, j] < rows
+//                     = 0                                  otherwise
+//   K5:  out[b, order[b, j], :] = the K11 row of spids[b, j]
 //
-// Replaces two TPU kernels:
+// Replaces three TPU kernels:
+// - himo_tpu/ops/voxelize.py `_gather_kernel` (K4, called through
+//   `_gather_rows_fn` from `_diff_gather_resident_fn` in `gather_pillars`):
+//   the resident route's gather, the 256x256 grid, where the reference keeps
+//   the whole (rows, C) image in VMEM and copies one row per point. Ids come
+//   in the points' own order, unsorted. The wrapper is
+//   `ops.voxelize.gather_rows`; its backward is the resident sum-scatter
+//   (`scatter_sum.cu` through `ops.nn.segment_rows_sum`), as in the
+//   reference. The caller zeroes the rows of points outside the grid
+//   afterwards.
 // - himo_tpu/ops/mxu_scatter.py `_gather_band_kernel` (K11, called through
 //   `_gather_call` from `gather_rows_sorted`): `pooling='mean_sorted'`'s
 //   gather of the UNet's output image (64 channels plus the slot channel) at
@@ -25,28 +35,29 @@
 //   the backward masks those points either way). The wrapper is
 //   `ops.voxelize.sorted_gather_rows`.
 //
-// Design on the H100: what sortedness buys over gather_rows.cu (one warp per
-// point, one image row read per point) is that all points of a pillar are
-// neighbours in the stream, so each distinct row is read from device memory
-// about once. Every output row is written exactly once; no scratch, no
-// atomics. Both kernels are right for unsorted ids too, only slower.
+// Design on the H100: every output row is written exactly once; no scratch,
+// no atomics. Sorted ids (K11, K5) put all points of a pillar next to each
+// other in the stream, so each distinct row is read from device memory
+// about once; unsorted ids (K4) read a row where each point falls.
 //
-// K11 (`gather_tile`): the output rows of consecutive sorted positions are
-// one contiguous span, so a block takes a tile of 128 consecutive positions
-// of the flattened (B * N) stream (a tile may straddle two frames), puts
-// each position's image row offset in shared memory (-1 for ids >= rows;
-// one 32-bit division per position finds its frame), and walks the tile's
-// span of 128 * C floats as 16-byte words, one `st.global.v4.f32` each:
-// consecutive threads write consecutive words. Each word's four floats
-// resolve to (position, channel) pairs with one division per word, then a
-// step per float. A run's row is read again by the next position, and that
-// read hits L1. The few floats before the span's first 16-byte boundary
-// and after its last are stored one by one (N * C is not a multiple of 4
-// for odd C). Index arithmetic is 32-bit when the output and the image
-// have fewer than 2^31 floats, 64-bit otherwise. An earlier design gave
-// one warp to 32 sorted positions with lanes over channels: at C = 65 each
-// run took passes of 32, 32 and 1 live lanes and three store instructions
-// per point into rows that are not 16-byte aligned, and it ran at 1.35x
+// K4 and K11 (`gather_tile`, one template with the id rule as a parameter:
+// clamp for K4, read 0 outside [0, rows) for K11): the output rows of
+// consecutive positions are one contiguous span, so a block takes a tile of
+// 128 consecutive positions of the flattened (B * N) stream (a tile may
+// straddle two frames), puts each position's image row offset in shared
+// memory (-1 for K11's ids >= rows; one 32-bit division per position finds
+// its frame), and walks the tile's span of 128 * C floats as 16-byte words,
+// one `st.global.v4.f32` each: consecutive threads write consecutive words.
+// Each word's four floats resolve to (position, channel) pairs with one
+// division per word, then a step per float. A K11 run's row is read again
+// by the next position, and that read hits L1. The few floats before the
+// span's first 16-byte boundary and after its last are stored one by one
+// (N * C is not a multiple of 4 for odd C). Index arithmetic is 32-bit when
+// the output and the image have fewer than 2^31 floats, 64-bit otherwise.
+// The earlier design of both gave one warp to a point (K4) or to 32 sorted
+// positions (K11) with lanes over channels: at C = 65 each row took passes
+// of 32, 32 and 1 live lanes and three scalar store instructions into rows
+// that are not 16-byte aligned; it ran at 1.2x (K4) and 1.35x (K11)
 // `index_select` (PERF.md).
 //
 // K5 (`gather_runs`): its output rows are scattered through `order`, so
@@ -60,13 +71,14 @@
 // spreads over many warps: a first version with one warp per whole run
 // left those to one warp and ran 2-4x slower (PERF.md).
 //
-// What bounds both: bytes (the ids, and `order` for K5, read once; the
+// What bounds all three: bytes (the ids, and `order` for K5, read once; the
 // image rows the ids reach read once; the (B, N, C) output written once).
 //
-// Inputs: spids (B, N) int32 sorted in each frame, order (B, N) int32 (K5: a
-// permutation of 0..N-1 in each frame), image (B * rows, C) fp32, out
-// (B, N, C) fp32, all contiguous on one device. The Python wrappers check
-// them (not the order, nor that `order` is a permutation).
+// Inputs: ids (B, N) int32 (sorted in each frame for K11 and K5), order
+// (B, N) int32 (K5: a permutation of 0..N-1 in each frame), image
+// (B * rows, C) fp32 (K4: rows >= 1), out (B, N, C) fp32, all contiguous on
+// one device. The Python wrappers check them (not the order, nor that
+// `order` is a permutation).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,12 +91,13 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-constexpr int kTile = 128;  // K11: sorted positions per block
+constexpr int kTile = 128;  // K4, K11: positions per block
 
-// K11: one block per tile of kTile consecutive positions; Index is int or
-// long long.
-template <typename Index, bool kRound>
-__global__ void gather_tile(const int* __restrict__ spids,
+// K4, K11: one block per tile of kTile consecutive positions; Index is int
+// or long long; kClamp clamps ids to [0, rows - 1] (K4), else ids outside
+// [0, rows) read 0 (K11).
+template <typename Index, bool kRound, bool kClamp>
+__global__ void gather_tile(const int* __restrict__ ids,
                             const float* __restrict__ image,
                             float* __restrict__ out, Index positions, int n,
                             int c, int rows) {
@@ -93,14 +106,18 @@ __global__ void gather_tile(const int* __restrict__ spids,
   const int count = static_cast<int>(min(static_cast<Index>(kTile), positions - p0));
   for (int k = threadIdx.x; k < count; k += blockDim.x) {
     const Index p = p0 + k;
-    const int id = spids[p];
-    const bool live = static_cast<unsigned int>(id) < static_cast<unsigned int>(rows);
-    src[k] = live ? (p / n * rows + id) * c : Index(-1);
+    const int id = ids[p];
+    if (kClamp) {
+      src[k] = (p / n * rows + min(max(id, 0), rows - 1)) * c;
+    } else {
+      const bool live = static_cast<unsigned int>(id) < static_cast<unsigned int>(rows);
+      src[k] = live ? (p / n * rows + id) * c : Index(-1);
+    }
   }
   __syncthreads();
   auto value = [&](int k, int ch) {
     const Index at = src[k];
-    if (at < 0) return 0.0f;
+    if (!kClamp && at < 0) return 0.0f;
     return kRound ? round_bf16(image[at + ch]) : image[at + ch];
   };
   // The tile's output is floats [lo, hi) of out; [head, tail) is its
@@ -170,7 +187,36 @@ __global__ void gather_runs(const int* __restrict__ spids,
   }
 }
 
+// Launches gather_tile on the (B * N) positions of `ids`, with 32-bit index
+// arithmetic when the output and the image have fewer than 2^31 floats.
+template <bool kRound, bool kClamp>
+int launch_tiles(const void* ids, const void* image, void* out, int batch, int n, int c,
+                 int rows, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long positions = static_cast<long long>(batch) * n;
+  if (positions == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned int blocks = static_cast<unsigned int>((positions + kTile - 1) / kTile);
+  const int* i = static_cast<const int*>(ids);
+  const float* im = static_cast<const float*>(image);
+  float* o = static_cast<float*>(out);
+  const long long limit = 1LL << 31;
+  if (positions * c < limit && static_cast<long long>(batch) * rows * c < limit) {
+    gather_tile<int, kRound, kClamp><<<blocks, kThreads, 0, s>>>(
+        i, im, o, static_cast<int>(positions), n, c, rows);
+  } else {
+    gather_tile<long long, kRound, kClamp><<<blocks, kThreads, 0, s>>>(
+        i, im, o, positions, n, c, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K4: out[b, j] = image[b, clamp(ids[b, j], 0, rows - 1)]; rows >= 1.
+extern "C" int himo_gather_rows_f32(const void* ids, const void* image, void* out,
+                                    int batch, int n, int c, int rows, void* stream) {
+  return launch_tiles<false, true>(ids, image, out, batch, n, c, rows, stream);
+}
 
 // K11: out[b, j] = image[b, spids[b, j]] (0 for ids >= rows), each image value
 // rounded to bf16 on load when round_bf16 != 0.
@@ -178,27 +224,9 @@ extern "C" int himo_sorted_segment_gather_f32(const void* spids, const void* ima
                                               void* out, int batch, int n, int c,
                                               int rows, int round_bf16,
                                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long positions = static_cast<long long>(batch) * n;
-  if (positions == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned int blocks = static_cast<unsigned int>((positions + kTile - 1) / kTile);
-  const int* i = static_cast<const int*>(spids);
-  const float* im = static_cast<const float*>(image);
-  float* o = static_cast<float*>(out);
-  const long long limit = 1LL << 31;
-  const bool narrow = positions * c < limit && static_cast<long long>(batch) * rows * c < limit;
-  if (narrow && round_bf16) {
-    gather_tile<int, true><<<blocks, kThreads, 0, s>>>(i, im, o, static_cast<int>(positions),
-                                                      n, c, rows);
-  } else if (narrow) {
-    gather_tile<int, false><<<blocks, kThreads, 0, s>>>(i, im, o, static_cast<int>(positions),
-                                                       n, c, rows);
-  } else if (round_bf16) {
-    gather_tile<long long, true><<<blocks, kThreads, 0, s>>>(i, im, o, positions, n, c, rows);
-  } else {
-    gather_tile<long long, false><<<blocks, kThreads, 0, s>>>(i, im, o, positions, n, c, rows);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return round_bf16
+             ? launch_tiles<true, false>(spids, image, out, batch, n, c, rows, stream)
+             : launch_tiles<false, false>(spids, image, out, batch, n, c, rows, stream);
 }
 
 // K5: out[b, order[b, j]] = image[b, spids[b, j]] (0 for ids >= rows).

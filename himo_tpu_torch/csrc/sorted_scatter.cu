@@ -34,7 +34,7 @@
 // coalesced; a run's point rows are contiguous in the stream.
 //
 // Max: -inf as the start, fmaxf, then -inf -> 0 and -0.0 -> +0.0 (as
-// scatter_max.cu's finalize). Sum: sequential fp32 adds in stream order,
+// scatter_max.cu's decode). Sum: sequential fp32 adds in stream order,
 // the reference's order, so two launches are bitwise equal, and equal to a
 // sequential sum of the same stream.
 //

@@ -10,7 +10,7 @@ has its own hand-written CUDA kernel:
 
 - ``resident`` (the reference keeps the image in VMEM; the 256x256 grid):
   per-point max :func:`scatter_max_resident_rows` (``csrc/scatter_max.cu``,
-  TPU kernel K3 max), gather :func:`gather_rows` (``csrc/gather_rows.cu``,
+  TPU kernel K3 max), gather :func:`gather_rows` (``csrc/sorted_gather.cu``,
   K4), whose backward and the resident sum are ``ops.nn.segment_rows_sum``
   (``csrc/scatter_sum.cu``, K3 sum);
 - ``table`` (the point table fits; the 512x512 grid at up to 81,920 points):
@@ -154,8 +154,9 @@ def _scatter_max_rows_plain(
     pids: torch.Tensor, feats: torch.Tensor, rows: int
 ) -> torch.Tensor:
     """Plain version of the kernel: (B, N) pids, (B, N, C) fp32 feats ->
-    (B, rows, C) per-row max; unreached rows are 0, pids >= rows skipped,
-    and -0.0 comes out as +0.0 (as the kernel's finalize pass does)."""
+    (B, rows, C) per-row max; unreached rows and maxima of -inf are 0 (the
+    reference's rule for empty pillars), pids outside [0, rows) skipped,
+    and -0.0 comes out as +0.0 (as the kernel's decode pass does)."""
     b, n, c = feats.shape
     base = torch.arange(b, device=pids.device, dtype=torch.int64)[:, None] * rows
     pid = pids.to(torch.int64)
@@ -221,7 +222,11 @@ def _sorted_gather_rows_plain(
 
 # (ids or pids, values or image, out, B, N, C, rows), then the stream.
 _ROWS_ARGTYPES = (_build.PTR,) * 3 + (_build.INT,) * 4
-_SCATTER_MAX = _build.Entry("scatter_max", "himo_scatter_max_f32", _ROWS_ARGTYPES)
+# (pids, feats, out, reached, B, N, C, rows): zeroes its image and its
+# (B, rows) byte table of reached rows itself, scatters, decodes those rows
+# (every word of the image when ``reached`` is null).
+_SCATTER_MAX = _build.Entry("scatter_max", "himo_scatter_max_f32",
+                            (_build.PTR,) * 4 + (_build.INT,) * 4)
 # Zeroes its (B, rows, C) table itself (cudaMemsetAsync), then adds.
 _SCATTER_SUM = _build.Entry("scatter_sum", "himo_scatter_sum_f32", _ROWS_ARGTYPES)
 
@@ -252,6 +257,32 @@ def _run_rows_kernel(
     return out
 
 
+# From this many channels on, the max kernel decodes only the rows that a
+# (B, rows) byte table marks as reached; below, a 32-byte sector of the
+# image holds two rows or more, the flagged decode reaches most sectors
+# anyway, and decoding every word of the image measured faster at C = 1, 2
+# and 4 (slower at 8 and 32; PERF.md).
+_MAX_FLAG_MIN_CHANNELS = 8
+
+
+def _run_max_kernel(pids: torch.Tensor, feats: torch.Tensor, rows: int,
+                    flagged: bool | None = None) -> torch.Tensor:
+    """Launch ``csrc/scatter_max.cu`` into a new (B, rows, C) fp32 image,
+    with a (B, rows) byte scratch table of the rows points reach when
+    ``flagged`` (by default from ``_MAX_FLAG_MIN_CHANNELS`` channels on;
+    ``chip_smoke.py`` times both decodes); raises on inputs it does not
+    take and on a CUDA error."""
+    _check_rows_args(_SCATTER_MAX.name, pids, feats)
+    b, n, c = feats.shape
+    if flagged is None:
+        flagged = c >= _MAX_FLAG_MIN_CHANNELS
+    out = feats.new_empty((b, rows, c))
+    reached = feats.new_empty((b, rows), dtype=torch.uint8) if flagged else None
+    _SCATTER_MAX.launch(feats.get_device(), pids.data_ptr(), feats.data_ptr(), out.data_ptr(),
+                        reached.data_ptr() if flagged else None, b, n, c, rows)
+    return out
+
+
 def scatter_max_rows(
     pids: torch.Tensor, feats: torch.Tensor, rows: int
 ) -> torch.Tensor:
@@ -265,7 +296,7 @@ def scatter_max_rows(
     raise: the kernel takes contiguous fp32 features and int32 ids."""
     if feats.is_cpu:
         return _scatter_max_rows_plain(pids, feats, rows)
-    out = _run_rows_kernel(_SCATTER_MAX, pids, feats, rows)
+    out = _run_max_kernel(pids, feats, rows)
     scatter_max_rows.launches += 1
     return out
 
@@ -286,7 +317,7 @@ def scatter_max_resident_rows(
     ``scatter_max_resident_rows.launches``), or raise."""
     if feats.is_cpu:
         return _scatter_max_rows_plain(pids, feats, rows)
-    out = _run_rows_kernel(_SCATTER_MAX, pids, feats, rows)
+    out = _run_max_kernel(pids, feats, rows)
     scatter_max_resident_rows.launches += 1
     return out
 
@@ -397,7 +428,7 @@ def _check_gather_args(entry: str, image: torch.Tensor, *ids: torch.Tensor,
                          f"{tuple(image.shape)}")
 
 
-_GATHER = _build.Entry("gather_rows", "himo_gather_rows_f32", _ROWS_ARGTYPES)
+_GATHER = _build.Entry("sorted_gather", "himo_gather_rows_f32", _ROWS_ARGTYPES)
 # (spids, order, image, out, B, N, C, rows), then the stream.
 _SORTED_GATHER = _build.Entry("sorted_gather", "himo_sorted_gather_rows_f32",
                               (_build.PTR,) * 4 + (_build.INT,) * 4)
@@ -410,7 +441,7 @@ def gather_rows(image: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:
     carries the gradient.
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/gather_rows.cu``'s ``himo_gather_rows_f32`` (counted in
+    ``csrc/sorted_gather.cu``'s ``himo_gather_rows_f32`` (counted in
     ``gather_rows.launches``) or raise: the kernel takes a contiguous fp32
     image with at least one row and contiguous int32 ids."""
     if image.is_cpu:

@@ -461,17 +461,22 @@ def test_sorted_scatter_plain_versions_match_sequential_loop(c):
     np.testing.assert_array_equal(got_sum, _sequential_rows(ids, vals, rows, "sum"))
 
 
-@pytest.mark.parametrize("c", [65, 1])
+@pytest.mark.parametrize("c", [1, 3, 32, 33, 65])
 def test_gather_rows_plain_matches_numpy(c):
+    """K4's plain version (what the wrapper takes on the CPU, counting no
+    launch) bitwise against numpy: negative ids read row 0, ids >= rows
+    the last row."""
     rng = np.random.default_rng(5 + c)
     rows = 400
     image = rng.normal(size=(2, rows, c)).astype(np.float32)
-    ids = rng.integers(0, rows + 3, size=(2, 900)).astype(np.int32)  # some >= rows
+    ids = rng.integers(-5, rows + 5, size=(2, 1001)).astype(np.int32)
+    ids[:, :3] = (-1, rows, 2 ** 31 - 1)
     before = PV.gather_rows.launches
     got = PV.gather_rows(_t(image), _t(ids)).numpy()
     assert PV.gather_rows.launches == before
-    want = np.stack([image[b, np.minimum(ids[b], rows - 1)] for b in range(2)])
-    np.testing.assert_array_equal(got, want)
+    want = np.stack([image[b, np.clip(ids[b], 0, rows - 1)] for b in range(2)])
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (got[:, 0] == image[:, 0]).all() and (got[:, 1] == image[:, -1]).all()
 
 
 @pytest.mark.cuda
@@ -489,6 +494,118 @@ def test_scatter_max_resident_kernel_bitwise_equals_plain(cuda_device, c):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     with pytest.raises(TypeError):
         PV.scatter_max_resident_rows(p.long(), f, rows)
+
+
+def _max_edge_case(rng, n, c, rows):
+    """Three frames of ``n`` points for the per-row max. Frame 0: random ids,
+    some negative and some >= rows (skipped); normal values, a tenth of them
+    -0.0, some -inf and +inf; every third row all negative; the last row
+    reached only by -0.0 and the one before it only by -inf (both read
+    +0.0). Frame 1: one point per row (ids past ``rows`` skipped). Frame 2:
+    only ids outside [0, rows)."""
+    ids = rng.integers(0, rows, size=(3, n)).astype(np.int32)
+    vals = rng.normal(size=(3, n, c)).astype(np.float32)
+    vals[rng.uniform(size=vals.shape) < 0.1] = -0.0
+    vals[0, 1::97] = -np.inf
+    vals[0, 2::89, 0] = np.inf
+    negative = ids[0] % 3 == 0
+    vals[0, negative] = -np.abs(vals[0, negative])
+    ids[0, ids[0] >= rows - 2] = 0
+    ids[0, 5:9], vals[0, 5:9] = rows - 1, -0.0
+    ids[0, 70:74], vals[0, 70:74] = rows - 2, -np.inf
+    ids[0, 10:40] = -3
+    ids[0, 40:70] = rows + rng.integers(0, 3, size=30)
+    ids[1] = np.arange(n)
+    ids[2] = np.where(np.arange(n) % 2 == 0, rows, -1)
+    return ids, vals
+
+
+def _max_loop(ids, vals, rows):
+    """Per-row max by a numpy loop over the points, by the reference's rule:
+    rows no id in [0, rows) reaches and maxima of -inf read +0.0, and -0.0
+    comes out as +0.0."""
+    b, n, c = vals.shape
+    out = np.full((b, rows, c), -np.inf, np.float32)
+    for bi in range(b):
+        for i in range(n):
+            if 0 <= ids[bi, i] < rows:
+                out[bi, ids[bi, i]] = np.maximum(out[bi, ids[bi, i]], vals[bi, i])
+    out[np.isneginf(out)] = 0.0
+    return out + np.float32(0.0)
+
+
+@pytest.mark.parametrize("c", [1, 3, 32, 33, 65])
+def test_scatter_max_plain_edge_cases_match_numpy_loop(c):
+    """The per-row max's plain version (the K1 max and K3 max kernels' yardstick)
+    bitwise against a numpy loop: -0.0, -inf and +inf values, all-negative
+    rows, rows reached only by -0.0 or only by -inf (both read +0.0), one
+    point per row, a frame of only ids outside [0, rows) (all +0.0)."""
+    rng = np.random.default_rng(80 + c)
+    rows = 50
+    ids, vals = _max_edge_case(rng, 600, c, rows)
+    got = PV._scatter_max_rows_plain(_t(ids), _t(vals), rows).numpy()
+    want = _max_loop(ids, vals, rows)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (got[0, rows - 2:] == 0).all() and not np.signbit(got[0, rows - 2:]).any()
+    assert (got[0, ::3] < 0).any() and np.isposinf(got).any() and not np.isneginf(got).any()
+    assert (got[2] == 0).all() and not np.signbit(got[2]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 300, 128 * 128])
+@pytest.mark.parametrize("c", [1, 3, 32, 33, 65])
+def test_scatter_max_kernels_edge_cases_bitwise(cuda_device, c, rows):
+    """K1 max and K3 max (one entry point, two counters) bitwise against the
+    plain version on ``_max_edge_case``'s frames: the keys of negative
+    floats, -inf and +inf, the reached-row table (rows reached only by -0.0
+    or only by -inf read +0.0; one point per row; a frame of trash ids
+    stays +0.0); each of the two decodes forced at every C. The image and
+    its table land on freed memory filled with NaN: the entry point zeroes
+    both itself."""
+    rng = np.random.default_rng(100 + c + rows)
+    ids, vals = _max_edge_case(rng, 5003, c, rows)
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    want = PV._scatter_max_rows_plain(i, v, rows)
+    for fn in (PV.scatter_max_rows, PV.scatter_max_resident_rows):
+        junk = torch.full((4 * 3 * rows * (c + 1),), float("nan"), device=cuda_device)
+        del junk
+        before = fn.launches
+        got = fn(i, v, rows)
+        assert fn.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), fn.__name__
+    for flagged in (True, False):
+        forced = PV._run_max_kernel(i, v, rows, flagged=flagged)
+        torch.cuda.synchronize()
+        assert torch.equal(forced.view(torch.int32), want.view(torch.int32)), flagged
+    assert (got[2] == 0).all() and not torch.signbit(got[2]).any()
+    cpu = PV._scatter_max_rows_plain(_t(ids), _t(vals), rows)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 32, 33, 65])
+def test_gather_rows_kernel_edge_cases_bitwise(cuda_device, c):
+    """K4 bitwise against its plain version on the card and on the CPU:
+    negative ids (row 0), ids >= rows (the last row), N = 1,001 and 7
+    (multiples neither of 4 nor of the 128-position tile, so rows start
+    unaligned and tiles straddle frames)."""
+    rng = np.random.default_rng(110 + c)
+    rows = 300
+    image_np = rng.normal(size=(3, rows, c)).astype(np.float32)
+    image = _t(image_np).to(cuda_device)
+    for n in (1001, 7):
+        ids = rng.integers(-5, rows + 5, size=(3, n)).astype(np.int32)
+        ids[:, :3] = (-1, rows, 2 ** 31 - 1)
+        i = _t(ids).to(cuda_device)
+        before = PV.gather_rows.launches
+        got = PV.gather_rows(image, i)
+        assert PV.gather_rows.launches == before + 1
+        want = PV._gather_rows_plain(image, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+        cpu = PV._gather_rows_plain(_t(image_np), _t(ids))
+        assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32)), n
 
 
 @pytest.mark.cuda

@@ -67,12 +67,16 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     # No device to trace or to queue launches on: one timed call stands in.
     monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0))
+    monkeypatch.setattr(cs, "device_split",
+                        lambda fn, iters=20: {"kernel": cs.cuda_ms(fn, 1, 0)})
     monkeypatch.setattr(cs, "host_us", lambda fn: cs.cuda_ms(fn, 1, 0) * 1e3)
     make = pf.make_model
     monkeypatch.setattr(pf, "make_model", lambda name, device=None, **kw: make(
         name, device="cpu", **{**TOY, **kw}))
     monkeypatch.setattr(pt, "TrainConfig", functools.partial(
         pt.TrainConfig, batch_size=2, num_points=2048, loss_points=256))
+    monkeypatch.setattr(pv, "_run_max_kernel", lambda p, f, rows, flagged=None:
+                        pv._scatter_max_rows_plain(p, f, rows))
     for (mod, name), plain in cs._wrappers().items():
         def counted(*args, _plain=plain, _name=name, _mod=mod):
             getattr(_mod, _name).launches += 1
@@ -176,6 +180,10 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert "[inference_mean_sorted] forward + de-skew" in out
     assert "[train_mean_sorted] step 2" in out and "sorted_segment_sum bf16=1" in out
     assert "stable argsort" in out
+    assert "signed features" in out and "kernel's device ms by pass" in out
+    assert "scatter_max_resident_rows C=32 flag-free decode: bitwise equal" in out
+    assert "scatter_max_rows C=1 flagged decode: bitwise equal" in out
+    assert "gather_rows at the unclamped ids" in out
     assert f"C={cs.MEAN_CHANNELS}" in out and "zeros + index_add_" in out
     host = cs.wrapper_host_us(dev)
     assert set(host) == set(none) and all(v > 0 for v in host.values())
@@ -193,9 +201,12 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
                  "(anonymous namespace)::gather_runs(int const*, int const*)",
                  "(anonymous namespace)::scatter_sum_warp(int const*)",
                  "(anonymous namespace)::scatter_max_rows(int const*)",
-                 "(anonymous namespace)::fill_neg_inf(float*, long long)",
-                 "(anonymous namespace)::finalize(float*, long long)",
-                 "(anonymous namespace)::gather_rows(int const*, float const*)",
+                 "void (anonymous namespace)::decode_reached<uint4>(unsigned char const*, "
+                 "uint4*, long long, int)",
+                 "void (anonymous namespace)::decode_reached<unsigned int>(unsigned char "
+                 "const*, unsigned int*, long long, int)",
+                 "void (anonymous namespace)::decode_all<uint4>(uint4*, long long)",
+                 "void (anonymous namespace)::gather_tile<int, false, true>(int const*)",
                  "(anonymous namespace)::mark_runs(int const*, int*, long long)",
                  "void (anonymous namespace)::reduce_runs<true>(int const*)",
                  "void (anonymous namespace)::knn_kernel<4>(float const*, float const*, "
@@ -209,3 +220,11 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
 def test_busy_time_is_the_union_of_intervals():
     assert cs._busy_ms([(0, 1000), (500, 1500), (3000, 4000), (3100, 3200)]) == 2.5
     assert cs._busy_ms([]) == 0.0
+
+
+def test_short_name_strips_namespace_templates_and_parameters():
+    assert cs.short_name("void (anonymous namespace)::decode_reached<uint4>(unsigned char "
+                         "const*, uint4*, long long, int)") == "decode_reached"
+    assert cs.short_name("(anonymous namespace)::scatter_max_rows(int const*)") == \
+        "scatter_max_rows"
+    assert cs.short_name("Memset (Device)") == "Memset"
