@@ -47,7 +47,10 @@ and prints no result):
    since at small shapes CUDA events over back-to-back calls time the host;
    the pillar max (K1 max, K3 max) also split by pass, beside its
    flag-free decode (and both decodes at 1-8 channels), and bitwise on
-   signed features; K4 also at unclamped ids; then the host cost per call
+   signed features; K4 also at unclamped ids; K7 also at ``nsfp``'s shape
+   (1 x 65,536 x 65,536); K7 and both K8 variants bitwise equal to their
+   plain versions on quarter-metre grid coordinates, where every squared
+   distance is exact in both forms (``phase_nn_grid``); then the host cost per call
    of every kernel wrapper, and of K3 sum's split by part, now and as its
    parent ran it (``phase_host_cost``);
 4. slice: the full inference forward through the kernels (launch counts
@@ -126,6 +129,7 @@ DECODE_CHANNELS = (1, 2, 4, 8)  # the max kernel's two decodes, timed side by si
 GATHER_CHANNELS = 65  # 64 UNet feature channels + the slot channel
 MEAN_CHANNELS = 33  # mean_sorted's pooled rows: 32 PFN channels + the count
 NN_SHAPES = ((4096, 8192), (8192, 4096))  # ICP/null/score passes, claim pass
+NN_NSFP_SHAPE = (1, 65536, 65536)  # K7 in nsfp's chamfer: (frames, queries, refs)
 SEGMENT_SHAPES = ((16384, 65536), (32768, 16384))  # take_rows bwd, fused bwd
 FUSED_POINTS = 16384  # TrainConfig().loss_points
 SLICE_TOL_M = 1e-3  # refined points, kernels vs plain versions
@@ -1004,18 +1008,18 @@ def phase_host_cost(device):
     return whole, split
 
 
-def _nn_inputs(device, n, m, seed):
+def _nn_inputs(device, n, m, seed, batch=BATCH):
     import torch
 
     from himo_tpu_torch.ops import nn as pnn
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    q = torch.rand(BATCH, n, 3, device=device, generator=gen) * 80.0 - 40.0
-    r = torch.rand(BATCH, m, 3, device=device, generator=gen) * 80.0 - 40.0
+    q = torch.rand(batch, n, 3, device=device, generator=gen) * 80.0 - 40.0
+    r = torch.rand(batch, m, 3, device=device, generator=gen) * 80.0 - 40.0
     r[:, m // 2 : m // 2 + 64] = r[:, :64]  # exact duplicate refs
     q[:, :32] = r[:, :32]  # queries on duplicated refs: lowest index must win
-    qv = torch.rand(BATCH, n, device=device, generator=gen) > 0.1
-    rv = torch.rand(BATCH, m, device=device, generator=gen) > 0.1
+    qv = torch.rand(batch, n, device=device, generator=gen) > 0.1
+    rv = torch.rand(batch, m, device=device, generator=gen) > 0.1
     qv[:, :32] = True
     rv[:, :64] = True
     rv[:, m // 2 : m // 2 + 64] = True
@@ -1023,13 +1027,17 @@ def _nn_inputs(device, n, m, seed):
 
 
 def phase_nn(device):
+    """K6 and K7 at the refine head's shapes (NN_SHAPES, B8), and K7 at
+    ``nsfp``'s (NN_NSFP_SHAPE, one frame), on uniform clouds with exact
+    duplicates: within tolerance of the plain versions, the index at the
+    min, duplicates resolved to the lowest index; timed."""
     import torch
 
     from himo_tpu_torch.ops import nn as pnn
 
     out = {}
-    for n, m in NN_SHAPES:
-        q, r, qv = _nn_inputs(device, n, m, seed=n + m)
+    for batch, n, m in [(BATCH, n, m) for n, m in NN_SHAPES] + [NN_NSFP_SHAPE]:
+        q, r, qv = _nn_inputs(device, n, m, seed=n + m, batch=batch)
         d, idx = pnn.nn_argmin_rows(q, r)
         dmin = pnn.nn_min_rows(q, r)
         pd, pidx = pnn._nn_argmin_plain(q, r)
@@ -1052,16 +1060,24 @@ def phase_nn(device):
         if not (ties == np.arange(32)).all():
             raise AssertionError("exact-duplicate ties did not resolve to the lowest index")
         flips = int((idx != pidx)[qv].sum())
+        pairs = batch * n * m
+        io = batch * (n + m) * 12
         ms_arg = cuda_ms(lambda: pnn.nn_argmin_rows(q, r))
         plain_arg = cuda_ms(lambda: pnn._nn_argmin_plain(q, r), iters=5)
+        if (batch, n, m) == NN_NSFP_SHAPE:
+            dev = device_times(lambda: pnn.nn_argmin_rows(q, r))["device_ms"]
+            bnd = bound(io + batch * n * 8, pairs * NN_OPS_PER_PAIR)
+            log(f"nn B={batch} {n}x{m}: argmin d2 within tolerance, ties lowest-index, "
+                f"{flips} index differences at near-ties; argmin kernel {ms_arg:.4f} ms, "
+                f"device {dev:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                f"plain {plain_arg:.4f} ms")
+            continue
         ms_min = cuda_ms(lambda: pnn.nn_min_rows(q, r))
         plain_min = cuda_ms(lambda: pnn._nn_min_plain(q, r), iters=5)
-        log(f"nn B={BATCH} {n}x{m}: d2 within tolerance, ties lowest-index, "
+        log(f"nn B={batch} {n}x{m}: d2 within tolerance, ties lowest-index, "
             f"{flips} argmin index differences at near-ties; "
             f"argmin kernel {ms_arg:.4f} ms plain {plain_arg:.4f} ms; "
             f"min kernel {ms_min:.4f} ms plain {plain_min:.4f} ms")
-        pairs = BATCH * n * m
-        io = BATCH * (n + m) * 12
         out[(n, m)] = dict(
             argmin=dict(max_abs_err=float(err[qv].max()), ms=ms_arg, plain_ms=plain_arg,
                         library_ms=None, **device_times(lambda: pnn.nn_argmin_rows(q, r)),
@@ -1083,9 +1099,9 @@ def _train_batch(device, config, with_gt: bool = False):
     return {key: torch.from_numpy(v).to(device) for key, v in arrays.items()}
 
 
-def phase_fused(device):
-    """K8 at the train step's shape: the chamfer samples of the batch
-    (16,384 per side and frame), its validity and dynamic masks as
+def _fused_inputs(device):
+    """K8's arguments at the train step's shape: the chamfer samples of the
+    batch (16,384 per side and frame), its validity and dynamic masks as
     penalties, plus exact duplicates for the tie rule."""
     import torch
 
@@ -1109,7 +1125,18 @@ def phase_fused(device):
 
     ones_q = torch.ones_like(d0)
     ones_r = torch.ones_like(d1)
-    args = (q, r, pen(ones_q), pen(d0), pen(ones_r), pen(d1))
+    return q, r, pen(ones_q), pen(d0), pen(ones_r), pen(d1)
+
+
+def phase_fused(device):
+    """K8 at the train step's shape (:func:`_fused_inputs`)."""
+    import torch
+
+    from himo_tpu_torch.ops import nn as pnn
+
+    args = _fused_inputs(device)
+    q, r = args[:2]
+    n, m = q.shape[1], r.shape[1]
     outs = pnn.fused_nn_idx(*args)
     mins = pnn.fused_nn(*args)
     plain = pnn._fused_nn_plain(*args)
@@ -1159,6 +1186,55 @@ def phase_fused(device):
                  **device_times(lambda: pnn.fused_nn(*args), iters=10),
                  **bound(io + out_min, pairs * FUSED_OPS_PER_PAIR)),
     )
+
+
+def _grid_points(gen, batch, n, device):
+    """(batch, n, 3) points on the quarter-metre grid in [-8, 8]: every
+    squared distance is a multiple of 1/16 below 2^10, exact in fp32 in the
+    kernels' form and the plain versions' alike, and ties abound."""
+    import torch
+
+    ticks = torch.randint(-32, 33, (batch, n, 3), device=device, generator=gen)
+    return ticks.to(torch.float32) / 4
+
+
+def phase_nn_grid(device):
+    """K7 (NN_SHAPES, B8) and K8 in both variants (FUSED_POINTS, B8, random
+    validity and dynamic masks as penalties) on grid coordinates with exact
+    duplicates: each kernel's values and indices equal its plain version's
+    bit for bit (K8's column mins meet across query blocks there)."""
+    import torch
+
+    from himo_tpu_torch.ops import nn as pnn
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    for n, m in NN_SHAPES:
+        q, r = _grid_points(gen, BATCH, n, device), _grid_points(gen, BATCH, m, device)
+        r[:, m // 2 : m // 2 + 64] = r[:, :64]
+        q[:, :32] = r[:, :32]
+        d, idx = pnn.nn_argmin_rows(q, r)
+        pd, pidx = pnn._nn_argmin_plain(q, r)
+        _bitwise(f"nn_argmin_rows on the grid, B{BATCH} {n}x{m}", d, pd)
+        _bitwise(f"nn_argmin_rows indices on the grid, B{BATCH} {n}x{m}", idx, pidx)
+    n = m = FUSED_POINTS
+    q, r = _grid_points(gen, BATCH, n, device), _grid_points(gen, BATCH, m, device)
+    r[:, m // 2 : m // 2 + 64] = r[:, :64]
+    q[:, :32] = r[:, :32]
+    q[:, n - 32 :] = q[:, :32]  # duplicate queries: column-side ties
+    live = [torch.rand(BATCH, k, device=device, generator=gen) < 0.85 for k in (n, m)]
+    dyn = [v & (torch.rand(v.shape, device=device, generator=gen) < 0.5) for v in live]
+    pens = [torch.where(x, 0.0, pnn._MASK_BIG).to(torch.float32).contiguous()
+            for x in (live[0], dyn[0], live[1], dyn[1])]
+    outs = pnn.fused_nn_idx(q, r, *pens)
+    mins = pnn.fused_nn(q, r, *pens)
+    plain = pnn._fused_nn_plain(q, r, *pens)
+    for k in range(8):
+        _bitwise(f"fused_nn_idx output {k} on the grid", outs[k], plain[k])
+    for k in range(4):
+        _bitwise(f"fused_nn output {k} on the grid", mins[k], plain[k])
+    log(f"grid coordinates: nn_argmin_rows at B{BATCH} {NN_SHAPES} and fused_nn_idx / "
+        f"fused_nn at B{BATCH} {n}x{m} (masked) bitwise equal to their plain versions, "
+        "values and indices")
 
 
 def _nsfp_pair(device):
@@ -1797,6 +1873,7 @@ def main(argv) -> int:
     phase_host_cost(device)
     nn = phase_nn(device)
     fused = phase_fused(device)
+    phase_nn_grid(device)
     pair = _nsfp_pair(device)
     knn = phase_knn(device, pair)
     torch.cuda.empty_cache()

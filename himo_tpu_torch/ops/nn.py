@@ -354,15 +354,18 @@ def _fused_nn_plain(q, r, qa, qd, ra, rd):
     return dq_a, dq_d, col_d[0], col_d[1], iq_a, iq_d, col_i[0], col_i[1]
 
 
-# (q, r, qa, qd, ra, rd, four mins[, four indices], B, N, M), then the stream.
-_FUSED = _build.Entry("fused_nn", "himo_fused_nn_f32", (_build.PTR,) * 10 + (_build.INT,) * 3)
+# (q, r, qa, qd, ra, rd, four mins[, four indices], scratch, B, N, M), then
+# the stream.
+_FUSED = _build.Entry("fused_nn", "himo_fused_nn_f32", (_build.PTR,) * 11 + (_build.INT,) * 3)
 _FUSED_IDX = _build.Entry("fused_nn", "himo_fused_nn_idx_f32",
-                          (_build.PTR,) * 14 + (_build.INT,) * 3)
+                          (_build.PTR,) * 15 + (_build.INT,) * 3)
 
 
 def _run_fused_kernel(entry: _build.Entry, q, r, penalties, with_idx: bool):
     """Launch a ``csrc/fused_nn.cu`` entry on validated inputs; returns the
-    four mins and, ``with_idx``, the four int32 indices."""
+    four mins and, ``with_idx``, the four int32 indices. The kernel merges
+    every min across blocks in a 64-bit key per output, in scratch that it
+    fills itself."""
     _check_clouds(q, r, *penalties)
     b, n, m = q.shape[0], q.shape[1], r.shape[1]
     if n == 0 or m == 0:
@@ -375,8 +378,10 @@ def _run_fused_kernel(entry: _build.Entry, q, r, penalties, with_idx: bool):
     if with_idx:
         outs += [torch.empty((b, k), dtype=torch.int32, device=q.device)
                  for k in (n, n, m, m)]
+    scratch = torch.empty(2 * b * (n + m), dtype=torch.int64, device=q.device)
     entry.launch(q.get_device(), q.data_ptr(), r.data_ptr(),
-                 *(p.data_ptr() for p in penalties), *(o.data_ptr() for o in outs), b, n, m)
+                 *(p.data_ptr() for p in penalties), *(o.data_ptr() for o in outs),
+                 scratch.data_ptr(), b, n, m)
     return tuple(outs)
 
 

@@ -338,6 +338,70 @@ def test_fused_nn_kernels_match_plain(cuda_device, n, m):
     assert (outs[6][0, :5].cpu().numpy() == np.arange(5)).all()
 
 
+def _grid_penalties(rng, b, n, m):
+    """qa, qd (b, n) and ra, rd (b, m): 0 live, _MASK_BIG masked."""
+    qv, rv = rng.random((b, n)) < 0.85, rng.random((b, m)) < 0.85
+    qd, rd = qv & (rng.random((b, n)) < 0.5), rv & (rng.random((b, m)) < 0.5)
+    return [np.where(x, 0.0, PNN._MASK_BIG).astype(np.float32) for x in (qv, qd, rv, rd)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(2, 129, 1025), (2, 1000, 3000), (1, 33, 4097),
+                                   (8, 4096, 8192)])
+def test_nn_argmin_kernel_bitwise_on_grid(cuda_device, b, n, m):
+    """Grid coordinates: K7's distances and indices equal the plain
+    version's bit for bit (exact distances, first-min ties)."""
+    rng = np.random.default_rng(b * n + m)
+    q, r = (_t(a).to(cuda_device) for a in _grid_knn_case(rng, b, n, m))
+    d, i = PNN.nn_argmin_rows(q, r)
+    pd, pi = PNN._nn_argmin_plain(q, r)
+    torch.cuda.synchronize()
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(2, 129, 1025), (2, 1000, 3000), (1, 33, 4097),
+                                   (8, 16384, 16384)])
+def test_fused_nn_kernels_bitwise_on_grid(cuda_device, b, n, m):
+    """Grid coordinates with masks: K8's four mins and indices equal the
+    plain version's bit for bit; at 8 x 16,384 x 16,384 the column mins
+    meet across 16 query blocks and the rows across 4 reference segments."""
+    rng = np.random.default_rng(b * n + 3 * m)
+    q, r = _grid_knn_case(rng, b, n, m)
+    args = [_t(x).to(cuda_device) for x in (q, r, *_grid_penalties(rng, b, n, m))]
+    outs = PNN.fused_nn_idx(*args)
+    mins = PNN.fused_nn(*args)
+    plain = PNN._fused_nn_plain(*args)
+    torch.cuda.synchronize()
+    for k in range(8):
+        assert torch.equal(outs[k], plain[k]), k
+    for k in range(4):
+        assert torch.equal(mins[k], plain[k]), k
+
+
+@pytest.mark.cuda
+def test_nn_kernels_falling_cloud_and_one_reference(cuda_device):
+    """The re-walk's worst case, a cloud whose distance falls with the
+    index (every chunk lowers every query's min), and a single reference:
+    K7 and K8 bitwise against the plain versions (exact coordinates)."""
+    rng = np.random.default_rng(12)
+    n, m = 2000, 3000  # |r|^2 below 2^20: exact in both forms
+    q = _t(rng.integers(-4, 5, size=(2, n, 3)).astype(np.float32) / 4).to(cuda_device)
+    r = torch.zeros(2, m, 3, device=cuda_device)
+    r[..., 0] = 2.0 + torch.arange(m, 0, -1, device=cuda_device, dtype=torch.float32) / 4
+    for refs in (r, r[:, :1].contiguous()):
+        k = refs.shape[1]
+        d, i = PNN.nn_argmin_rows(q, refs)
+        pd, pi = PNN._nn_argmin_plain(q, refs)
+        pens = [torch.zeros(2, s, device=cuda_device) for s in (n, n, k, k)]
+        outs = PNN.fused_nn_idx(q, refs, *pens)
+        plain = PNN._fused_nn_plain(q, refs, *pens)
+        torch.cuda.synchronize()
+        assert torch.equal(d, pd) and torch.equal(i, pi)
+        assert all(torch.equal(a, b) for a, b in zip(outs, plain))
+    assert (i == 0).all()
+
+
 def _grid_knn_case(rng, b, n, m):
     """Coordinates on a 1/4 m grid in [-8, 8]: every squared distance is a
     multiple of 1/16 below 2^20, exact in fp32 in both the kernel's form and

@@ -55,6 +55,7 @@ def rehearsal(monkeypatch):
                         ("GRID_256", {"pillar.voxel_size": (0.8, 0.8)}),
                         ("BIG_POINTS", 4096),
                         ("NN_SHAPES", ((128, 256), (256, 128))),
+                        ("NN_NSFP_SHAPE", (1, 512, 512)),
                         ("SEGMENT_SHAPES", ((256, 2048), (512, 256))),
                         ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
                         ("KNN_DUPLICATES", 16), ("HOST_POINTS", 64), ("HOST_ROWS", 128),
@@ -101,6 +102,7 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     segment = cs.phase_segment_sum(dev)
     nn = cs.phase_nn(dev)
     fused = cs.phase_fused(dev)
+    cs.phase_nn_grid(dev)
     launches, run_frame, frame_ms = cs.phase_slice(dev, clouds)
     launches_256, _, _ = cs.phase_slice(dev, clouds, name="inference_256",
                                         expected=cs.INFER_256_LAUNCHES, **cs.GRID_256)
@@ -194,8 +196,10 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
     """Trace names as the profiler gives them, templated and not; PyTorch's
     own kernels, in anonymous namespaces too, are left out."""
     pattern = cs.port_kernel_pattern()
-    for name in ("void (anonymous namespace)::masked_min_kernel<true>(float const*, int)",
-                 "void (anonymous namespace)::nn_kernel<false>(float const*)",
+    for name in ("void (anonymous namespace)::fused_kernel<true>(float const*, int)",
+                 "void (anonymous namespace)::finalize_kernel<false>(float const*)",
+                 "(anonymous namespace)::nn_min_kernel(float const*, int)",
+                 "(anonymous namespace)::nn_argmin_kernel(float const*, int)",
                  "void (anonymous namespace)::scatter_sum_elem<int>(int const*, float const*)",
                  "void (anonymous namespace)::gather_tile<int, true>(int const*, float const*)",
                  "(anonymous namespace)::gather_runs(int const*, int const*)",
