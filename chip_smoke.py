@@ -47,8 +47,9 @@ and prints no result):
    since at small shapes CUDA events over back-to-back calls time the host;
    the pillar max (K1 max, K3 max) also split by pass, beside its
    flag-free decode (and both decodes at 1-8 channels), and bitwise on
-   signed features; K4 also at unclamped ids; K7 also at ``nsfp``'s shape
-   (1 x 65,536 x 65,536); K7 and both K8 variants bitwise equal to their
+   signed features; K2 max also bitwise on signed features and timed at
+   C = 1 (the dynamic-image loss's max); K4 also at unclamped ids; K7 also
+   at ``nsfp``'s shape (1 x 65,536 x 65,536); K7 and both K8 variants bitwise equal to their
    plain versions on quarter-metre grid coordinates, where every squared
    distance is exact in both forms (``phase_nn_grid``); then the host cost per call
    of every kernel wrapper, and of K3 sum's split by part, now and as its
@@ -350,9 +351,14 @@ def phase_build():
     log(f"build {', '.join(names)}: {time.perf_counter() - start:.2f} s in parallel")
     for name, path in paths.items():
         log(f"  {name} -> {path.name}")
+        entry, spills = "", ""
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {line.strip()}")
+            if "entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
 
 def _clouds(device, n=None):
@@ -627,13 +633,36 @@ def phase_gather(device, clouds):
     return out
 
 
+def _log_runs(spids, rows):
+    """The shape of a sorted stream's runs, which K2 max works over: the
+    share of rows they reach, points per run (mean and most), and each
+    frame's rows before its first and after its last reached row (the
+    largest of each over the frames)."""
+    import torch
+
+    b = spids.shape[0]
+    ids = spids.to(torch.int64)
+    live = ids < rows
+    key = (torch.arange(b, device=ids.device)[:, None] * rows + ids)[live]
+    counts = torch.unique_consecutive(key, return_counts=True)[1]
+    big = torch.iinfo(torch.int64).max
+    head = torch.where(live, ids, torch.full_like(ids, big)).amin(1)
+    tail = rows - 1 - torch.where(live, ids, torch.full_like(ids, -1)).amax(1)
+    log(f"sorted stream B={b} N={spids.shape[1]} rows={rows}: runs reach "
+        f"{counts.numel() / (b * rows):.4f} of the rows, {float(counts.float().mean()):.4f} "
+        f"points per run (most {int(counts.max())}); largest head gap {int(head.max())} "
+        f"rows, tail gap {int(tail.max())}")
+
+
 def phase_sorted(device, big):
     """K2 at path B's shapes: the 512x512 pillar ids of the 131,072-point
     clouds, sorted as the stream route sorts them (stable); the max of
-    (B, N, 32) ReLU'd features and the sum of (B, N, 65) cotangents. The
-    sum must also be bitwise equal from launch to launch. Beside them, at
-    equal work: the sort itself, and the table route's atomic kernels (K1)
-    on the same points unsorted."""
+    (B, N, 32) ReLU'd features (timed and split by pass), of signed ones
+    (bitwise only) and of the dynamic-image loss's (B, N, 1) values, 0 or 1
+    (timed); the sum of (B, N, 65) cotangents. The sum must also be
+    bitwise equal from launch to launch. Beside them, at equal work: the
+    sort itself, and the table route's atomic kernels (K1) on the same
+    points unsorted."""
     import torch
 
     from himo_tpu_torch.ops import voxelize as pvox
@@ -642,8 +671,16 @@ def phase_sorted(device, big):
     n = pids.shape[1]
     feats = _relu_feats(device, (BATCH, n, SCATTER_CHANNELS), 4)
     spids, sfeats = pvox._sort_rows(pids, feats)
+    _log_runs(spids, rows)
     out_max = _check_max("sorted_scatter_max_rows", pvox.sorted_scatter_max_rows,
                          pvox._scatter_max_rows_plain, spids, sfeats, rows, stream=True)
+    _check_signed_max("sorted_scatter_max_rows", pvox.sorted_scatter_max_rows, spids, rows)
+    gen = torch.Generator(device=device).manual_seed(13)
+    positive = (torch.rand(BATCH, n, 1, device=device, generator=gen) < 0.3).float()
+    _, spositive = pvox._sort_rows(pids, positive)
+    out_c1 = _check_max("sorted_scatter_max_rows", pvox.sorted_scatter_max_rows,
+                        pvox._scatter_max_rows_plain, spids, spositive, rows, stream=True)
+    del positive, spositive
     sort_max = cuda_ms(lambda: pvox._sort_rows(pids, feats))
     k1_max = cuda_ms(lambda: pvox.scatter_max_rows(pids, feats, rows))
     del feats, sfeats
@@ -664,6 +701,9 @@ def phase_sorted(device, big):
     k1_sum = cuda_ms(lambda: pvox.scatter_sum_rows(pids, vals, rows))
     log(f"sorted_scatter_sum_rows: bitwise equal from launch to launch, {vs_plain} "
         f"the plain version on the card (index_add_'s atomics)")
+    log(f"sorted_scatter_max_rows at C=1 (the dynamic-image loss's max): kernel "
+        f"{out_c1['ms']:.4f} ms, device {out_c1['device_ms']:.4f} ms, bound "
+        f"{out_c1['bound_ms']:.4f} ms")
     log(f"at equal work, B={BATCH} N={n} rows={rows}: max C={SCATTER_CHANNELS} sorted "
         f"kernel {out_max['ms']:.4f} ms + stable sort {sort_max:.4f} ms vs atomic "
         f"scatter_max_rows {k1_max:.4f} ms; sum C={GATHER_CHANNELS} sorted kernel "
@@ -1272,14 +1312,13 @@ def knn_agreement(got, want, q):
     return as_sets, slotwise & as_sets, tol
 
 
-def phase_knn(device, pair):
-    """K9 at the nsfp loss's shape, 1 x 65,536 queries x 65,537 references
-    (the clouds as ``knn_distance_sq`` pads them, one SENTINEL row
-    appended), k=4, with exact duplicate references for the collapse
-    rule."""
+def _knn_inputs(pair):
+    """K9's inputs at the nsfp loss's shape: (q, r, query valid), 1 x 65,536
+    queries x 65,537 references (the clouds as ``knn_distance_sq`` pads
+    them, one SENTINEL row appended), with reference rows 0..63 held twice
+    and queries 0..31 on them (the collapse rule)."""
     import torch
 
-    from himo_tpu_torch.ops import knn as pknn
     from himo_tpu_torch.ops import nn as pnn
 
     pc0, pc1, _, _, v0, v1 = pair
@@ -1293,6 +1332,18 @@ def phase_knn(device, pair):
     q = pnn._pad_coords(qp[None], qv[None])
     r = pnn._pad_coords(rp[None], rv[None])
     r = torch.cat([r, torch.full_like(r[:, :1], pnn.SENTINEL)], dim=1).contiguous()
+    return q, r, qv
+
+
+def phase_knn(device, pair):
+    """K9 at the nsfp loss's shape (:func:`_knn_inputs`), k=4, with exact
+    duplicate references for the collapse rule."""
+    import torch
+
+    from himo_tpu_torch.ops import knn as pknn
+
+    q, r, qv = _knn_inputs(pair)
+    n, dup = q.shape[1], KNN_DUPLICATES
     got = pknn.knn_rows(q, r, KNN_K)
     want = pknn._knn_plain(q, r, KNN_K)
     torch.cuda.synchronize()

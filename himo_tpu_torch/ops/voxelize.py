@@ -347,10 +347,11 @@ def scatter_sum_rows(
 scatter_sum_rows.launches = 0
 
 
+# Zeroes its (B, rows, C) table itself (cudaMemsetAsync), then writes the
+# rows that runs reach.
+_SORTED_MAX = _build.Entry("sorted_scatter", "himo_sorted_scatter_max_f32", _ROWS_ARGTYPES)
 # (spids, svals, first, out, B, N, C, rows), then the stream.
 _SORTED_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 4
-_SORTED_MAX = _build.Entry("sorted_scatter", "himo_sorted_scatter_max_f32",
-                           _SORTED_ARGTYPES)
 _SORTED_SUM = _build.Entry("sorted_scatter", "himo_sorted_scatter_sum_f32",
                            _SORTED_ARGTYPES)
 
@@ -358,7 +359,7 @@ _SORTED_SUM = _build.Entry("sorted_scatter", "himo_sorted_scatter_sum_f32",
 def _run_sorted_kernel(
     entry: _build.Entry, spids: torch.Tensor, svals: torch.Tensor, rows: int, *flags
 ) -> torch.Tensor:
-    """Launch a ``csrc/sorted_scatter.cu`` entry ``entry(spids, svals,
+    """Launch a ``csrc/sorted_scatter.cu`` sum entry ``entry(spids, svals,
     first, out, B, N, C, rows, *flags)`` into a new (B, rows, C) fp32
     table, with a (B, rows) int32 scratch map of run starts; raises on
     inputs it does not take and on a CUDA error."""
@@ -385,7 +386,7 @@ def sorted_scatter_max_rows(
     ``sorted_scatter_max_rows.launches``) or raise."""
     if sfeats.is_cpu:
         return _scatter_max_rows_plain(spids, sfeats, rows)
-    out = _run_sorted_kernel(_SORTED_MAX, spids, sfeats, rows)
+    out = _run_rows_kernel(_SORTED_MAX, spids, sfeats, rows)
     sorted_scatter_max_rows.launches += 1
     return out
 

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Hold the port's NN kernels against another checkout's, on one NVIDIA GPU.
+"""Hold the port's streaming-NN, k-NN and sorted-scatter kernels against
+another checkout's, on one NVIDIA GPU.
 
-    python3 scripts/torch_nn_ab.py ROOT [ROOT ...]
+    python3 scripts/torch_nn_ab.py [--only K7,K8,K9,K2] ROOT [ROOT ...]
 
-K7 (``nn_argmin_rows``, ``csrc/nn.cu``) and K8 (``fused_nn_idx`` and
-``fused_nn``, ``csrc/fused_nn.cu``) of this checkout run through their
-wrappers; each ROOT's ``himo_tpu_torch/csrc/nn.cu`` and ``fused_nn.cu`` are
-built with nvcc (sm_90a) into a temporary directory and called through
-ctypes at their own C signatures (the fused entry points took no scratch
-pointer before this checkout's one-pass kernel). On the same inputs every
-ROOT's outputs must equal this checkout's bit for bit, values and indices,
-and on quarter-metre grid coordinates (every squared distance exact in both
-forms) this checkout's must equal the plain versions' bit for bit.
+K7 (``nn_argmin_rows``, ``csrc/nn.cu``), K8 (``fused_nn_idx`` and
+``fused_nn``, ``csrc/fused_nn.cu``), K9 (``knn_rows``, ``csrc/knn.cu``) and
+K2 (``sorted_scatter_max_rows`` and ``sorted_scatter_sum_rows``, with K10's
+``sorted_segment_sum``, ``csrc/sorted_scatter.cu``) of this checkout run
+through their wrappers; each ROOT's four sources are built with nvcc
+(sm_90a) into a temporary directory and called through ctypes at their own
+C signatures (the fused entry points took no scratch pointer before the
+one-pass K8; the sorted max took a scratch map of run starts before the
+run-based K2 max). On the same inputs every ROOT's outputs must equal this
+checkout's bit for bit, values and indices, and on quarter-metre grid
+coordinates (every squared distance exact in both forms) this checkout's
+K7, K8 and K9 must equal the plain versions' bit for bit; K2 max must equal
+its plain version on every input. ``--only`` runs the named kernels' cases
+alone.
 
 Inputs, all made on the card from fixed seeds:
 
@@ -22,7 +28,20 @@ Inputs, all made on the card from fixed seeds:
   coordinates, and on a cloud whose distance falls with the index (every
   chunk lowers every query's min);
 - K8 on the train step's chamfer samples (B8 16,384x16,384 with its masks
-  as penalties) and on grid coordinates with random masks.
+  as penalties) and on grid coordinates with random masks;
+- K9 on ``nsfp``'s pair as ``knn_distance_sq`` pads it (1 x 65,536 x
+  65,537) at k = 1, 4, 8 and 16, on ``chip_smoke.phase_knn``'s duplicate
+  case (k = 4), on grid coordinates (B2 4096x8192, k = 4 and 16) and on a
+  cloud whose distance falls with the index (1 x 65,536 x 65,536, k = 4:
+  every reference enters every list);
+- K2 max on path B's three pools (B8 x 131,072 x 32, ReLU'd features, the
+  sweeps' pillar ids sorted as the stream route sorts them), the
+  dynamic-image loss's max (C = 1, values 0 or 1), signed features (-0.0,
+  -inf) and a frame with a 50,000-point run beside a frame of ids >= rows;
+  this checkout's device time also split by pass;
+- K2 sum on path B's gather backward (B8 x 131,072 x 65 cotangents) and
+  K10 on ``mean_sorted``'s pool (B8 x 65,536 x 33, rounding off and on):
+  bitwise only against the ROOTs (their code is the earlier design's).
 
 Each case is timed by traced device time (``chip_smoke.device_ms``:
 kernels and memsets) in turns, this checkout then each ROOT, then back. One
@@ -45,10 +64,13 @@ import chip_smoke as cs  # noqa: E402
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
 ROUNDS = 2  # A, B..., B..., A: each side timed twice
+SOURCES = ("nn", "fused_nn", "knn", "sorted_scatter")
+KERNELS = ("K7", "K8", "K9", "K2")
 
 
 class Library:
-    """A checkout's nn.cu and fused_nn.cu, built and bound at their ABI."""
+    """A checkout's nn.cu, fused_nn.cu, knn.cu and sorted_scatter.cu, built
+    and bound at their ABI."""
 
     def __init__(self, root: Path, out: Path):
         from himo_tpu_torch.kernels import _build
@@ -56,7 +78,7 @@ class Library:
         self.root = root
         src = root / "himo_tpu_torch" / "csrc"
         procs = {}
-        for name in ("nn", "fused_nn"):
+        for name in SOURCES:
             lib = out / f"{name}.so"
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{name}.cu")]
             procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -75,12 +97,53 @@ class Library:
         self.fused = self._bind("fused_nn", "himo_fused_nn_f32", 10 + scratch)
         self.fused_idx = self._bind("fused_nn", "himo_fused_nn_idx_f32", 14 + scratch)
         self.scratch = scratch
+        self.knn = self._bind("knn", "himo_knn_f32", 3, ints=4)
+        # The run-based max takes (spids, sfeats, out, B, N, C, rows); the
+        # earlier one a scratch map `first` after sfeats.
+        text = (src / "sorted_scatter.cu").read_text()
+        signature = text[text.index("himo_sorted_scatter_max_f32("):].split(")")[0]
+        self.first_max = "first" in signature
+        self.smax = self._bind("sorted_scatter", "himo_sorted_scatter_max_f32",
+                               3 + self.first_max, ints=4)
+        self.ssum = self._bind("sorted_scatter", "himo_sorted_scatter_sum_f32", 4, ints=4)
+        self.segsum = self._bind("sorted_scatter", "himo_sorted_segment_sum_f32", 4, ints=5)
 
-    def _bind(self, lib, name, ptrs):
+    def _bind(self, lib, name, ptrs, ints=3):
         fn = getattr(self.libs[lib], name)
-        fn.argtypes = [PTR] * ptrs + [INT] * 3 + [PTR]
+        fn.argtypes = [PTR] * ptrs + [INT] * ints + [PTR]
         fn.restype = ctypes.c_int
         return fn
+
+    def knn_rows(self, q, r, k):
+        import torch
+
+        b, n, m = q.shape[0], q.shape[1], r.shape[1]
+        out = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
+        code = self.knn(q.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, m, k,
+                        torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return out
+
+    def _sorted(self, fn, spids, svals, rows, *flags, first=True):
+        import torch
+
+        b, n, c = svals.shape
+        out = torch.empty((b, rows, c), dtype=torch.float32, device=svals.device)
+        scratch = torch.empty((b, rows), dtype=torch.int32, device=svals.device)
+        ptrs = [spids.data_ptr(), svals.data_ptr()] + [scratch.data_ptr()] * first
+        code = fn(*ptrs, out.data_ptr(), b, n, c, rows, *flags,
+                  torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return out
+
+    def sorted_max(self, spids, sfeats, rows):
+        return self._sorted(self.smax, spids, sfeats, rows, first=self.first_max)
+
+    def sorted_sum(self, spids, svals, rows):
+        return self._sorted(self.ssum, spids, svals, rows)
+
+    def segment_sum(self, spids, svals, rows, bf16):
+        return self._sorted(self.segsum, spids, svals, rows, int(bf16))
 
     def nn_argmin_rows(self, q, r):
         import torch
@@ -118,8 +181,12 @@ class Library:
 
 
 def _same(a, b) -> bool:
+    """Bit for bit: value tuples by ``torch.equal`` (indices, and floats
+    where +0.0 and -0.0 never meet), a single fp32 tensor by its bits."""
     import torch
 
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
     return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
 
 
@@ -200,13 +267,95 @@ def k8_cases(device):
     return cases
 
 
+def k9_cases(device):
+    """(name, k, [(q, r), ...], plain or None) for K9."""
+    import torch
+
+    from himo_tpu_torch.ops import nn as pnn
+
+    pair = cs._nsfp_pair(device)
+    pc0, pc1, _, _, v0, v1 = pair
+    q = pnn._pad_coords(pc0[None], v0[None])
+    r = pnn._pad_coords(pc1[None], v1[None])
+    r = torch.cat([r, torch.full_like(r[:, :1], pnn.SENTINEL)], dim=1).contiguous()
+    cases = [(f"nsfp pair 1x65536x65537 k={k}", k, [(q, r)], None) for k in (1, 4, 8, 16)]
+    dq, dr, _ = cs._knn_inputs(pair)
+    cases.append((f"duplicates (phase_knn) 1x65536x65537 k={cs.KNN_K}", cs.KNN_K,
+                  [(dq, dr)], None))
+    rng = cs.np.random.default_rng(8)
+    gq, gr = (torch.from_numpy(a).to(device) for a in _grid(rng, 2, 4096, 8192))
+    cases += [(f"grid B2 4096x8192 k={k}", k, [(gq, gr)], True) for k in (4, 16)]
+    gen = torch.Generator(device=device).manual_seed(9)
+    fq = torch.rand(1, 65536, 3, device=device, generator=gen)
+    steps = torch.arange(65536, 0, -1, device=device, dtype=torch.float32)
+    fr = torch.zeros(1, 65536, 3, device=device)
+    fr[..., 0] = 2.0 + steps * 1e-3  # farther first: every reference enters
+    cases.append(("falling 1x65536x65536 k=4", 4, [(fq, fr.contiguous())], None))
+    return cases
+
+
+def k2_cases(device):
+    """(name, [(spids, svals, rows), ...]) for K2 max, then for K2 sum and
+    K10: sorted streams on the card."""
+    import torch
+
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    big = cs._clouds(device, cs.BIG_POINTS)
+    valid = big[3]
+    cfg = pvox.PillarConfig()
+    rows = cfg.num_pillars
+    pids = [pvox.voxelize_pillars(pc, valid, cfg).pillar_ids.contiguous() for pc in big[:3]]
+    n = pids[0].shape[1]
+    pools = []
+    for seed, ids in enumerate(pids):
+        feats = cs._relu_feats(device, (cs.BATCH, n, cs.SCATTER_CHANNELS), 20 + seed)
+        pools.append((*pvox._sort_rows(ids, feats), rows))
+    gen = torch.Generator(device=device).manual_seed(23)
+    pos = (torch.rand(cs.BATCH, n, 1, device=device, generator=gen) < 0.3).float()
+    signed = torch.randn(cs.BATCH, n, cs.SCATTER_CHANNELS, device=device, generator=gen)
+    draw = torch.rand(signed.shape, device=device, generator=gen)
+    signed = torch.where(draw < 0.1, torch.full_like(signed, -0.0), signed)
+    signed = torch.where(draw > 0.999, torch.full_like(signed, float("-inf")), signed)
+    # Frame 0: a 50,000-point run crossing many spans, gaps of thousands of
+    # rows; frame 1: every id >= rows.
+    lrng = cs.np.random.default_rng(24)
+    ids = lrng.integers(0, rows, size=(2, 60000)).astype(cs.np.int32)
+    ids[0, :50000] = 7
+    ids[0, 50000:50100] = rows - 1
+    ids[1] = rows + lrng.integers(0, 3, size=60000)
+    lvals = lrng.normal(size=(2, 60000, cs.SCATTER_CHANNELS)).astype(cs.np.float32)
+    lids = torch.from_numpy(ids).to(device)
+    maxes = [
+        ("path B's 3 pools B8x131072x32", pools),
+        ("loss max B8x131072x1", [(*pvox._sort_rows(pids[0], pos), rows)]),
+        ("signed B8x131072x32", [(*pvox._sort_rows(pids[0], signed), rows)]),
+        ("long run + all trash B2x60000x32",
+         [(*pvox._sort_rows(lids, torch.from_numpy(lvals).to(device)), rows)]),
+    ]
+    cot = cs._sparse_cotangents(device, (cs.BATCH, n, cs.GATHER_CHANNELS), 25)
+    sums = [("K2 sum path B B8x131072x65", [(*pvox._sort_rows(pids[0], cot), rows)])]
+    clouds = cs._clouds(device)
+    mids, mrows = cs._pillar_ids(clouds)
+    mvals = cs._sparse_cotangents(device, (cs.BATCH, mids.shape[1], cs.MEAN_CHANNELS), 26)
+    sums.append(("K10 mean_sorted B8x65536x33", [(*pvox._sort_rows(mids, mvals), mrows)]))
+    return maxes, sums
+
+
 def main(argv) -> int:
     import torch
 
-    if not argv or not torch.cuda.is_available():
-        print("usage: torch_nn_ab.py ROOT [ROOT ...] (needs a CUDA device)", file=sys.stderr)
+    only = set(KERNELS)
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only, argv = set(argv[1].split(",")), argv[2:]
+    if not argv or not only <= set(KERNELS) or not torch.cuda.is_available():
+        print("usage: torch_nn_ab.py [--only K7,K8,K9,K2] ROOT [ROOT ...] (needs a CUDA "
+              "device)", file=sys.stderr)
         return 2
+    from himo_tpu_torch.ops import knn as pknn
+    from himo_tpu_torch.ops import mxu_scatter as pms
     from himo_tpu_torch.ops import nn as pnn
+    from himo_tpu_torch.ops import voxelize as pvox
 
     device, smi = cs.phase_device()
     cs.phase_build()
@@ -218,8 +367,9 @@ def main(argv) -> int:
         roots.append(Library(Path(root).resolve(), out))
     results = []
 
-    def run(name, calls, here, there, plain=None):
-        """``here`` is this checkout's wrapper, ``there(lib)`` a ROOT's."""
+    def run(name, calls, here, there, plain=None, split=False):
+        """``here`` is this checkout's wrapper, ``there(lib)`` a ROOT's. With
+        ``split``, this checkout's device time is also split by pass."""
         got = [here(*a) for a in calls]
         for lib in roots:
             other = [there(lib)(*a) for a in calls]
@@ -227,10 +377,12 @@ def main(argv) -> int:
             for g, o in zip(got, other):
                 if not _same(g, o):
                     raise AssertionError(f"{name}: differs from {lib.root}")
+            del other
         if plain is not None:
             for g, a in zip(got, calls):
                 if not _same(g, plain(*a)):
                     raise AssertionError(f"{name}: differs from the plain version")
+        del got
         sides = [("this", lambda: [here(*a) for a in calls])]
         sides += [(str(lib.root), (lambda fn=there(lib): [fn(*a) for a in calls]))
                   for lib in roots]
@@ -240,18 +392,39 @@ def main(argv) -> int:
                 times[label].append(cs.device_ms(call, iters=10))
         row = dict(case=name, bitwise_vs_roots=True, bitwise_vs_plain=plain is not None,
                    device_ms=times, card=smi)
+        if split:
+            row["split"] = cs.device_split(sides[0][1], iters=10)
         cs.log(json.dumps(row))
         results.append(row)
 
-    for name, calls in k7_cases(device):
-        plain = pnn._nn_argmin_plain if name.startswith("grid") else None
-        run(f"K7 {name}", calls, pnn.nn_argmin_rows, lambda lib: lib.nn_argmin_rows, plain)
-    for name, args in k8_cases(device):
-        grid = name.startswith("grid")
-        run(f"K8 idx {name}", [args], pnn.fused_nn_idx, lambda lib: lib.fused_nn_idx,
-            pnn._fused_nn_plain if grid else None)
-        run(f"K8 min {name}", [args], pnn.fused_nn, lambda lib: lib.fused_nn,
-            (lambda *a: pnn._fused_nn_plain(*a)[:4]) if grid else None)
+    if "K7" in only:
+        for name, calls in k7_cases(device):
+            plain = pnn._nn_argmin_plain if name.startswith("grid") else None
+            run(f"K7 {name}", calls, pnn.nn_argmin_rows, lambda lib: lib.nn_argmin_rows,
+                plain)
+    if "K8" in only:
+        for name, args in k8_cases(device):
+            grid = name.startswith("grid")
+            run(f"K8 idx {name}", [args], pnn.fused_nn_idx, lambda lib: lib.fused_nn_idx,
+                pnn._fused_nn_plain if grid else None)
+            run(f"K8 min {name}", [args], pnn.fused_nn, lambda lib: lib.fused_nn,
+                (lambda *a: pnn._fused_nn_plain(*a)[:4]) if grid else None)
+    if "K9" in only:
+        for name, k, calls, grid in k9_cases(device):
+            run(f"K9 {name}", calls, lambda q, r, _k=k: pknn.knn_rows(q, r, _k),
+                lambda lib, _k=k: (lambda q, r: lib.knn_rows(q, r, _k)),
+                (lambda q, r, _k=k: pknn._knn_plain(q, r, _k)) if grid else None)
+    if "K2" in only:
+        maxes, sums = k2_cases(device)
+        for name, calls in maxes:
+            run(f"K2 max {name}", calls, pvox.sorted_scatter_max_rows,
+                lambda lib: lib.sorted_max, pvox._scatter_max_rows_plain, split=True)
+        del maxes
+        run(sums[0][0], sums[0][1], pvox.sorted_scatter_sum_rows, lambda lib: lib.sorted_sum)
+        for bf16 in (False, True):
+            run(f"{sums[1][0]} bf16={int(bf16)}", sums[1][1],
+                lambda i, v, r, _b=bf16: pms.sorted_segment_sum(i, v, r, _b),
+                lambda lib, _b=bf16: (lambda i, v, r: lib.segment_sum(i, v, r, _b)))
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "nn_ab.json").write_text(json.dumps(results, indent=1))

@@ -471,6 +471,49 @@ def test_knn_kernel_matches_plain(cuda_device, n, m):
         PK.knn_rows(q.clone().requires_grad_(), r, 4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 255, 1025])
+@pytest.mark.parametrize("n", [1, 33, 129])
+def test_knn_kernel_edges_match_plain(cuda_device, n, m):
+    """K9 at every k in 1..16 on counts that leave partial query blocks,
+    reference tiles and warp segments (n = 1, 33, 129; m = 1, 5, 255,
+    1,025): as sets within the NN bound (``chip_smoke.knn_agreement``) and
+    slot by slot; slots past the distinct distances read exactly 3.0e38
+    (the +inf points padding each tile never enter a list). Then one
+    reference point held m times: one distinct distance per query."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from himo_tpu_torch.ops import knn as PK
+
+    rng = np.random.default_rng(1000 * n + m)
+    q = _t((rng.normal(size=(2, n, 3)) * 10).astype(np.float32)).to(cuda_device)
+    r = _t((rng.normal(size=(2, m, 3)) * 10).astype(np.float32)).to(cuda_device)
+    same = r[:, :1].expand(-1, m, -1).contiguous()
+    for k in range(1, 17):
+        before = PK.knn_rows.launches
+        got = PK.knn_rows(q, r, k)
+        assert PK.knn_rows.launches == before + 1
+        want = PK._knn_plain(q, r, k)
+        torch.cuda.synchronize()
+        for b in range(2):
+            as_sets, slotwise, _ = chip_smoke.knn_agreement(got[b], want[b], q[b])
+            assert as_sets.all() and slotwise.all(), (k, b)
+        assert (got[..., m:] == 3.0e38).all() and torch.isfinite(got).all(), k
+        # One distance per query (the plain form's matmul may round copies
+        # of one column apart, so slot 0 is held against its first slot).
+        one = PK.knn_rows(q, same, k)
+        plain_one = PK._knn_plain(q, same, 1)
+        torch.cuda.synchronize()
+        for b in range(2):
+            as_sets, _, _ = chip_smoke.knn_agreement(one[b, :, :1], plain_one[b], q[b])
+            assert as_sets.all(), (k, b)
+        assert (one[..., 1:] == 3.0e38).all(), k
+
+
 def _sorted_case(rng, b, n, c, rows, long_run=0):
     """A stream sorted by id in each frame (stable), with ids >= rows at the
     end, empty rows, and optionally one run of ``long_run`` equal ids."""
@@ -722,6 +765,57 @@ def test_sorted_scatter_kernels_match_plain(cuda_device, c, rows, long_run):
     assert torch.equal(got_sum.cpu().view(torch.int32), cpu.view(torch.int32))
     with pytest.raises(TypeError):
         PV.sorted_scatter_sum_rows(i, v.double(), rows)
+
+
+def _sorted_max_case(rng, c, rows):
+    """Three sorted frames of 60,000 points for K2 max. Frame 0: a
+    50,000-point run (id 7) crossing many warp spans, then ids on every
+    3,001st row (gaps of thousands of rows), the first and the last row
+    reached. Frame 1: every id >= rows. Frame 2: random ids, a hundred
+    negative ones and a hundred >= rows (both skipped). Signed values: a
+    tenth -0.0, some -inf, every fifth point negative."""
+    n = 60000
+    ids = rng.integers(0, rows, size=(3, n)).astype(np.int32)
+    ids[0, :50000] = 7
+    ids[0, 50000:59980] = rng.choice(np.arange(0, rows, 3001), size=9980)
+    ids[0, 59980:59990] = 0
+    ids[0, 59990:] = rows - 1
+    ids[1] = rows + rng.integers(0, 3, size=n)
+    ids[2, :100] = -3
+    ids[2, 100:200] = rows + 1
+    vals = rng.normal(size=(3, n, c)).astype(np.float32)
+    vals[:, ::5] = -np.abs(vals[:, ::5])
+    draw = rng.uniform(size=vals.shape)
+    vals[draw < 0.1] = -0.0
+    vals[draw > 0.999] = -np.inf
+    order = np.argsort(ids, axis=1, kind="stable")
+    return (np.take_along_axis(ids, order, 1),
+            np.take_along_axis(vals, order[..., None], 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 32, 33])
+def test_sorted_scatter_max_kernel_edges_bitwise(cuda_device, c):
+    """K2 max bitwise against its plain version, on the card and on the CPU
+    (``_sorted_max_case``: a long run across spans, gaps of thousands of
+    rows, the first and last row reached, a frame of ids >= rows, negative
+    ids, signed values). The table lands on freed memory filled with NaN:
+    every row must be written."""
+    rows = 512 * 64
+    ids, vals = _sorted_max_case(np.random.default_rng(120 + c), c, rows)
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    want = PV._scatter_max_rows_plain(i, v, rows)
+    cpu = PV._scatter_max_rows_plain(_t(ids), _t(vals), rows)
+    assert torch.equal(want.cpu().view(torch.int32), cpu.view(torch.int32))
+    assert (cpu[0, 0] != 0).any() and (cpu[0, rows - 1] != 0).any()
+    junk = torch.full((2 * 3 * rows * c,), float("nan"), device=cuda_device)
+    del junk
+    before = PV.sorted_scatter_max_rows.launches
+    got = PV.sorted_scatter_max_rows(i, v, rows)
+    assert PV.sorted_scatter_max_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[1] == 0).all() and not torch.signbit(got[1]).any()
 
 
 # ------------------------------------------------ K10, K11 and K5: sorted streams

@@ -34,6 +34,9 @@ def _t(a):
 
 
 def _knn_case(rng, n, m, scale, dup):
+    """Clouds and masks; ``dup`` holds references 0..9 three times with
+    queries 0..4 on them, and ``"many"`` also holds reference 0 forty
+    times more."""
     q = (rng.normal(size=(n, 3)) * scale).astype(np.float32)
     r = (rng.normal(size=(m, 3)) * scale).astype(np.float32)
     qv = rng.uniform(size=n) > 0.15
@@ -44,6 +47,9 @@ def _knn_case(rng, n, m, scale, dup):
         q[:5] = r[:5]
         qv[:5] = True
         rv[:10] = rv[m // 2 : m // 2 + 10] = True
+    if dup == "many":
+        r[-40:] = r[0]
+        rv[-40:] = True
     return q, r, qv, rv
 
 
@@ -53,11 +59,20 @@ def _knn_case(rng, n, m, scale, dup):
     (1, 200, 700, False, True),
     (4, 256, 2048, False, False),
     (8, 130, 520, True, False),
+    # k = MAX_K with one reference held 43 times; tails of every tile and
+    # warp segment (n = 33, m = 1,025); one valid reference (slot 1 is the
+    # padding candidate, slot 2 empty).
+    (16, 200, 1500, True, "many"),
+    (2, 33, 1025, True, True),
+    (3, 100, 700, "one", False),
 ])
 def test_knn_distance_sq_matches_interpreted_tpu_kernel(monkeypatch, k, n, m, masked, dup):
     monkeypatch.setenv("HIMO_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(k * 1000 + n)
     q, r, qv, rv = _knn_case(rng, n, m, 10.0, dup)
+    if masked == "one":
+        rv[:] = False
+        rv[m // 2] = True
     jm = (jnp.asarray(qv), jnp.asarray(rv)) if masked else (None, None)
     pm = (_t(qv)[None], _t(rv)[None]) if masked else (None, None)
     want = np.asarray(JK.knn_distance_sq(jnp.asarray(q), jnp.asarray(r), k, *jm))
@@ -72,6 +87,8 @@ def test_knn_distance_sq_matches_interpreted_tpu_kernel(monkeypatch, k, n, m, ma
         assert (want[:5, 0] < 1e-3).all() and (want[:5, 1] > 1e-2).all()
     if masked:
         assert (got[0].numpy()[~qv] == 0).all()
+    if masked == "one":
+        assert (np.abs(want[live, 1] - 3e12) < 1e10).all() and (want[live, 2] == 3.0e38).all()
 
 
 def test_knn_few_valid_references_read_the_padding_candidate(monkeypatch):

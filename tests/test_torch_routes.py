@@ -10,8 +10,11 @@ on the CPU.
   ``scatter_mean`` are bitwise equal to the JAX functions run with
   ``HIMO_PALLAS_INTERPRET=1`` (the TPU kernels K3, K4, K1 and K2 themselves,
   interpreted), in fp32 and bf16, with both packages' thresholds shrunk so
-  that a toy grid takes the route. Each test grid is used by no other test,
-  so the JAX package's shape-keyed kernel caches never mix thresholds.
+  that a toy grid takes the route; the stream route's max also at C = 1
+  and on features with -0.0 and -inf (compared by value: the reference
+  keeps -0.0 where the port writes +0.0). Each test grid is used by no
+  other test, so the JAX package's shape-keyed kernel caches never mix
+  thresholds.
 - Gradients against ``jax.grad``: within rtol 1e-6; the stream route's K2
   sum bitwise (both add each row in stream order).
 - The slice: the toy ``seflowpp`` forward of ``test_torch_slice.py`` at
@@ -133,7 +136,10 @@ def _count_wrappers(monkeypatch):
     return counts
 
 
-def _case(seed, grid, c, dtype):
+def _case(seed, grid, c, dtype, signed=False):
+    """Points, masks and features; ``signed`` also sets a tenth of the
+    feature values to -0.0 and some to -inf (a pillar whose max is -inf
+    reads 0 in both packages; -0.0 and +0.0 compare equal)."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-11.0, 11.0, size=(N, 3)).astype(np.float32)
     pts[:, 2] = rng.uniform(-3.5, 3.5, N)
@@ -143,6 +149,10 @@ def _case(seed, grid, c, dtype):
     feats[::5] = -np.abs(feats[::5])
     feats[::7] = np.abs(feats[::7])
     feats[1::9] = feats[0::9][: len(feats[1::9])]  # exact ties in the max
+    if signed:
+        draw = rng.uniform(size=feats.shape)
+        feats[draw < 0.1] = -0.0
+        feats[draw > 0.98] = -np.inf
     cfg_j, cfg_p = JV.PillarConfig(**grid), PV.PillarConfig(**grid)
     jgrid = JV.voxelize_pillars(jnp.asarray(pts), jnp.asarray(valid), cfg_j)
     pgrid = PV.voxelize_pillars(_t(pts)[None], _t(valid)[None], cfg_p)
@@ -160,13 +170,20 @@ def _grad_check(got, want, exact):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("route", ["resident", "table", "stream"])
-def test_scatter_max_and_gather_match_interpreted_kernels(monkeypatch, route, dtype):
+@pytest.mark.parametrize("route,dtype,c,signed", [
+    pytest.param(route, dtype, 32, False, id=f"{route}-{dtype}")
+    for route in ("resident", "table", "stream") for dtype in ("float32", "bfloat16")
+] + [
+    # The stream route's max (K2 max) at the dynamic-image loss's width, and
+    # on features with -0.0 and -inf beside the all-negative pillars.
+    pytest.param("stream", "float32", 1, False, id="stream-float32-c1"),
+    pytest.param("stream", "float32", 32, True, id="stream-float32-signed"),
+])
+def test_scatter_max_and_gather_match_interpreted_kernels(monkeypatch, route, dtype, c,
+                                                          signed):
     grid = _shrink(monkeypatch, route)
     counts = _count_wrappers(monkeypatch)
-    c = 32
-    rng, jgrid, pgrid, jf, pf = _case(1, grid, c, dtype)
+    rng, jgrid, pgrid, jf, pf = _case(1, grid, c, dtype, signed)
     rows = pgrid.grid_shape[0] * pgrid.grid_shape[1]
     assert PV._route(rows, N, c) == _reference_route(rows, N, c) == route
     w_max = rng.normal(size=pgrid.grid_shape + (c,)).astype(np.float32)
