@@ -48,7 +48,8 @@ and prints no result):
    the pillar max (K1 max, K3 max) also split by pass, beside its
    flag-free decode (and both decodes at 1-8 channels), and bitwise on
    signed features; K2 max also bitwise on signed features and timed at
-   C = 1 (the dynamic-image loss's max); K4 also at unclamped ids; K7 also
+   C = 1 (the dynamic-image loss's max); K10 also at the train step's C =
+   65 (its own row in the kernels line); K4 also at unclamped ids; K7 also
    at ``nsfp``'s shape (1 x 65,536 x 65,536); K7 and both K8 variants bitwise equal to their
    plain versions on quarter-metre grid coordinates, where every squared
    distance is exact in both forms (``phase_nn_grid``); then the host cost per call
@@ -90,15 +91,17 @@ and prints no result):
    (no launch of the port's kernels); the same loss and flow checks;
 8. profile: after each of the first two paths, three more calls of it
    under ``torch.profiler``, one call each of path A's, path B's and
-   mean_sorted's inference, and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of
-   ``fastnsf``:
+   mean_sorted's inference and of path B's and mean_sorted's train step,
+   and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of ``fastnsf``:
    device busy share, launches per call, the kernels with the most device
    time and each of the port's kernels' device time per launch.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
-kernel entry point (``launches`` summed over the path runs); the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+kernel entry point (``launches`` summed over the path runs) and one more
+for K10 at C = 65 (the mean_sorted train steps' gather backwards, which
+K10's wrapper counts by width; K10's own row counts its other widths); the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
     python3 chip_smoke.py --host-cost ROOT
 
@@ -129,6 +132,7 @@ SCATTER_CHANNELS = 32
 DECODE_CHANNELS = (1, 2, 4, 8)  # the max kernel's two decodes, timed side by side
 GATHER_CHANNELS = 65  # 64 UNet feature channels + the slot channel
 MEAN_CHANNELS = 33  # mean_sorted's pooled rows: 32 PFN channels + the count
+K10_STEP = f"sorted_segment_sum (C={GATHER_CHANNELS})"  # K10 in the step's backward
 NN_SHAPES = ((4096, 8192), (8192, 4096))  # ICP/null/score passes, claim pass
 NN_NSFP_SHAPE = (1, 65536, 65536)  # K7 in nsfp's chamfer: (frames, queries, refs)
 SEGMENT_SHAPES = ((16384, 65536), (32768, 16384))  # take_rows bwd, fused bwd
@@ -302,12 +306,24 @@ def _wrappers():
 
 
 def reset_counts() -> None:
+    from himo_tpu_torch.ops import mxu_scatter as pms
+
     for mod, name in _wrappers():
         getattr(mod, name).launches = 0
+    pms.sorted_segment_sum.launches_by_c = {}
 
 
 def read_counts() -> dict:
-    return {name: getattr(mod, name).launches for mod, name in _wrappers()}
+    """Each wrapper's launches since :func:`reset_counts`, K10's by width
+    as its wrapper counts them: ``K10_STEP`` at C = 65, the train step's
+    gather backward, and ``sorted_segment_sum`` at every other width."""
+    from himo_tpu_torch.ops import mxu_scatter as pms
+
+    counts = {name: getattr(mod, name).launches for mod, name in _wrappers()}
+    by_c = pms.sorted_segment_sum.launches_by_c
+    counts["sorted_segment_sum"] = sum(v for c, v in by_c.items() if c != GATHER_CHANNELS)
+    counts[K10_STEP] = by_c.get(GATHER_CHANNELS, 0)
+    return counts
 
 
 @contextlib.contextmanager
@@ -634,7 +650,7 @@ def phase_gather(device, clouds):
 
 
 def _log_runs(spids, rows):
-    """The shape of a sorted stream's runs, which K2 max works over: the
+    """The shape of a sorted stream's runs, which K2 and K10 work over: the
     share of rows they reach, points per run (mean and most), and each
     frame's rows before its first and after its last reached row (the
     largest of each over the frames)."""
@@ -713,12 +729,15 @@ def phase_sorted(device, big):
 
 
 def phase_sorted_sum(device, clouds):
-    """K10 at the mean_sorted path's pooling shape: the 512x512 pillar ids
-    of the main path's first sweep, sorted as the model sorts them (stable),
-    and (B, N, 33) values (32 features and the count; normal values, half
-    of them zero, not bf16 values, so that the rounding shows), with the
-    rounding flag off and on, each bitwise from launch to launch. The flag
-    on is the path's (bf16)."""
+    """K10 at the mean_sorted path's shapes: the 512x512 pillar ids of the
+    main path's first sweep, sorted as the model sorts them (stable; the
+    runs' shape logged), and (B, N, 33) values (32 features and the count;
+    normal values, half of them zero, not bf16 values, so that the rounding
+    shows), with the rounding flag off and on, each bitwise from launch to
+    launch. The flag on is the path's (bf16). Then the train step's width:
+    (B, N, 65) cotangents at the same ids (the backward of the pooled
+    gather), rounding on. Returns the kernels line's rows at C = 33 and 65,
+    both with the rounding on."""
     import torch
 
     from himo_tpu_torch.ops import mxu_scatter as pms
@@ -728,9 +747,14 @@ def phase_sorted_sum(device, clouds):
     vals = _sparse_cotangents(device, (BATCH, NUM_POINTS, MEAN_CHANNELS), 6)
     spids, svals = pvox._sort_rows(pids, vals)
     del vals
+    _log_runs(spids, rows)
+    cot = _sparse_cotangents(device, (BATCH, NUM_POINTS, GATHER_CHANNELS), 7)
+    _, scot = pvox._sort_rows(pids, cot)
+    del cot
     out = {}
-    for bf16 in (False, True):
-        name = f"sorted_segment_sum bf16={int(bf16)}"
+    for c, bf16, values in ((MEAN_CHANNELS, False, svals), (MEAN_CHANNELS, True, svals),
+                            (GATHER_CHANNELS, True, scot)):
+        name = f"sorted_segment_sum C={c} bf16={int(bf16)}"
 
         def fn(i, v, r, _b=bf16):
             return pms.sorted_segment_sum(i, v, r, _b)
@@ -738,13 +762,13 @@ def phase_sorted_sum(device, clouds):
         def plain(i, v, r, _b=bf16):
             return pms._sorted_segment_sum_plain(i, v, r, _b)
 
-        out[bf16] = _check_sum_kernel(name, fn, plain, spids, svals, rows, stream=True)
-        first, again = fn(spids, svals, rows), fn(spids, svals, rows)
+        out[c, bf16] = _check_sum_kernel(name, fn, plain, spids, values, rows, stream=True)
+        first, again = fn(spids, values, rows), fn(spids, values, rows)
         torch.cuda.synchronize()
         if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
             raise AssertionError(f"{name} differs from launch to launch")
         log(f"{name}: bitwise equal from launch to launch")
-    return out[True]
+    return out[MEAN_CHANNELS, True], out[GATHER_CHANNELS, True]
 
 
 def _check_gather(name, fn, plain, args, ids, library):
@@ -1555,9 +1579,10 @@ TRAIN_256_LAUNCHES = dict(scatter_max_resident_rows=4, gather_rows=1, fused_nn_i
 TRAIN_BIG_LAUNCHES = dict(sorted_scatter_max_rows=4, sorted_scatter_sum_rows=1,
                           fused_nn_idx=1, segment_rows_sum=3, sorted_gather_rows=3)
 # mean_sorted: K10 pools three sweeps, K11 gathers; their backwards are each
-# other (K11 x 3, K10 x 1); the un-sort's take_rows adds one K3 sum.
-TRAIN_SORTED_LAUNCHES = dict(scatter_max_rows=1, sorted_segment_sum=4,
-                             sorted_segment_gather=4, fused_nn_idx=1, segment_rows_sum=4)
+# other (K11 x 3, K10 x 1 at C = 65); the un-sort's take_rows adds one K3 sum.
+TRAIN_SORTED_LAUNCHES = {"scatter_max_rows": 1, "sorted_segment_sum": 3, K10_STEP: 1,
+                         "sorted_segment_gather": 4, "fused_nn_idx": 1,
+                         "segment_rows_sum": 4}
 
 
 def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES,
@@ -1918,7 +1943,7 @@ def main(argv) -> int:
     scatter_sum = phase_scatter_sum(device, clouds)
     gather = phase_gather(device, clouds)
     sorted_max, sorted_sum = phase_sorted(device, big)
-    segment_sum_k10 = phase_sorted_sum(device, clouds)
+    segment_sum_k10, segment_sum_k10_step = phase_sorted_sum(device, clouds)
     segment_gather_k11, sorted_gather_k5 = phase_sorted_gathers(device, clouds, big)
     segment = phase_segment_sum(device)
     phase_host_cost(device)
@@ -1955,13 +1980,19 @@ def main(argv) -> int:
     paths.append(phase_train(device, name="train_256", steps=ROUTE_TRAIN_STEPS,
                              expected=TRAIN_256_LAUNCHES, val=False, **GRID_256)[0])
     torch.cuda.empty_cache()
-    paths.append(phase_train(device, name=f"train_{BIG_POINTS}", steps=ROUTE_TRAIN_STEPS,
-                             expected=TRAIN_BIG_LAUNCHES, val=False,
-                             num_points=BIG_POINTS)[0])
+    train, run_step, step_ms = phase_train(
+        device, name=f"train_{BIG_POINTS}", steps=ROUTE_TRAIN_STEPS,
+        expected=TRAIN_BIG_LAUNCHES, val=False, num_points=BIG_POINTS)
+    phase_profile(f"train_step_{BIG_POINTS}", run_step, step_ms, calls=1)
+    paths.append(train)
+    del run_step
     torch.cuda.empty_cache()
-    paths.append(phase_train(device, name="train_mean_sorted", steps=ROUTE_TRAIN_STEPS,
-                             expected=TRAIN_SORTED_LAUNCHES, val=False,
-                             pooling="mean_sorted")[0])
+    train, run_step, step_ms = phase_train(
+        device, name="train_mean_sorted", steps=ROUTE_TRAIN_STEPS,
+        expected=TRAIN_SORTED_LAUNCHES, val=False, pooling="mean_sorted")
+    phase_profile("train_step_mean_sorted", run_step, step_ms, calls=1)
+    paths.append(train)
+    del run_step
     torch.cuda.empty_cache()
     nsfp, run_nsfp, nsfp_ms = phase_nsfp(device, pair)
     paths.append(nsfp)
@@ -2017,6 +2048,9 @@ def main(argv) -> int:
              source="himo_tpu_torch/csrc/sorted_scatter.cu",
              replaces="himo_tpu/ops/mxu_scatter.py:75",
              launches=total["sorted_segment_sum"], **segment_sum_k10),
+        dict(name=K10_STEP, route="cuda", source="himo_tpu_torch/csrc/sorted_scatter.cu",
+             replaces="himo_tpu/ops/mxu_scatter.py:75",
+             launches=total[K10_STEP], **segment_sum_k10_step),
         dict(name="sorted_segment_gather", route="cuda",
              source="himo_tpu_torch/csrc/sorted_gather.cu",
              replaces="himo_tpu/ops/mxu_scatter.py:300",

@@ -41,14 +41,14 @@ import torch
 from himo_tpu_torch.kernels import _build
 from himo_tpu_torch.ops.voxelize import (
     _check_gather_args,
-    _run_sorted_kernel,
+    _run_rows_kernel,
     _scatter_sum_rows_plain,
     _take_live_rows,
 )
 
-# (spids, svals, first, out, B, N, C, rows, round_bf16), then the stream.
+# (spids, svals, out, B, N, C, rows, round_bf16), then the stream.
 _SEGMENT_SUM = _build.Entry("sorted_scatter", "himo_sorted_segment_sum_f32",
-                            (_build.PTR,) * 4 + (_build.INT,) * 5)
+                            (_build.PTR,) * 3 + (_build.INT,) * 5)
 # (spids, image, out, B, N, C, rows, round_bf16), then the stream.
 _SEGMENT_GATHER = _build.Entry("sorted_gather", "himo_sorted_segment_gather_f32",
                                (_build.PTR,) * 3 + (_build.INT,) * 5)
@@ -79,16 +79,20 @@ def sorted_segment_sum(
 
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/sorted_scatter.cu``'s ``himo_sorted_segment_sum_f32`` (counted
-    in ``sorted_segment_sum.launches``) or raise: the kernel takes
+    in ``sorted_segment_sum.launches`` and, by width C, in
+    ``sorted_segment_sum.launches_by_c``) or raise: the kernel takes
     contiguous fp32 values and int32 ids."""
     if svals.is_cpu:
         return _sorted_segment_sum_plain(spids, svals, rows, bf16)
-    out = _run_sorted_kernel(_SEGMENT_SUM, spids, svals, rows, int(bf16))
+    out = _run_rows_kernel(_SEGMENT_SUM, spids, svals, rows, int(bf16))
     sorted_segment_sum.launches += 1
+    by_c = sorted_segment_sum.launches_by_c
+    by_c[svals.shape[-1]] = by_c.get(svals.shape[-1], 0) + 1
     return out
 
 
 sorted_segment_sum.launches = 0
+sorted_segment_sum.launches_by_c = {}
 
 
 def _sorted_segment_gather_plain(

@@ -244,16 +244,16 @@ def _check_rows_args(name: str, ids: torch.Tensor, vals: torch.Tensor) -> None:
 
 
 def _run_rows_kernel(
-    entry: _build.Entry, ids: torch.Tensor, vals: torch.Tensor, rows: int
+    entry: _build.Entry, ids: torch.Tensor, vals: torch.Tensor, rows: int, *flags
 ) -> torch.Tensor:
-    """Launch a row kernel ``entry(ids, vals, out, B, N, C, rows)`` into a
-    new (B, rows, C) fp32 table, which the kernel fills; raises on inputs
-    it does not take and on a CUDA error."""
+    """Launch a row kernel ``entry(ids, vals, out, B, N, C, rows, *flags)``
+    into a new (B, rows, C) fp32 table, which the kernel fills; raises on
+    inputs it does not take and on a CUDA error."""
     _check_rows_args(entry.name, ids, vals)
     b, n, c = vals.shape
     out = vals.new_empty((b, rows, c))
     entry.launch(vals.get_device(), ids.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                 b, n, c, rows)
+                 b, n, c, rows, *flags)
     return out
 
 
@@ -347,29 +347,10 @@ def scatter_sum_rows(
 scatter_sum_rows.launches = 0
 
 
-# Zeroes its (B, rows, C) table itself (cudaMemsetAsync), then writes the
-# rows that runs reach.
+# Each zeroes its (B, rows, C) table itself (cudaMemsetAsync), then writes
+# the rows that runs reach.
 _SORTED_MAX = _build.Entry("sorted_scatter", "himo_sorted_scatter_max_f32", _ROWS_ARGTYPES)
-# (spids, svals, first, out, B, N, C, rows), then the stream.
-_SORTED_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 4
-_SORTED_SUM = _build.Entry("sorted_scatter", "himo_sorted_scatter_sum_f32",
-                           _SORTED_ARGTYPES)
-
-
-def _run_sorted_kernel(
-    entry: _build.Entry, spids: torch.Tensor, svals: torch.Tensor, rows: int, *flags
-) -> torch.Tensor:
-    """Launch a ``csrc/sorted_scatter.cu`` sum entry ``entry(spids, svals,
-    first, out, B, N, C, rows, *flags)`` into a new (B, rows, C) fp32
-    table, with a (B, rows) int32 scratch map of run starts; raises on
-    inputs it does not take and on a CUDA error."""
-    _check_rows_args(entry.name, spids, svals)
-    b, n, c = svals.shape
-    out = torch.empty((b, rows, c), dtype=torch.float32, device=svals.device)
-    first = torch.empty((b, rows), dtype=torch.int32, device=svals.device)
-    entry.launch(svals.get_device(), spids.data_ptr(), svals.data_ptr(), first.data_ptr(),
-                 out.data_ptr(), b, n, c, rows, *flags)
-    return out
+_SORTED_SUM = _build.Entry("sorted_scatter", "himo_sorted_scatter_sum_f32", _ROWS_ARGTYPES)
 
 
 def sorted_scatter_max_rows(
@@ -408,7 +389,7 @@ def sorted_scatter_sum_rows(
     ``sorted_scatter_sum_rows.launches``) or raise."""
     if svals.is_cpu:
         return _scatter_sum_rows_plain(spids, svals, rows)
-    out = _run_sorted_kernel(_SORTED_SUM, spids, svals, rows)
+    out = _run_rows_kernel(_SORTED_SUM, spids, svals, rows)
     sorted_scatter_sum_rows.launches += 1
     return out
 

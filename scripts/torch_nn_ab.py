@@ -12,12 +12,13 @@ through their wrappers; each ROOT's four sources are built with nvcc
 (sm_90a) into a temporary directory and called through ctypes at their own
 C signatures (the fused entry points took no scratch pointer before the
 one-pass K8; the sorted max took a scratch map of run starts before the
-run-based K2 max). On the same inputs every ROOT's outputs must equal this
-checkout's bit for bit, values and indices, and on quarter-metre grid
-coordinates (every squared distance exact in both forms) this checkout's
-K7, K8 and K9 must equal the plain versions' bit for bit; K2 max must equal
-its plain version on every input. ``--only`` runs the named kernels' cases
-alone.
+run-based K2 max, the sorted sums before the run-based sums). On the same
+inputs every ROOT's outputs must equal this checkout's bit for bit, values
+and indices, and on quarter-metre grid coordinates (every squared distance
+exact in both forms) this checkout's K7, K8 and K9 must equal the plain
+versions' bit for bit; K2 max must equal its plain version on every input,
+and the sums must equal themselves from launch to launch. ``--only`` runs
+the named kernels' cases alone.
 
 Inputs, all made on the card from fixed seeds:
 
@@ -39,13 +40,18 @@ Inputs, all made on the card from fixed seeds:
   dynamic-image loss's max (C = 1, values 0 or 1), signed features (-0.0,
   -inf) and a frame with a 50,000-point run beside a frame of ids >= rows;
   this checkout's device time also split by pass;
-- K2 sum on path B's gather backward (B8 x 131,072 x 65 cotangents) and
-  K10 on ``mean_sorted``'s pool (B8 x 65,536 x 33, rounding off and on):
-  bitwise only against the ROOTs (their code is the earlier design's).
+- K2 sum on path B's gather backward (B8 x 131,072 x 65 cotangents), K10
+  on ``mean_sorted``'s pool (B8 x 65,536 x 33, rounding off and on) and on
+  the ``mean_sorted`` train step's gather backward (B8 x 65,536 x 65
+  cotangents at the same sorted ids, rounding off and on), and both on the
+  50,000-point run beside a frame of ids >= rows (K2 sum at C = 65, K10 at
+  C = 33 rounding on); this checkout's device time split by pass.
 
 Each case is timed by traced device time (``chip_smoke.device_ms``:
-kernels and memsets) in turns, this checkout then each ROOT, then back. One
-JSON object per case goes to standard output and to ``chiprun_out/nn_ab.json``.
+kernels and memsets) in turns, this checkout then each ROOT, then back,
+four times a side (designs differ by 2-5 %, about the spread between
+runs). One JSON object per case goes to standard output and to
+``chiprun_out/nn_ab.json``.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ sys.path.insert(0, str(HERE))
 import chip_smoke as cs  # noqa: E402
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
-ROUNDS = 2  # A, B..., B..., A: each side timed twice
+ROUNDS = 4  # (A, B..., B..., A) twice: each side timed four times
 SOURCES = ("nn", "fused_nn", "knn", "sorted_scatter")
 KERNELS = ("K7", "K8", "K9", "K2")
 
@@ -105,8 +111,13 @@ class Library:
         self.first_max = "first" in signature
         self.smax = self._bind("sorted_scatter", "himo_sorted_scatter_max_f32",
                                3 + self.first_max, ints=4)
-        self.ssum = self._bind("sorted_scatter", "himo_sorted_scatter_sum_f32", 4, ints=4)
-        self.segsum = self._bind("sorted_scatter", "himo_sorted_segment_sum_f32", 4, ints=5)
+        # The run-based sums take no scratch; the earlier ones `first`.
+        signature = text[text.index("himo_sorted_scatter_sum_f32("):].split(")")[0]
+        self.first_sum = "first" in signature
+        self.ssum = self._bind("sorted_scatter", "himo_sorted_scatter_sum_f32",
+                               3 + self.first_sum, ints=4)
+        self.segsum = self._bind("sorted_scatter", "himo_sorted_segment_sum_f32",
+                                 3 + self.first_sum, ints=5)
 
     def _bind(self, lib, name, ptrs, ints=3):
         fn = getattr(self.libs[lib], name)
@@ -140,10 +151,10 @@ class Library:
         return self._sorted(self.smax, spids, sfeats, rows, first=self.first_max)
 
     def sorted_sum(self, spids, svals, rows):
-        return self._sorted(self.ssum, spids, svals, rows)
+        return self._sorted(self.ssum, spids, svals, rows, first=self.first_sum)
 
     def segment_sum(self, spids, svals, rows, bf16):
-        return self._sorted(self.segsum, spids, svals, rows, int(bf16))
+        return self._sorted(self.segsum, spids, svals, rows, int(bf16), first=self.first_sum)
 
     def nn_argmin_rows(self, q, r):
         import torch
@@ -178,6 +189,19 @@ class Library:
 
     def fused_nn_idx(self, *args):
         return self._fused(self.fused_idx, True, *args)
+
+
+def _device_ms(call, tries: int = 3) -> float:
+    """``chip_smoke.device_ms`` of ``call`` over 10 calls, taken again (up
+    to ``tries`` times) when the profiler lost events in every trace it
+    took."""
+    for attempt in range(tries):
+        try:
+            return cs.device_ms(call, iters=10)
+        except AssertionError as err:
+            cs.log(f"  trace lost events ({err}); again")
+            if attempt == tries - 1:
+                raise
 
 
 def _same(a, b) -> bool:
@@ -295,8 +319,9 @@ def k9_cases(device):
 
 
 def k2_cases(device):
-    """(name, [(spids, svals, rows), ...]) for K2 max, then for K2 sum and
-    K10: sorted streams on the card."""
+    """(name, [(spids, svals, rows), ...]) for K2 max, then (name, calls,
+    flags) for K2 sum (flags None) and K10 (its rounding flags): sorted
+    streams on the card."""
     import torch
 
     from himo_tpu_torch.ops import voxelize as pvox
@@ -324,21 +349,31 @@ def k2_cases(device):
     ids[0, :50000] = 7
     ids[0, 50000:50100] = rows - 1
     ids[1] = rows + lrng.integers(0, 3, size=60000)
-    lvals = lrng.normal(size=(2, 60000, cs.SCATTER_CHANNELS)).astype(cs.np.float32)
+    lvals = lrng.normal(size=(2, 60000, cs.GATHER_CHANNELS)).astype(cs.np.float32)
     lids = torch.from_numpy(ids).to(device)
+    lsorted = pvox._sort_rows(lids, torch.from_numpy(lvals).to(device))
     maxes = [
         ("path B's 3 pools B8x131072x32", pools),
         ("loss max B8x131072x1", [(*pvox._sort_rows(pids[0], pos), rows)]),
         ("signed B8x131072x32", [(*pvox._sort_rows(pids[0], signed), rows)]),
         ("long run + all trash B2x60000x32",
-         [(*pvox._sort_rows(lids, torch.from_numpy(lvals).to(device)), rows)]),
+         [(lsorted[0], lsorted[1][..., :cs.SCATTER_CHANNELS].contiguous(), rows)]),
     ]
     cot = cs._sparse_cotangents(device, (cs.BATCH, n, cs.GATHER_CHANNELS), 25)
-    sums = [("K2 sum path B B8x131072x65", [(*pvox._sort_rows(pids[0], cot), rows)])]
     clouds = cs._clouds(device)
     mids, mrows = cs._pillar_ids(clouds)
     mvals = cs._sparse_cotangents(device, (cs.BATCH, mids.shape[1], cs.MEAN_CHANNELS), 26)
-    sums.append(("K10 mean_sorted B8x65536x33", [(*pvox._sort_rows(mids, mvals), mrows)]))
+    mcot = cs._sparse_cotangents(device, (cs.BATCH, mids.shape[1], cs.GATHER_CHANNELS), 27)
+    sums = [
+        ("K2 sum path B B8x131072x65", [(*pvox._sort_rows(pids[0], cot), rows)], None),
+        ("K2 sum long run + all trash B2x60000x65", [(*lsorted, rows)], None),
+        ("K10 mean_sorted B8x65536x33", [(*pvox._sort_rows(mids, mvals), mrows)],
+         (False, True)),
+        ("K10 step C=65 B8x65536x65", [(*pvox._sort_rows(mids, mcot), mrows)],
+         (False, True)),
+        ("K10 long run + all trash B2x60000x33",
+         [(lsorted[0], lsorted[1][..., :cs.MEAN_CHANNELS].contiguous(), rows)], (True,)),
+    ]
     return maxes, sums
 
 
@@ -349,8 +384,8 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) > 1:
         only, argv = set(argv[1].split(",")), argv[2:]
     if not argv or not only <= set(KERNELS) or not torch.cuda.is_available():
-        print("usage: torch_nn_ab.py [--only K7,K8,K9,K2] ROOT [ROOT ...] (needs a CUDA "
-              "device)", file=sys.stderr)
+        print("usage: torch_nn_ab.py [--only K7,K8,K9,K2] ROOT [ROOT ...] "
+              "(needs a CUDA device)", file=sys.stderr)
         return 2
     from himo_tpu_torch.ops import knn as pknn
     from himo_tpu_torch.ops import mxu_scatter as pms
@@ -367,10 +402,17 @@ def main(argv) -> int:
         roots.append(Library(Path(root).resolve(), out))
     results = []
 
-    def run(name, calls, here, there, plain=None, split=False):
+    def run(name, calls, here, there, plain=None, split=False, twice=False):
         """``here`` is this checkout's wrapper, ``there(lib)`` a ROOT's. With
-        ``split``, this checkout's device time is also split by pass."""
+        ``split``, this checkout's device time is also split by pass; with
+        ``twice``, this checkout must give the same bits on a second launch."""
         got = [here(*a) for a in calls]
+        if twice:
+            again = [here(*a) for a in calls]
+            torch.cuda.synchronize()
+            if not all(_same(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{name}: differs from launch to launch")
+            del again
         for lib in roots:
             other = [there(lib)(*a) for a in calls]
             torch.cuda.synchronize()
@@ -389,9 +431,9 @@ def main(argv) -> int:
         times = {label: [] for label, _ in sides}
         for order in (sides, sides[::-1]) * (ROUNDS // 2):
             for label, call in order:
-                times[label].append(cs.device_ms(call, iters=10))
+                times[label].append(_device_ms(call))
         row = dict(case=name, bitwise_vs_roots=True, bitwise_vs_plain=plain is not None,
-                   device_ms=times, card=smi)
+                   bitwise_launch_to_launch=twice, device_ms=times, card=smi)
         if split:
             row["split"] = cs.device_split(sides[0][1], iters=10)
         cs.log(json.dumps(row))
@@ -420,11 +462,16 @@ def main(argv) -> int:
             run(f"K2 max {name}", calls, pvox.sorted_scatter_max_rows,
                 lambda lib: lib.sorted_max, pvox._scatter_max_rows_plain, split=True)
         del maxes
-        run(sums[0][0], sums[0][1], pvox.sorted_scatter_sum_rows, lambda lib: lib.sorted_sum)
-        for bf16 in (False, True):
-            run(f"{sums[1][0]} bf16={int(bf16)}", sums[1][1],
-                lambda i, v, r, _b=bf16: pms.sorted_segment_sum(i, v, r, _b),
-                lambda lib, _b=bf16: (lambda i, v, r: lib.segment_sum(i, v, r, _b)))
+        for name, calls, flags in sums:
+            if flags is None:
+                run(name, calls, pvox.sorted_scatter_sum_rows, lambda lib: lib.sorted_sum,
+                    split=True, twice=True)
+                continue
+            for bf16 in flags:
+                run(f"{name} bf16={int(bf16)}", calls,
+                    lambda i, v, r, _b=bf16: pms.sorted_segment_sum(i, v, r, _b),
+                    lambda lib, _b=bf16: (lambda i, v, r: lib.segment_sum(i, v, r, _b)),
+                    split=True, twice=True)
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "nn_ab.json").write_text(json.dumps(results, indent=1))

@@ -230,6 +230,51 @@ def test_build_load_binds_every_callers_signatures(tmp_path, monkeypatch):
         a.launch(0, 99, 0)
 
 
+def _port_entries():
+    """Every kernel entry point the port declares: each ``_build.Entry`` at
+    the top level of a ``himo_tpu_torch`` module, by its C name."""
+    import importlib
+    import pkgutil
+
+    import himo_tpu_torch
+    from himo_tpu_torch.kernels import _build
+
+    entries = {}
+    for mod in pkgutil.walk_packages(himo_tpu_torch.__path__, "himo_tpu_torch."):
+        for value in vars(importlib.import_module(mod.name)).values():
+            if isinstance(value, _build.Entry):
+                entries[value.name] = value
+    return dict(sorted(entries.items()))
+
+
+def _c_signature(source: str, name: str) -> list:
+    """The parameters of ``extern "C" int name(...)`` in ``csrc/<source>.cu``,
+    each as written (``const void* spids``)."""
+    import re
+
+    text = (REPO / "himo_tpu_torch" / "csrc" / f"{source}.cu").read_text()
+    found = re.findall(r'extern "C" int\s+' + name + r"\s*\(([^)]*)\)", text)
+    assert len(found) == 1, f"{source}.cu defines {name} {len(found)} times"
+    return [" ".join(p.split()) for p in found[0].split(",")]
+
+
+@pytest.mark.parametrize("name", list(_port_entries()))
+def test_entry_argtypes_match_the_c_signature(name):
+    """Each entry point's ctypes argtypes against its C signature: one per
+    parameter, a pointer for each pointer and an int for each int, the
+    stream last. A mismatch would pass a wrong pointer or cut one on the
+    card; here it fails on the CPU."""
+    from himo_tpu_torch.kernels import _build
+
+    entry = _port_entries()[name]
+    params = _c_signature(entry.source, name)
+    assert len(entry.argtypes) == len(params), params
+    kinds = {"const void*": _build.PTR, "void*": _build.PTR, "int": _build.INT}
+    for param, argtype in zip(params, entry.argtypes):
+        assert kinds[param.rsplit(" ", 1)[0]] is argtype, (param, argtype)
+    assert params[-1] == "void* stream" and entry.argtypes[-1] is _build.PTR
+
+
 @pytest.mark.parametrize("case", ["fp64 values", "int64 ids", "non-contiguous values",
                                   "non-contiguous ids", "mixed devices"])
 def test_launch_checks_refuse_what_the_kernels_do_not_take(case):

@@ -531,19 +531,82 @@ def _sorted_case(rng, b, n, c, rows, long_run=0):
 
 
 def _sequential_rows(ids, vals, rows, combine):
-    """Per-row max or fp32 sum, adding in stream order from +0.0."""
+    """Per-row max or fp32 sum, adding in stream order from +0.0; ids
+    outside [0, rows) skipped."""
     b, n, c = vals.shape
     out = np.full((b, rows, c), -np.inf if combine == "max" else 0.0, np.float32)
     for bi in range(b):
         for i in range(n):
             r = ids[bi, i]
-            if r < rows:
+            if 0 <= r < rows:
                 out[bi, r] = (np.maximum(out[bi, r], vals[bi, i]) if combine == "max"
                               else out[bi, r] + vals[bi, i])
     if combine == "max":
         out[np.isneginf(out)] = 0.0
         out = out + np.float32(0.0)
     return out
+
+
+def _sorted_sum_edges(rng, c, rows=300, n=1007):
+    """Four sorted frames of n points (not a multiple of 32) for the sorted
+    sums, which work over 32-position spans. Frame 0: a 100-point run (id 7)
+    from position 20, across four spans, among runs of one to a few points.
+    Frame 1: a hundred negative ids at its head and a hundred ids >= rows at
+    its tail (both skipped). Frame 2: every id >= rows, an empty frame.
+    Frame 3: its last 40 points one run on the last row, ending the frame.
+    Normal values, a tenth of them -0.0."""
+    def some(k, lo, hi):
+        return rng.integers(lo, hi, size=k)
+
+    ids = np.stack([
+        np.concatenate([some(20, 0, 7), np.full(100, 7), some(n - 120, 8, rows)]),
+        np.concatenate([some(100, -5, 0), some(n - 200, 0, rows), some(100, rows, rows + 3)]),
+        some(n, rows, rows + 3),
+        np.concatenate([some(n - 40, 0, rows - 1), np.full(40, rows - 1)]),
+    ])
+    ids = np.sort(ids, axis=1).astype(np.int32)
+    vals = rng.normal(size=(4, n, c)).astype(np.float32)
+    vals[rng.uniform(size=vals.shape) < 0.1] = -0.0
+    return ids, vals
+
+
+def _sorted_sums(bf16_flags=(False, True)):
+    """The sorted sums by name: K2 sum, and K10 with each rounding flag."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    sums = {"K2 sum": (PV.sorted_scatter_sum_rows, False)}
+    for bf16 in bf16_flags:
+        sums[f"K10 bf16={int(bf16)}"] = (
+            lambda i, v, r, _b=bf16: PM.sorted_segment_sum(i, v, r, _b), bf16)
+    return sums
+
+
+@pytest.mark.parametrize("kernel", list(_sorted_sums()))
+@pytest.mark.parametrize("c", [33, 65])
+def test_sorted_sums_plain_edges_match_sequential_loop(c, kernel):
+    """The sorted sums' plain versions on the CPU, bitwise against a
+    sequential loop (``index_add_`` adds in stream order there, as the
+    kernel does) on ``_sorted_sum_edges``: a run across spans, n not a
+    multiple of 32, negative ids, an empty frame, a run ending the frame.
+    Rows no live id reaches, and the whole empty frame, read +0.0."""
+    from himo_tpu_torch.ops import mxu_scatter as PM
+
+    rows = 300
+    ids, vals = _sorted_sum_edges(np.random.default_rng(140 + c), c, rows)
+    fn, bf16 = _sorted_sums()[kernel]
+    before = (PV.sorted_scatter_sum_rows.launches, PM.sorted_segment_sum.launches,
+              dict(PM.sorted_segment_sum.launches_by_c))
+    got = fn(_t(ids), _t(vals), rows).numpy()
+    assert (PV.sorted_scatter_sum_rows.launches, PM.sorted_segment_sum.launches,
+            PM.sorted_segment_sum.launches_by_c) == before
+    want = _sequential_rows(ids, _round_bf16(vals) if bf16 else vals, rows, "sum")
+    np.testing.assert_array_equal(got, want)
+    assert (got[2] == 0).all() and not np.signbit(got[2]).any()
+    reached = np.zeros((4, rows), bool)
+    for b in range(4):
+        reached[b, ids[b][(ids[b] >= 0) & (ids[b] < rows)]] = True
+    assert not np.signbit(got[~reached]).any() and (got[~reached] == 0).all()
+    assert reached[0, 7] and reached[3, rows - 1]
 
 
 @pytest.mark.parametrize("c", [32, 65, 1])
@@ -739,15 +802,23 @@ def test_gather_rows_kernel_bitwise_equals_plain(cuda_device, c, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,rows,long_run", [(32, 512 * 64, 0), (65, 512 * 64, 0),
-                                             (1, 4096, 0), (32, 4096, 50000)])
+                                             (1, 4096, 0), (32, 4096, 50000),
+                                             (33, 300, None), (65, 300, None)])
 def test_sorted_scatter_kernels_match_plain(cuda_device, c, rows, long_run):
     """K2 max bitwise against the plain version; K2 sum within
     1e-5 * sum|x| + 1e-6 of the plain version on the card (atomics), bitwise
     from launch to launch and bitwise against the CPU plain version (the
-    same sequential order)."""
-    rng = np.random.default_rng(c + rows + long_run)
-    ids, vals = _sorted_case(rng, 2, max(60000, long_run + 5000), c, rows, long_run)
+    same sequential order). ``long_run`` None: ``_sorted_sum_edges``. The
+    tables land on freed memory filled with NaN: every float must be
+    written."""
+    if long_run is None:
+        ids, vals = _sorted_sum_edges(np.random.default_rng(150 + c), c, rows)
+    else:
+        rng = np.random.default_rng(c + rows + long_run)
+        ids, vals = _sorted_case(rng, 2, max(60000, long_run + 5000), c, rows, long_run)
     i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    junk = torch.full((4 * len(ids) * rows * c,), float("nan"), device=cuda_device)
+    del junk
     before = (PV.sorted_scatter_max_rows.launches, PV.sorted_scatter_sum_rows.launches)
     got_max = PV.sorted_scatter_max_rows(i, v, rows)
     got_sum = PV.sorted_scatter_sum_rows(i, v, rows)
@@ -881,20 +952,31 @@ def test_sorted_gathers_plain_match_numpy(c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("c,rows,long_run", [(33, 512 * 64, 0), (65, 512 * 64, 0),
-                                             (1, 4096, 0), (33, 4096, 50000)])
+                                             (1, 4096, 0), (33, 4096, 50000),
+                                             (65, 4096, 50000), (33, 300, None),
+                                             (65, 300, None)])
 def test_sorted_segment_sum_kernel_matches_plain(cuda_device, c, rows, long_run, bf16):
     """K10 within 1e-5 * sum|x| + 1e-6 of its plain version on the card
     (index_add_'s atomics), bitwise from launch to launch and against the
-    CPU plain version (the same sequential order, the same rounding)."""
+    CPU plain version (the same sequential order, the same rounding).
+    ``long_run`` None: ``_sorted_sum_edges``. The tables land on freed
+    memory filled with NaN: every float must be written."""
     from himo_tpu_torch.ops import mxu_scatter as PM
 
-    rng = np.random.default_rng(c + rows + long_run)
-    ids, vals = _sorted_case(rng, 2, max(60000, long_run + 5000), c, rows, long_run)
+    if long_run is None:
+        ids, vals = _sorted_sum_edges(np.random.default_rng(160 + c), c, rows)
+    else:
+        rng = np.random.default_rng(c + rows + long_run)
+        ids, vals = _sorted_case(rng, 2, max(60000, long_run + 5000), c, rows, long_run)
     i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    junk = torch.full((4 * len(ids) * rows * c,), float("nan"), device=cuda_device)
+    del junk
     before = PM.sorted_segment_sum.launches
+    before_c = PM.sorted_segment_sum.launches_by_c.get(c, 0)
     got = PM.sorted_segment_sum(i, v, rows, bf16)
     again = PM.sorted_segment_sum(i, v, rows, bf16)
     assert PM.sorted_segment_sum.launches == before + 2
+    assert PM.sorted_segment_sum.launches_by_c[c] == before_c + 2
     want = PM._sorted_segment_sum_plain(i, v, rows, bf16)
     mag = PM._sorted_segment_sum_plain(i, v.abs(), rows, bf16)
     torch.cuda.synchronize()

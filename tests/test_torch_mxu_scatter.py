@@ -87,6 +87,7 @@ CASES = {  # num_rows, n, c, clustered
     "uniform": (4000, 2000, 32, False),
     "window_is_band": (300, 700, 8, False),
     "clustered": (65536, 4096, 33, True),
+    "step_width": (65536, 4096, 65, True),  # the train step's gather backward
 }
 
 

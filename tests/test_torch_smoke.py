@@ -80,10 +80,15 @@ def rehearsal(monkeypatch):
                         pv._scatter_max_rows_plain(p, f, rows))
     for (mod, name), plain in cs._wrappers().items():
         def counted(*args, _plain=plain, _name=name, _mod=mod):
-            getattr(_mod, _name).launches += 1
+            fn = getattr(_mod, _name)
+            fn.launches += 1
+            if _name == "sorted_segment_sum":  # K10 also counts by width
+                c = args[1].shape[-1]
+                fn.launches_by_c[c] = fn.launches_by_c.get(c, 0) + 1
             return _plain(*args)
 
         counted.launches = 0
+        counted.launches_by_c = {}
         monkeypatch.setattr(mod, name, counted)
     return torch.device("cpu")
 
@@ -97,7 +102,7 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     scatter_sum = cs.phase_scatter_sum(dev, clouds)
     gather = cs.phase_gather(dev, clouds)
     sorted_max, sorted_sum = cs.phase_sorted(dev, big)
-    segment_sum_k10 = cs.phase_sorted_sum(dev, clouds)
+    segment_sum_k10, segment_sum_k10_step = cs.phase_sorted_sum(dev, clouds)
     segment_gather_k11, sorted_gather_k5 = cs.phase_sorted_gathers(dev, clouds, big)
     segment = cs.phase_segment_sum(dev)
     nn = cs.phase_nn(dev)
@@ -134,7 +139,7 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
                           "sorted_scatter_sum_rows", "gather_rows", "nn_argmin_rows",
                           "nn_min_rows", "segment_rows_sum", "fused_nn", "fused_nn_idx",
                           "knn_rows", "sorted_segment_sum", "sorted_segment_gather",
-                          "sorted_gather_rows"), 0)
+                          "sorted_gather_rows", cs.K10_STEP), 0)
     assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
                         "nn_min_rows": 1}
     assert launches_256 == {**none, "scatter_max_resident_rows": 3, "gather_rows": 1,
@@ -154,15 +159,15 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert train_big == {**none, "sorted_scatter_max_rows": 4 * steps,
                          "sorted_scatter_sum_rows": steps, "segment_rows_sum": 3 * steps,
                          "fused_nn_idx": steps, "sorted_gather_rows": 3 * steps}
-    assert train_sorted == {**none, "scatter_max_rows": steps, "sorted_segment_sum": 4 * steps,
-                            "sorted_segment_gather": 4 * steps,
+    assert train_sorted == {**none, "scatter_max_rows": steps, "sorted_segment_sum": 3 * steps,
+                            cs.K10_STEP: steps, "sorted_segment_gather": 4 * steps,
                             "segment_rows_sum": 4 * steps, "fused_nn_idx": steps}
     iters = cs.NSFP_ITERS  # knn_k 0, then 4
     assert nsfp == {**none, "nn_argmin_rows": 2 * iters * 2, "segment_rows_sum": iters * 2,
                     "knn_rows": 2 * iters}
     entries = [scatter, resident, scatter_sum, gather, sorted_max, sorted_sum,
                *segment.values(), *nn[cs.NN_SHAPES[0]].values(), *fused.values(), knn,
-               segment_sum_k10, segment_gather_k11, sorted_gather_k5]
+               segment_sum_k10, segment_sum_k10_step, segment_gather_k11, sorted_gather_k5]
     keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "device_ms", "library_device_ms"}
     for e in entries:
@@ -175,12 +180,16 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert knn["library_ms"] is None and knn["bound_by"] == "operations"
     assert segment_gather_k11["bound_by"] == sorted_gather_k5["bound_by"] == "bytes"
     assert segment_sum_k10["library_ms"] is not None
+    assert segment_sum_k10_step["library_ms"] is not None
+    assert segment_sum_k10_step["bound_ms"] > segment_sum_k10["bound_ms"]
     out = capsys.readouterr().out
     assert "step 1 terms, kernels/plain" in out and "val step" in out
     assert "bitwise equal from launch to launch" in out and "at equal work" in out
     assert "[inference_256] forward + de-skew" in out and "[train_big] step 2" in out
     assert "[inference_mean_sorted] forward + de-skew" in out
-    assert "[train_mean_sorted] step 2" in out and "sorted_segment_sum bf16=1" in out
+    assert "[train_mean_sorted] step 2" in out and "sorted_segment_sum C=33 bf16=1" in out
+    assert "sorted_segment_sum C=65 bf16=1: bitwise equal from launch to launch" in out
+    assert out.count("sorted stream B=") == 2  # path B's and mean_sorted's runs
     assert "stable argsort" in out
     assert "signed features" in out and "kernel's device ms by pass" in out
     assert "scatter_max_resident_rows C=32 flag-free decode: bitwise equal" in out
@@ -188,7 +197,7 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert "gather_rows at the unclamped ids" in out
     assert f"C={cs.MEAN_CHANNELS}" in out and "zeros + index_add_" in out
     host = cs.wrapper_host_us(dev)
-    assert set(host) == set(none) and all(v > 0 for v in host.values())
+    assert set(host) == set(none) - {cs.K10_STEP} and all(v > 0 for v in host.values())
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
@@ -211,8 +220,8 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
                  "const*, unsigned int*, long long, int)",
                  "void (anonymous namespace)::decode_all<uint4>(uint4*, long long)",
                  "void (anonymous namespace)::gather_tile<int, false, true>(int const*)",
-                 "(anonymous namespace)::mark_runs(int const*, int*, long long)",
-                 "void (anonymous namespace)::reduce_runs<true>(int const*)",
+                 "void (anonymous namespace)::sum_runs<true>(int const*, float const*)",
+                 "void (anonymous namespace)::max_runs<float4>(int const*, float4 const*)",
                  "void (anonymous namespace)::knn_kernel<4>(float const*, float const*, "
                  "float*, int, int)"):
         assert pattern.match(name), name
