@@ -50,9 +50,10 @@ and prints no result):
    signed features; K2 max also bitwise on signed features and timed at
    C = 1 (the dynamic-image loss's max); K10 also at the train step's C =
    65 (its own row in the kernels line); K4 also at unclamped ids; K7 also
-   at ``nsfp``'s shape (1 x 65,536 x 65,536); K7 and both K8 variants bitwise equal to their
-   plain versions on quarter-metre grid coordinates, where every squared
-   distance is exact in both forms (``phase_nn_grid``); then the host cost per call
+   at ``nsfp``'s shape (1 x 65,536 x 65,536); K6, K7 and both K8 variants bitwise equal
+   to their plain versions on quarter-metre grid coordinates, where every
+   squared distance is exact in both forms, and K6 to K7's distances there
+   (``phase_nn_grid``); then the host cost per call
    of every kernel wrapper, and of K3 sum's split by part, now and as its
    parent ran it (``phase_host_cost``);
 4. slice: the full inference forward through the kernels (launch counts
@@ -190,17 +191,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_events(prof) -> list:
-    """The kernel, memcpy and memset events of a finished torch.profiler
-    trace (chrome-trace dicts: ``name``, ``cat``, ``ts`` and ``dur`` in us)."""
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")  # host-side API calls, with the
+# CUPTI correlation id that ties a launch to its device event
+SPLIT_LABEL = "device_split call "
+
+
+def _trace_events(prof) -> list:
+    """The complete events of a finished torch.profiler trace (chrome-trace
+    dicts: ``name``, ``cat``, ``ts`` and ``dur`` in us, ``args``)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    return [e for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def _device_events(prof) -> list:
+    """The kernel, memcpy and memset events of a finished torch.profiler trace."""
+    return [e for e in _trace_events(prof) if e.get("cat") in DEVICE_CATS]
 
 
 def short_name(name: str) -> str:
@@ -210,31 +221,70 @@ def short_name(name: str) -> str:
     return bare.split("<")[0].split("(")[0].strip()
 
 
-def device_split(fn, iters: int = 20, tries: int = 3) -> dict:
+def split_calls(events: list, calls: range) -> list:
+    """The device events of each call in ``calls`` of a trace whose i-th
+    call ran in a ``record_function`` range named ``SPLIT_LABEL + str(i)``.
+    A device event belongs to the call of its launch, the host-side API
+    call with the same correlation id: the call whose range is the last to
+    start at or before the launch, where that range is not the one of call
+    ``calls.stop``. The ranges are the host's; the trace also holds each on
+    the device's timeline (``gpu_user_annotation``), which is ignored."""
+    import bisect
+
+    starts = sorted((e["ts"], int(e["name"][len(SPLIT_LABEL):])) for e in events
+                    if e.get("name", "").startswith(SPLIT_LABEL)
+                    and e.get("cat", "").lower() == "user_annotation")
+    times = [t for t, _ in starts]
+    call_of = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in LAUNCH_CATS and corr is not None:
+            at = bisect.bisect_right(times, e["ts"]) - 1
+            if at >= 0 and starts[at][1] in calls:
+                call_of[corr] = starts[at][1]
+    per_call = {i: [] for i in calls}
+    for e in events:
+        if e.get("cat") in DEVICE_CATS:
+            i = call_of.get(e.get("args", {}).get("correlation"))
+            if i is not None:
+                per_call[i].append(e)
+    return [per_call[i] for i in calls]
+
+
+def device_split(fn, iters: int = 20, lead: int = 2) -> dict:
     """Device milliseconds per call of ``fn`` (warm) by pass: the kernel,
-    memset and memcpy durations of a torch.profiler trace of ``iters``
-    calls, summed by :func:`short_name` and divided by ``iters``. A trace
-    whose device events are not a whole number per call lost some (seen
-    once in a CUDA-only trace) and is taken again, up to ``tries`` times."""
+    memset and memcpy durations of ``iters`` calls traced by torch.profiler,
+    summed by :func:`short_name` and divided by the calls counted. The trace
+    now and then lacks a device event (one in a trace of 20 one-kernel
+    calls of the 1 x 65,536² NN argmin), so each call runs in a range of its
+    own (:func:`split_calls`), ``lead`` untimed calls open the trace and one
+    closes it, and a call with fewer device events than the most any timed
+    call had is left out. At least half the calls must be whole."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(lead + iters + 1):
+            with record_function(f"{SPLIT_LABEL}{i}"):
                 fn()
-            torch.cuda.synchronize()
-        events = _device_events(prof)
-        if events and len(events) % iters == 0:
-            split = {}
-            for e in events:
-                name = short_name(e["name"])
-                split[name] = split.get(name, 0.0) + e["dur"] / 1e3 / iters
-            return split
-    raise AssertionError(f"device_split: {len(events)} device events in a trace of {iters} "
-                         f"calls")
+        torch.cuda.synchronize()
+    per_call = split_calls(_trace_events(prof), range(lead, lead + iters))
+    most = max(len(c) for c in per_call)
+    whole = [c for c in per_call if len(c) == most]
+    if most == 0 or 2 * len(whole) < iters:
+        raise AssertionError(f"device_split: device events per call {[len(c) for c in per_call]}"
+                             f" in a trace of {iters} calls")
+    if len(whole) < iters:
+        log(f"device_split: {iters - len(whole)} of {iters} traced calls lacked a device "
+            f"event and were left out")
+    split = {}
+    for call in whole:
+        for e in call:
+            name = short_name(e["name"])
+            split[name] = split.get(name, 0.0) + e["dur"] / 1e3 / len(whole)
+    return split
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -1263,10 +1313,11 @@ def _grid_points(gen, batch, n, device):
 
 
 def phase_nn_grid(device):
-    """K7 (NN_SHAPES, B8) and K8 in both variants (FUSED_POINTS, B8, random
-    validity and dynamic masks as penalties) on grid coordinates with exact
-    duplicates: each kernel's values and indices equal its plain version's
-    bit for bit (K8's column mins meet across query blocks there)."""
+    """K6 and K7 (NN_SHAPES, B8) and K8 in both variants (FUSED_POINTS, B8,
+    random validity and dynamic masks as penalties) on grid coordinates with
+    exact duplicates: each kernel's values and indices equal its plain
+    version's bit for bit (K8's column mins meet across query blocks there),
+    and K6's distances equal K7's."""
     import torch
 
     from himo_tpu_torch.ops import nn as pnn
@@ -1280,6 +1331,10 @@ def phase_nn_grid(device):
         pd, pidx = pnn._nn_argmin_plain(q, r)
         _bitwise(f"nn_argmin_rows on the grid, B{BATCH} {n}x{m}", d, pd)
         _bitwise(f"nn_argmin_rows indices on the grid, B{BATCH} {n}x{m}", idx, pidx)
+        dmin = pnn.nn_min_rows(q, r)
+        _bitwise(f"nn_min_rows on the grid, B{BATCH} {n}x{m}", dmin, pnn._nn_min_plain(q, r))
+        _bitwise(f"nn_min_rows against nn_argmin_rows' d2 on the grid, B{BATCH} {n}x{m}",
+                 dmin, d)
     n = m = FUSED_POINTS
     q, r = _grid_points(gen, BATCH, n, device), _grid_points(gen, BATCH, m, device)
     r[:, m // 2 : m // 2 + 64] = r[:, :64]
@@ -1296,7 +1351,8 @@ def phase_nn_grid(device):
         _bitwise(f"fused_nn_idx output {k} on the grid", outs[k], plain[k])
     for k in range(4):
         _bitwise(f"fused_nn output {k} on the grid", mins[k], plain[k])
-    log(f"grid coordinates: nn_argmin_rows at B{BATCH} {NN_SHAPES} and fused_nn_idx / "
+    log(f"grid coordinates: nn_min_rows and nn_argmin_rows at B{BATCH} {NN_SHAPES} "
+        f"(nn_min_rows also equal to nn_argmin_rows' d2) and fused_nn_idx / "
         f"fused_nn at B{BATCH} {n}x{m} (masked) bitwise equal to their plain versions, "
         "values and indices")
 

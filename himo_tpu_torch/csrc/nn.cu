@@ -20,30 +20,45 @@
 //   invalid references lose every race and invalid queries are masked after.
 //
 // What bounds both: the fp32 instruction rate of the CUDA cores. A pair costs at
-// least the distance (6 instructions) and a min (1).
+// least the distance (6 instructions) and a min (1): at 8 frames x 4,096
+// queries x 8,192 references, 268.4 M pairs x 7 instructions over 132 SMs x
+// 128 lanes at about 1.98 GHz is about 0.056 ms.
 //
-// K6 (`nn_min_kernel`): one thread per query, frames of a batch on grid.y.
-// A block stages a tile of references through shared memory as float4 (one
-// 16-byte broadcast load per reference for the whole warp) and every thread
-// folds the tile into its running min with a strict `<`.
+// Both kernels share one layout, against the limits of a thread-per-query
+// walk (one 16-byte shared load per pair; at 8 frames x 4,096 queries only
+// 32k threads, each a serial chain; two block-wide barriers around every
+// tile, staged while the block waits):
+// - each thread keeps several queries in registers, so one broadcast load
+//   of a reference feeds that many distances;
+// - a block holds 32 x (queries a thread) queries and its warps split the
+//   reference walk into contiguous segments, one per warp, each staged
+//   through the warp's own shared-memory tile padded with +inf points, so
+//   no block barrier falls inside the walk; the segments meet once, in
+//   shared memory, at the end.
 //
-// K7 (`nn_argmin_kernel`), laid out against the two limits of K6's layout
-// (one 16-byte load per pair; at 8 frames x 4096 queries only 32k threads,
-// a quarter of the card's resident threads, with a serial compare-and-select
-// chain that tracks the index per pair):
-// - each thread keeps kArgQueries queries in registers, so one broadcast
-//   load of a reference feeds that many distances;
-// - a block holds 32 x kArgQueries queries and its kArgWarps warps split
-//   the reference walk into contiguous segments, one per warp, each staged
-//   through the warp's own shared-memory tile; at 8 x 4096 queries that is
-//   256 blocks of 256 threads, 1,024 at 1 x 65,536. The segments are merged
-//   in shared memory by the lexicographic (value, chunk) minimum, which in
-//   index order is the first-min rule; the merge costs a few shared loads
-//   per query, so one layout serves every shape;
+// K6 (`nn_min_kernel`) folds with `fminf` alone (one instruction where a
+// compare and a select were two), with no chunk record and no re-walk:
+// 8 queries a thread, 16 warps a block (256 queries; 128 blocks at 8 frames
+// x 4,096 queries, one per SM), 128-reference warp tiles whose next points
+// are loaded into registers while the current tile is folded. About 7.1
+// instructions a pair remain (the distance, one `fminf`, an eighth of a
+// broadcast load). The min of a set does not depend on the order of the
+// fold, the direct form never gives -0.0, and `fminf` skips a NaN as a
+// strict `<` does, so any walk order gives the same bits: K6 equals K7's d2
+// bit for bit. A query whose distances are all NaN or +inf gets +inf.
+// `nvcc -Xptxas -v` for sm_90a: 84 registers, 32,768 bytes of shared
+// memory, no spills. Tuned on the H100 among 2, 4 or 8 queries a thread,
+// 4, 8, 16 or 32 warps a block, 64-, 128- or 256-reference tiles, 16-, 32-
+// or 64-reference steps, with and without the prefetch
+// (scripts/torch_nn_ab.py).
+//
+// K7 (`nn_argmin_kernel`) tracks the index too:
 // - the inner loop is min-only: `fminf` folds each chunk of kArgChunk
 //   references, and only at a chunk's end is the running min compared with
 //   the value recorded before it; when it is strictly lower the chunk's
-//   start is recorded. A query's answer lies in the first chunk that
+//   start is recorded. The segments are merged in shared memory by the
+//   lexicographic (value, chunk) minimum, which in index order is the
+//   first-min rule. A query's answer lies in the first chunk that
 //   reached its final min, so after the merge a warp walks that one chunk
 //   again (from global memory) for the first index at that value, one
 //   reference per lane and a ballot. The walk repeats the same
@@ -51,9 +66,9 @@
 //   query, whatever the order of the cloud.
 // About 7.3 instructions per pair remain (the distance, one `fminf`,
 // a quarter of a broadcast load). `nvcc -Xptxas -v` for sm_90a: 60
-// registers, 24,576 bytes of shared memory, no spills (K6: 32 registers).
-// Tuned on the H100 among 2 or 4 queries per thread, 4, 8 or 16 warps per
-// block and 32- or 64-reference chunks (scripts/torch_nn_ab.py).
+// registers, 24,576 bytes of shared memory, no spills. Tuned on the H100
+// among 2 or 4 queries per thread, 4, 8 or 16 warps per block and 32- or
+// 64-reference chunks (scripts/torch_nn_ab.py).
 //
 // Inputs: q (B, N, 3) fp32, r (B, M, 3) fp32, contiguous; outputs d2 (B, N)
 // fp32 and idx (B, N) int32. The Python wrapper checks them.
@@ -71,40 +86,96 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float rx,
   return fmaf(dz, dz, fmaf(dy, dy, dx * dx));
 }
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // references per shared-memory tile (16 KiB)
+constexpr int kMinWarps = 16;     // reference segments per block, one per warp
+constexpr int kMinQueries = 8;    // queries per thread, in registers
+constexpr int kMinTile = 128;     // references per warp's shared tile (2 KiB)
+constexpr int kMinStep = 32;      // references folded per unrolled step
+constexpr int kMinBlockQueries = 32 * kMinQueries;
+static_assert(kMinTile % kMinStep == 0 && kMinTile % 32 == 0, "steps and lanes fill tiles");
+static_assert(4 * kMinTile >= kMinBlockQueries, "a warp's tile holds its segment mins");
 
-__global__ void __launch_bounds__(kThreads)
+// A lane's points of the tile at `base`: references base + lane + 32 j,
+// +inf past `end`. An +inf point's distance is +inf (or NaN) and never
+// lowers a min, so a tile's padding is folded like any point.
+template <int kPer>
+__device__ __forceinline__ void fetch_points(const float* __restrict__ rb, int base, int end,
+                                             int lane, float (&x)[kPer], float (&y)[kPer],
+                                             float (&z)[kPer]) {
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int t = base + lane + 32 * j;
+    x[j] = y[j] = z[j] = INFINITY;
+    if (t < end) {
+      const float* s = rb + 3LL * t;
+      x[j] = s[0];
+      y[j] = s[1];
+      z[j] = s[2];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMinWarps * 32)
 nn_min_kernel(const float* __restrict__ q, const float* __restrict__ r,
-              float* __restrict__ d_out, int n, int m) {
-  __shared__ float4 tile[kTile];
+              float* __restrict__ d_out, int n, int m, int seg) {
+  __shared__ float4 tile[kMinWarps][kMinTile];
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kMinBlockQueries;
   const float* qb = q + static_cast<long long>(b) * n * 3;
   const float* rb = r + static_cast<long long>(b) * m * 3;
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (i < n) {
-    qx = qb[3 * i];
-    qy = qb[3 * i + 1];
-    qz = qb[3 * i + 2];
-  }
-  float best = INFINITY;
-  for (int base = 0; base < m; base += kTile) {
-    const int count = min(kTile, m - base);
-    __syncthreads();
-    for (int t = threadIdx.x; t < count; t += kThreads) {
-      const float* p = rb + 3LL * (base + t);
-      tile[t] = make_float4(p[0], p[1], p[2], 0.0f);
+  const int begin = warp * seg;
+  const int end = min(m, begin + seg);
+  float qx[kMinQueries], qy[kMinQueries], qz[kMinQueries], best[kMinQueries];
+#pragma unroll
+  for (int k = 0; k < kMinQueries; ++k) {
+    const int i = q0 + 32 * k + lane;
+    qx[k] = qy[k] = qz[k] = 0.0f;
+    if (i < n) {
+      qx[k] = qb[3 * i];
+      qy[k] = qb[3 * i + 1];
+      qz[k] = qb[3 * i + 2];
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < count; ++t) {
-      const float4 p = tile[t];
-      const float d = sq_dist(qx, qy, qz, p.x, p.y, p.z);
-      if (d < best) best = d;
+    best[k] = INFINITY;
+  }
+  // Each lane stages kMinTile / 32 points of a tile; the next tile's loads
+  // are issued before the current one is folded.
+  constexpr int kPer = kMinTile / 32;
+  float nx[kPer], ny[kPer], nz[kPer];
+  fetch_points(rb, begin, end, lane, nx, ny, nz);
+  for (int base = begin; base < end; base += kMinTile) {
+    const int count = min(kMinTile, end - base);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      tile[warp][lane + 32 * j] = make_float4(nx[j], ny[j], nz[j], 0.0f);
+    __syncwarp();
+    fetch_points(rb, base + kMinTile, end, lane, nx, ny, nz);
+    for (int c = 0; c < count; c += kMinStep) {
+#pragma unroll
+      for (int t = 0; t < kMinStep; ++t) {
+        const float4 p = tile[warp][c + t];
+#pragma unroll
+        for (int k = 0; k < kMinQueries; ++k)
+          best[k] = fminf(best[k], sq_dist(qx[k], qy[k], qz[k], p.x, p.y, p.z));
+      }
     }
   }
-  if (i < n) d_out[static_cast<long long>(b) * n + i] = best;
+  // Each warp leaves its segment mins in its own tile, then the block
+  // meets once: one thread per query folds the warps' mins.
+  __syncwarp();
+  float* part = reinterpret_cast<float*>(tile[warp]);
+#pragma unroll
+  for (int k = 0; k < kMinQueries; ++k) part[32 * k + lane] = best[k];
+  __syncthreads();
+  for (int t = threadIdx.x; t < kMinBlockQueries; t += kMinWarps * 32) {
+    const int i = q0 + t;
+    if (i >= n) break;
+    float v = reinterpret_cast<const float*>(tile[0])[t];
+    for (int w = 1; w < kMinWarps; ++w)
+      v = fminf(v, reinterpret_cast<const float*>(tile[w])[t]);
+    d_out[static_cast<long long>(b) * n + i] = v;
+  }
 }
 
 constexpr int kArgWarps = 8;      // reference segments per block, one per warp
@@ -221,10 +292,13 @@ nn_argmin_kernel(const float* __restrict__ q, const float* __restrict__ r,
 
 extern "C" int himo_nn_min_f32(const void* q, const void* r, void* d2,
                                int batch, int n, int m, void* stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  nn_min_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // Each warp's segment: a whole number of steps; trailing warps may get none.
+  const int per_warp = (m + kMinWarps - 1) / kMinWarps;
+  const int seg = (per_warp + kMinStep - 1) / kMinStep * kMinStep;
+  const dim3 grid((n + kMinBlockQueries - 1) / kMinBlockQueries, batch);
+  nn_min_kernel<<<grid, kMinWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(r),
-      static_cast<float*>(d2), n, m);
+      static_cast<float*>(d2), n, m, seg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,25 +2,36 @@
 """Hold the port's streaming-NN, k-NN and sorted-scatter kernels against
 another checkout's, on one NVIDIA GPU.
 
-    python3 scripts/torch_nn_ab.py [--only K7,K8,K9,K2] ROOT [ROOT ...]
+    python3 scripts/torch_nn_ab.py [--only K6,K7,K8,K9,K2] ROOT [ROOT ...]
 
-K7 (``nn_argmin_rows``, ``csrc/nn.cu``), K8 (``fused_nn_idx`` and
-``fused_nn``, ``csrc/fused_nn.cu``), K9 (``knn_rows``, ``csrc/knn.cu``) and
-K2 (``sorted_scatter_max_rows`` and ``sorted_scatter_sum_rows``, with K10's
-``sorted_segment_sum``, ``csrc/sorted_scatter.cu``) of this checkout run
-through their wrappers; each ROOT's four sources are built with nvcc
+K6 (``nn_min_rows``) and K7 (``nn_argmin_rows``, both ``csrc/nn.cu``), K8
+(``fused_nn_idx`` and ``fused_nn``, ``csrc/fused_nn.cu``), K9
+(``knn_rows``, ``csrc/knn.cu``) and K2 (``sorted_scatter_max_rows`` and
+``sorted_scatter_sum_rows``, with K10's ``sorted_segment_sum``,
+``csrc/sorted_scatter.cu``) of this checkout run through their wrappers;
+each ROOT's sources that the chosen kernels need are built with nvcc
 (sm_90a) into a temporary directory and called through ctypes at their own
 C signatures (the fused entry points took no scratch pointer before the
 one-pass K8; the sorted max took a scratch map of run starts before the
 run-based K2 max, the sorted sums before the run-based sums). On the same
 inputs every ROOT's outputs must equal this checkout's bit for bit, values
 and indices, and on quarter-metre grid coordinates (every squared distance
-exact in both forms) this checkout's K7, K8 and K9 must equal the plain
-versions' bit for bit; K2 max must equal its plain version on every input,
-and the sums must equal themselves from launch to launch. ``--only`` runs
-the named kernels' cases alone.
+exact in both forms) this checkout's K6, K7, K8 and K9 must equal the plain
+versions' bit for bit; K6 must also equal K7's d2 on every input; K2 max
+must equal its plain version on every input, and the sums must equal
+themselves from launch to launch. ``--only`` runs the named kernels' cases
+alone.
 
 Inputs, all made on the card from fixed seeds:
+
+- K6 on the one call one 512² ``seflowpp`` forward makes (captured from
+  the refine head's score pass, random weights from seed 0), on
+  ``chip_smoke.py``'s uniform clouds (B8 4096x8192 and 8192x4096), on grid
+  coordinates, on a cloud whose distance falls with the index (every
+  reference lowers every query's min), on coordinates with NaN and +-inf
+  entries (B2 1000x3000: such distances never win, a query with none
+  finite gets +inf), and on ``nsfp``'s frame pair (1 x 65,536 x 65,536, off
+  the path today: the chamfer of the eval port);
 
 - K7 on ``chip_smoke.py``'s uniform clouds (B8 4096x8192 and 8192x4096),
   on the ten calls one 512² ``seflowpp`` forward makes (captured from the
@@ -50,8 +61,9 @@ Inputs, all made on the card from fixed seeds:
 Each case is timed by traced device time (``chip_smoke.device_ms``:
 kernels and memsets) in turns, this checkout then each ROOT, then back,
 four times a side (designs differ by 2-5 %, about the spread between
-runs). One JSON object per case goes to standard output and to
-``chiprun_out/nn_ab.json``.
+runs); while K6's cases run back to back, ``nvidia-smi`` samples the SM
+clock and power draw. One JSON object per case goes to standard output
+and to ``chiprun_out/nn_ab.json``.
 """
 
 from __future__ import annotations
@@ -70,21 +82,22 @@ import chip_smoke as cs  # noqa: E402
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
 ROUNDS = 4  # (A, B..., B..., A) twice: each side timed four times
-SOURCES = ("nn", "fused_nn", "knn", "sorted_scatter")
-KERNELS = ("K7", "K8", "K9", "K2")
+CLOCK_SECONDS = 2.0  # K6: this checkout's calls looped while nvidia-smi samples
+SOURCE_OF = {"K6": "nn", "K7": "nn", "K8": "fused_nn", "K9": "knn", "K2": "sorted_scatter"}
+KERNELS = tuple(SOURCE_OF)
 
 
 class Library:
-    """A checkout's nn.cu, fused_nn.cu, knn.cu and sorted_scatter.cu, built
-    and bound at their ABI."""
+    """A checkout's nn.cu, fused_nn.cu, knn.cu and sorted_scatter.cu (those
+    of ``sources``), built and bound at their ABI."""
 
-    def __init__(self, root: Path, out: Path):
+    def __init__(self, root: Path, out: Path, sources):
         from himo_tpu_torch.kernels import _build
 
         self.root = root
         src = root / "himo_tpu_torch" / "csrc"
         procs = {}
-        for name in SOURCES:
+        for name in sources:
             lib = out / f"{name}.so"
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{name}.cu")]
             procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -98,12 +111,20 @@ class Library:
                 if "registers" in line or "spill" in line:
                     cs.log(f"  {root.name}/{name}: {line.strip()}")
             self.libs[name] = ctypes.CDLL(str(lib))
-        scratch = "void* scratch" in (src / "fused_nn.cu").read_text()
-        self.argmin = self._bind("nn", "himo_nn_argmin_f32", 4)
-        self.fused = self._bind("fused_nn", "himo_fused_nn_f32", 10 + scratch)
-        self.fused_idx = self._bind("fused_nn", "himo_fused_nn_idx_f32", 14 + scratch)
-        self.scratch = scratch
-        self.knn = self._bind("knn", "himo_knn_f32", 3, ints=4)
+        if "nn" in self.libs:
+            self.min = self._bind("nn", "himo_nn_min_f32", 3)
+            self.argmin = self._bind("nn", "himo_nn_argmin_f32", 4)
+        if "fused_nn" in self.libs:
+            scratch = "void* scratch" in (src / "fused_nn.cu").read_text()
+            self.fused = self._bind("fused_nn", "himo_fused_nn_f32", 10 + scratch)
+            self.fused_idx = self._bind("fused_nn", "himo_fused_nn_idx_f32", 14 + scratch)
+            self.scratch = scratch
+        if "knn" in self.libs:
+            self.knn = self._bind("knn", "himo_knn_f32", 3, ints=4)
+        if "sorted_scatter" in self.libs:
+            self._bind_sorted(src)
+
+    def _bind_sorted(self, src):
         # The run-based max takes (spids, sfeats, out, B, N, C, rows); the
         # earlier one a scratch map `first` after sfeats.
         text = (src / "sorted_scatter.cu").read_text()
@@ -156,6 +177,16 @@ class Library:
     def segment_sum(self, spids, svals, rows, bf16):
         return self._sorted(self.segsum, spids, svals, rows, int(bf16), first=self.first_sum)
 
+    def nn_min_rows(self, q, r):
+        import torch
+
+        b, n, m = q.shape[0], q.shape[1], r.shape[1]
+        d2 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+        code = self.min(q.data_ptr(), r.data_ptr(), d2.data_ptr(), b, n, m,
+                        torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return d2
+
     def nn_argmin_rows(self, q, r):
         import torch
 
@@ -193,8 +224,8 @@ class Library:
 
 def _device_ms(call, tries: int = 3) -> float:
     """``chip_smoke.device_ms`` of ``call`` over 10 calls, taken again (up
-    to ``tries`` times) when the profiler lost events in every trace it
-    took."""
+    to ``tries`` times) when the trace lacked device events in half its
+    calls or more."""
     for attempt in range(tries):
         try:
             return cs.device_ms(call, iters=10)
@@ -202,6 +233,39 @@ def _device_ms(call, tries: int = 3) -> float:
             cs.log(f"  trace lost events ({err}); again")
             if attempt == tries - 1:
                 raise
+
+
+def _clocks_under(call, seconds: float = CLOCK_SECONDS) -> dict:
+    """The card's SM clock (MHz) and power draw (W), sampled every 100 ms by
+    ``nvidia-smi`` while ``call`` runs back to back for ``seconds``: the
+    median of each and the number of samples."""
+    import statistics
+    import time
+
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-i", "0", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    if not rows:
+        return dict(sm_mhz=None, power_w=None, samples=0)
+    return dict(sm_mhz=statistics.median(r[0] for r in rows),
+                power_w=statistics.median(r[1] for r in rows), samples=len(rows))
 
 
 def _same(a, b) -> bool:
@@ -212,6 +276,50 @@ def _same(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
     return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def k6_cases(device):
+    """(name, [(q, r), ...]) for K6; a case of several calls is timed as
+    their sum."""
+    import torch
+
+    from himo_tpu_torch.ops import nn as pnn
+
+    cases = [("slice 512² forward, its call", _slice_calls(device, "nn_min_rows"))]
+    for n, m in cs.NN_SHAPES:
+        q, r, _ = cs._nn_inputs(device, n, m, seed=n + m)
+        cases.append((f"uniform B{cs.BATCH} {n}x{m}", [(q, r)]))
+    rng = cs.np.random.default_rng(15)
+    q, r = (torch.from_numpy(a).to(device) for a in _grid(rng, cs.BATCH, 4096, 8192))
+    cases.append((f"grid B{cs.BATCH} 4096x8192", [(q, r)]))
+    cases.append((f"falling B{cs.BATCH} 4096x8192", [_falling(device, 16)]))
+    gen = torch.Generator(device=device).manual_seed(17)
+    q = torch.rand(2, 1000, 3, device=device, generator=gen) * 20.0 - 10.0
+    r = torch.rand(2, 3000, 3, device=device, generator=gen) * 20.0 - 10.0
+    for pts, k in ((q, 1000), (r, 3000)):
+        draw = torch.rand(2, k, 3, device=device, generator=gen)
+        pts[draw < 0.05] = float("nan")
+        pts[(draw > 0.95) & (draw < 0.97)] = float("inf")
+        pts[draw > 0.98] = float("-inf")
+    r[1] = float("nan")  # frame 1: no finite reference
+    cases.append(("non-finite B2 1000x3000", [(q, r)]))
+    pc0, pc1, _, _, v0, v1 = cs._nsfp_pair(device)
+    cases.append(("nsfp pair 1x65536x65536",
+                  [(pnn._pad_coords(pc0[None], v0[None]), pnn._pad_coords(pc1[None], v1[None]))]))
+    return cases
+
+
+def _falling(device, seed):
+    """B8 4,096 queries in the unit cube and 8,192 references on a line,
+    farther first: every reference lowers every query's min."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.rand(cs.BATCH, 4096, 3, device=device, generator=gen)
+    steps = torch.arange(8192, 0, -1, device=device, dtype=torch.float32)
+    r = torch.zeros(cs.BATCH, 8192, 3, device=device)
+    r[..., 0] = 2.0 + steps * 0.01
+    return q, r.contiguous()
 
 
 def k7_cases(device):
@@ -225,19 +333,14 @@ def k7_cases(device):
     for n, m in cs.NN_SHAPES:
         q, r, _ = cs._nn_inputs(device, n, m, seed=n + m)
         cases.append((f"uniform B{cs.BATCH} {n}x{m}", [(q, r)]))
-    cases.append(("slice 512² forward, its 10 calls", _slice_calls(device)))
+    cases.append(("slice 512² forward, its 10 calls", _slice_calls(device, "nn_argmin_rows")))
     pc0, pc1, _, _, v0, v1 = cs._nsfp_pair(device)
     cases.append(("nsfp pair 1x65536x65536",
                   [(pnn._pad_coords(pc0[None], v0[None]), pnn._pad_coords(pc1[None], v1[None]))]))
     rng = cs.np.random.default_rng(5)
     q, r = (torch.from_numpy(a).to(device) for a in _grid(rng, cs.BATCH, 4096, 8192))
     cases.append((f"grid B{cs.BATCH} 4096x8192", [(q, r)]))
-    gen = torch.Generator(device=device).manual_seed(6)
-    q = torch.rand(cs.BATCH, 4096, 3, device=device, generator=gen)
-    steps = torch.arange(8192, 0, -1, device=device, dtype=torch.float32)
-    r = torch.zeros(cs.BATCH, 8192, 3, device=device)
-    r[..., 0] = 2.0 + steps * 0.01  # farther first: every chunk lowers the min
-    cases.append((f"falling B{cs.BATCH} 4096x8192", [(q, r.contiguous())]))
+    cases.append((f"falling B{cs.BATCH} 4096x8192", [_falling(device, 6)]))
     return cases
 
 
@@ -249,8 +352,9 @@ def _grid(rng, b, n, m):
     return q, r
 
 
-def _slice_calls(device):
-    """The (q, r) of every ``nn_argmin_rows`` call of one 512² forward."""
+def _slice_calls(device, wrapper):
+    """The (q, r) of every call of ``ops.nn``'s ``wrapper`` in one 512²
+    forward."""
     import torch
 
     from himo_tpu_torch.models.feedforward import frame, init_params, make_model
@@ -260,19 +364,19 @@ def _slice_calls(device):
     model, _ = make_model("seflowpp", device=device, dtype="bfloat16")
     init_params(model, torch.Generator().manual_seed(0))
     model.eval()
-    calls, original = [], pnn.nn_argmin_rows
+    calls, original = [], getattr(pnn, wrapper)
 
     def record(q, r):
         calls.append((q.clone(), r.clone()))
         return original(q, r)
 
     record.launches = 0  # the wrapper counts on the module's attribute
-    pnn.nn_argmin_rows = record
+    setattr(pnn, wrapper, record)
     try:
         with torch.no_grad():
             frame(model, pc0, pc1, pch, valid, dt0)
     finally:
-        pnn.nn_argmin_rows = original
+        setattr(pnn, wrapper, original)
     torch.cuda.synchronize()
     return calls
 
@@ -384,7 +488,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) > 1:
         only, argv = set(argv[1].split(",")), argv[2:]
     if not argv or not only <= set(KERNELS) or not torch.cuda.is_available():
-        print("usage: torch_nn_ab.py [--only K7,K8,K9,K2] ROOT [ROOT ...] "
+        print("usage: torch_nn_ab.py [--only K6,K7,K8,K9,K2] ROOT [ROOT ...] "
               "(needs a CUDA device)", file=sys.stderr)
         return 2
     from himo_tpu_torch.ops import knn as pknn
@@ -395,17 +499,22 @@ def main(argv) -> int:
     device, smi = cs.phase_device()
     cs.phase_build()
     tmp = tempfile.TemporaryDirectory()
+    sources = sorted({SOURCE_OF[k] for k in only})
     roots = []
     for k, root in enumerate(argv):
         out = Path(tmp.name) / str(k)
         out.mkdir()
-        roots.append(Library(Path(root).resolve(), out))
+        roots.append(Library(Path(root).resolve(), out, sources))
     results = []
 
-    def run(name, calls, here, there, plain=None, split=False, twice=False):
-        """``here`` is this checkout's wrapper, ``there(lib)`` a ROOT's. With
-        ``split``, this checkout's device time is also split by pass; with
-        ``twice``, this checkout must give the same bits on a second launch."""
+    def run(name, calls, here, there, plain=None, split=False, twice=False,
+            ref="plain", clocks=False):
+        """``here`` is this checkout's wrapper, ``there(lib)`` a ROOT's, and
+        ``plain`` what this checkout must equal bit for bit (named ``ref``).
+        With ``split``, this checkout's device time is also split by pass;
+        with ``twice``, this checkout must give the same bits on a second
+        launch; with ``clocks``, the card's SM clock and power are sampled
+        while this checkout's calls run back to back."""
         got = [here(*a) for a in calls]
         if twice:
             again = [here(*a) for a in calls]
@@ -423,7 +532,7 @@ def main(argv) -> int:
         if plain is not None:
             for g, a in zip(got, calls):
                 if not _same(g, plain(*a)):
-                    raise AssertionError(f"{name}: differs from the plain version")
+                    raise AssertionError(f"{name}: differs from the {ref} version")
         del got
         sides = [("this", lambda: [here(*a) for a in calls])]
         sides += [(str(lib.root), (lambda fn=there(lib): [fn(*a) for a in calls]))
@@ -432,13 +541,31 @@ def main(argv) -> int:
         for order in (sides, sides[::-1]) * (ROUNDS // 2):
             for label, call in order:
                 times[label].append(_device_ms(call))
-        row = dict(case=name, bitwise_vs_roots=True, bitwise_vs_plain=plain is not None,
+        row = dict(case=name, bitwise_vs_roots=True,
+                   bitwise_vs=ref if plain is not None else None,
                    bitwise_launch_to_launch=twice, device_ms=times, card=smi)
         if split:
             row["split"] = cs.device_split(sides[0][1], iters=10)
+        if clocks:
+            row["clocks_this"] = _clocks_under(sides[0][1])
         cs.log(json.dumps(row))
         results.append(row)
 
+    if "K6" in only:
+        def k7_d2(q, r):
+            return pnn.nn_argmin_rows(q, r)[0]
+
+        def plain_and_k7(q, r):
+            want = pnn._nn_min_plain(q, r)
+            if not _same(k7_d2(q, r), want):
+                raise AssertionError("K7's d2 differs from K6's plain version on the grid")
+            return want
+
+        for name, calls in k6_cases(device):
+            grid = name.startswith("grid")
+            run(f"K6 {name}", calls, pnn.nn_min_rows, lambda lib: lib.nn_min_rows,
+                plain_and_k7 if grid else k7_d2, ref="plain and K7 d2" if grid else "K7 d2",
+                clocks=True)
     if "K7" in only:
         for name, calls in k7_cases(device):
             plain = pnn._nn_argmin_plain if name.startswith("grid") else None

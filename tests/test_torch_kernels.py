@@ -359,6 +359,101 @@ def test_nn_argmin_kernel_bitwise_on_grid(cuda_device, b, n, m):
     assert torch.equal(d, pd) and torch.equal(i, pi)
 
 
+def _grid_min_case(rng, b, n, m):
+    """``_grid_knn_case`` at any n, m >= 1: grid coordinates, duplicate
+    references and queries sitting on references where the sizes allow."""
+    q = rng.integers(-32, 33, size=(b, n, 3)).astype(np.float32) / 4
+    r = rng.integers(-32, 33, size=(b, m, 3)).astype(np.float32) / 4
+    k = min(20, m // 2)
+    r[:, m // 2 : m // 2 + k] = r[:, :k]
+    j = min(10, n, m)
+    q[:, :j] = r[:, :j]
+    return q, r
+
+
+def _f32_bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(2, 129, 1025), (2, 1000, 3000), (1, 33, 4097),
+                                   (2, 129, 300), (2, 200, 77), (1, 1, 300), (2, 257, 1),
+                                   (1, 1, 1), (8, 4096, 8192)])
+def test_nn_min_kernel_bitwise_on_grid(cuda_device, b, n, m):
+    """Grid coordinates: K6's distances equal its plain version's and K7's
+    d2 bit for bit. The shapes cross K6's block of 256 queries and its 16
+    warp segments (whole 32-reference steps: below 16 x 32 references the
+    trailing warps get none), with one query, one reference, and the
+    refine head's B8 4,096 x 8,192."""
+    rng = np.random.default_rng(b * n + 5 * m)
+    q, r = (_t(a).to(cuda_device) for a in _grid_min_case(rng, b, n, m))
+    before = PNN.nn_min_rows.launches
+    d = PNN.nn_min_rows(q, r)
+    assert PNN.nn_min_rows.launches == before + 1
+    pd = PNN._nn_min_plain(q, r)
+    d7, _ = PNN.nn_argmin_rows(q, r)
+    torch.cuda.synchronize()
+    assert _f32_bits_equal(d, pd) and _f32_bits_equal(d, d7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(2, 1000, 3000), (8, 4096, 8192), (8, 8192, 4096),
+                                   (1, 65536, 65536)])
+def test_nn_min_kernel_equals_argmin_d2_on_uniform_clouds(cuda_device, b, n, m):
+    """Uniform float clouds with exact duplicates: K6's distances equal
+    K7's d2 bit for bit (both fold the same direct form, and a min does not
+    depend on the order of its fold), so ``nn_distance_sq`` gives the same
+    value with a gradient (K7) and without (K6)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + m)
+    q = torch.rand(b, n, 3, device=cuda_device, generator=gen) * 80.0 - 40.0
+    r = torch.rand(b, m, 3, device=cuda_device, generator=gen) * 80.0 - 40.0
+    r[:, m // 2 : m // 2 + 64] = r[:, :64]
+    q[:, :32] = r[:, :32]
+    d = PNN.nn_min_rows(q, r)
+    d7, _ = PNN.nn_argmin_rows(q, r)
+    torch.cuda.synchronize()
+    assert _f32_bits_equal(d, d7)
+    assert (d[:, :32] == 0).all()
+    with torch.no_grad():
+        plain_path = PNN.nn_distance_sq(q, r)
+    grad_path = PNN.nn_distance_sq(q.clone().requires_grad_(), r)
+    assert grad_path.requires_grad
+    assert _f32_bits_equal(plain_path, grad_path.detach())
+
+
+@pytest.mark.cuda
+def test_nn_min_kernel_non_finite_coordinates(cuda_device):
+    """NaN and +-inf coordinates: a NaN distance never wins (``fminf``
+    skips it, as a strict ``<`` would), a +inf one never lowers a min, and
+    a query with no finite distance (a non-finite coordinate, or no finite
+    reference: frame 2) gets +inf; K7's d2 agrees."""
+    rng = np.random.default_rng(31)
+    b, n, m = 3, 1000, 3000
+    q, r = _grid_min_case(rng, b, n, m)
+    bad = {}
+    for name, pts in (("q", q), ("r", r)):
+        rows = rng.random(pts.shape[:2]) < (0.1 if name == "q" else 0.2)
+        axis = rng.integers(0, 3, size=pts.shape[:2])
+        value = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), size=pts.shape[:2])
+        pts[rows, axis[rows]] = value[rows]
+        bad[name] = rows
+    r[2] = np.nan
+    bad["r"][2] = True
+    want = np.full((b, n), np.inf, np.float32)
+    for f in range(b):
+        keep = ~bad["r"][f]
+        if keep.any():
+            full = ((q[f, :, None].astype(np.float64) - r[f, keep][None]) ** 2).sum(-1)
+            want[f] = np.where(bad["q"][f], np.inf, full.min(1)).astype(np.float32)
+    qt, rt = _t(q).to(cuda_device), _t(r).to(cuda_device)
+    d = PNN.nn_min_rows(qt, rt)
+    d7, _ = PNN.nn_argmin_rows(qt, rt)
+    torch.cuda.synchronize()
+    assert _f32_bits_equal(d, _t(want).to(cuda_device))
+    assert _f32_bits_equal(d, d7)
+    assert torch.isinf(d[2]).all() and not torch.isnan(d).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,m", [(2, 129, 1025), (2, 1000, 3000), (1, 33, 4097),
                                    (8, 16384, 16384)])

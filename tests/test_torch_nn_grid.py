@@ -1,5 +1,5 @@
-"""K7's and K8's plain versions on exact grid coordinates, against a numpy
-first-min loop and the JAX package's CPU paths, bit for bit.
+"""K6's, K7's and K8's plain versions on exact grid coordinates, against
+numpy min and first-min loops and the JAX package's CPU paths, bit for bit.
 
 Coordinates lie on a quarter-metre grid in [-8, 8] (as
 ``test_torch_kernels._grid_knn_case`` builds them): every squared distance
@@ -7,9 +7,11 @@ is a multiple of 1/16 below 2^10, exact in fp32 both as ``sum((q - r)^2)``
 (the CUDA kernels' form) and as ``|q|^2 + |r|^2 - 2 q.r`` (the plain
 versions' and the reference's), and exact ties abound, so the first-min
 rule decides most indices. Each penalty add ``d + p`` rounds the same way
-in numpy, PyTorch and JAX. The shapes cross the kernels' edges: K7's chunk
-(32 references) and warp segment, K8's query group (128), block (1,024
-queries) and reference tile (256).
+in numpy, PyTorch and JAX. The shapes cross the kernels' edges: K6's
+block of queries (256) and its 16 warp segments (whole 32-reference steps,
+so below 16 x 32 references trailing warps get none; one reference), K7's
+block of queries (128) and chunk (32 references), K8's query group (128),
+block (1,024 queries) and reference tile (256).
 
 The same inputs on the card, kernels against these plain versions, are in
 ``test_torch_kernels.py`` (``cuda``-marked)."""
@@ -23,6 +25,9 @@ from himo_tpu.ops import nn as JNN
 from himo_tpu_torch.ops import nn as PNN
 
 SHAPES = [(129, 1025), (1000, 3000), (33, 4097)]
+# K6: also N past a block of 256 queries, M under 16 warps x 32, a single
+# query, a single reference, both.
+K6_SHAPES = SHAPES + [(129, 300), (200, 77), (1, 300), (257, 1), (1, 1)]
 BIG = np.float32(PNN._MASK_BIG)
 
 
@@ -121,3 +126,100 @@ def test_plain_versions_on_a_falling_cloud_and_one_reference():
         np.testing.assert_array_equal(outs[4][0].numpy(), want.astype(np.int32))
         np.testing.assert_array_equal(outs[6][0].numpy(), np.argmin(full.T, axis=1))
     assert (idx[0].numpy() == 0).all()
+
+
+def _bits(a):
+    return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+def _jax_min(q, r):
+    """The JAX package's plain version of ``_nn_kernel`` (``_nn_distance_sq_xla``)
+    on one frame, padded as ``_nn_core`` pads it (rows to the query and
+    reference tiles, at the sentinel)."""
+    qp = JNN._pad_coords(jnp.asarray(q), JNN._QT, None)
+    rp = JNN._pad_coords(jnp.asarray(r), JNN._RT, None)
+    return np.asarray(JNN._nn_distance_sq_xla(qp, rp))[: q.shape[0]]
+
+
+def _check_min_plain(q, r):
+    """K6's plain version on (B, n, 3) x (B, m, 3) equal, bit for bit, to
+    the JAX package's plain version per frame, and the port's no-grad
+    ``nn_distance_sq`` to ``nn_argmin``'s d2 (the K6 = K7 contract) and to
+    the plain min; returns the plain mins."""
+    got = PNN._nn_min_plain(_t(q), _t(r)).numpy()
+    for b in range(q.shape[0]):
+        np.testing.assert_array_equal(_bits(got[b]), _bits(_jax_min(q[b], r[b])))
+    with torch.no_grad():
+        dmin = PNN.nn_distance_sq(_t(q), _t(r)).numpy()
+    np.testing.assert_array_equal(_bits(dmin), _bits(PNN.nn_argmin(_t(q), _t(r))[0].numpy()))
+    np.testing.assert_array_equal(_bits(dmin), _bits(got))
+    return got
+
+
+@pytest.mark.parametrize("n,m", K6_SHAPES)
+def test_nn_min_plain_bitwise_on_grid(n, m):
+    """K6's plain version against a numpy min and the JAX package's plain
+    version, bit for bit, on two frames; the no-grad ``nn_distance_sq``
+    equals ``nn_argmin``'s d2."""
+    rng = np.random.default_rng(n * 13 + m)
+    frames = [_grid_case(rng, n, m) for _ in range(2)]
+    q, r = (np.stack(x) for x in zip(*frames))
+    got = _check_min_plain(q, r)
+    for b in range(2):
+        np.testing.assert_array_equal(_bits(got[b]), _bits(_d2(q[b], r[b]).min(1)))
+    assert (got[:, : min(10, n, m // 2)] == 0).all()  # queries on references
+
+
+@pytest.mark.parametrize("n,m", [(129, 1025), (200, 77), (1, 300), (257, 1)])
+def test_nn_distance_sq_no_grad_matches_jax_with_masks(n, m):
+    """The public ``nn_distance_sq`` of both packages under no grad (K6's
+    path) with random query and reference masks, bit for bit, and equal to
+    the port's ``nn_argmin`` d2 and to a numpy min over the valid
+    references (invalid queries 0)."""
+    rng = np.random.default_rng(n * 17 + m)
+    q, r = _grid_case(rng, n, m)
+    qv, rv = rng.random(n) < 0.8, rng.random(m) < 0.8
+    rv[-1] = True
+    masks = (_t(qv)[None], _t(rv)[None])
+    with torch.no_grad():
+        got = PNN.nn_distance_sq(_t(q)[None], _t(r)[None], *masks)[0].numpy()
+    want = JNN.nn_distance_sq(jnp.asarray(q), jnp.asarray(r), jnp.asarray(qv), jnp.asarray(rv))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(got), _bits(PNN.nn_argmin(_t(q)[None], _t(r)[None],
+                                                                  *masks)[0][0].numpy()))
+    exact = np.where(qv, _d2(q, r[rv]).min(1), np.float32(0))
+    np.testing.assert_array_equal(_bits(got), _bits(exact))
+
+
+def test_nn_min_plain_on_a_falling_cloud():
+    """References on a line, farther first: every reference lowers every
+    query's min (the order a walk meets them in is the worst for a fold
+    that tracks where the min fell). Plain against numpy and JAX."""
+    rng = np.random.default_rng(4)
+    n, m = 200, 700
+    q = rng.integers(-4, 5, size=(2, n, 3)).astype(np.float32) / 4
+    r = np.zeros((2, m, 3), np.float32)
+    r[..., 0] = 2.0 + np.arange(m, 0, -1, dtype=np.float32) / 4
+    got = _check_min_plain(q, r)
+    for b in range(2):
+        np.testing.assert_array_equal(_bits(got[b]), _bits(_d2(q[b], r[b]).min(1)))
+        np.testing.assert_array_equal(_bits(got[b]), _bits(_d2(q[b], r[b, -1:])[:, 0]))
+
+
+def test_nn_min_plain_with_every_reference_at_the_sentinel():
+    """A reference set wholly at ``SENTINEL`` (every reference masked):
+    the plain versions of both packages agree bit for bit, and with the
+    public ``nn_distance_sq`` of both at an all-false reference mask; the
+    value is the sentinel distance within fp32 rounding."""
+    rng = np.random.default_rng(5)
+    q, _ = _grid_case(rng, 300, 1)
+    r = np.full((2, 77, 3), PNN.SENTINEL, np.float32)
+    got = _check_min_plain(np.stack([q, q[::-1]]), r)
+    exact = ((q.astype(np.float64) - PNN.SENTINEL) ** 2).sum(-1)
+    np.testing.assert_allclose(got[0], exact, rtol=1e-6)
+    rv = np.zeros(77, bool)
+    with torch.no_grad():
+        port = PNN.nn_distance_sq(_t(q)[None], _t(r[0])[None], None, _t(rv)[None])[0]
+    jax_out = JNN.nn_distance_sq(jnp.asarray(q), jnp.asarray(r[0]), None, jnp.asarray(rv))
+    np.testing.assert_array_equal(_bits(port.numpy()), _bits(jax_out))
+    np.testing.assert_array_equal(_bits(port.numpy()), _bits(got[0]))

@@ -241,3 +241,36 @@ def test_short_name_strips_namespace_templates_and_parameters():
     assert cs.short_name("(anonymous namespace)::scatter_max_rows(int const*)") == \
         "scatter_max_rows"
     assert cs.short_name("Memset (Device)") == "Memset"
+
+
+def test_split_calls_ties_device_events_to_the_call_that_launched_them():
+    """A lost device event leaves its call short and no other call long: the
+    record_function ranges of a real CPU trace, with launches and kernels
+    placed in them as CUPTI reports them (correlation ids)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(4):
+            with record_function(f"{cs.SPLIT_LABEL}{i}"):
+                torch.ones(64).sum()
+    events = cs._trace_events(prof)
+    ranges = sorted((e for e in events if e["name"].startswith(cs.SPLIT_LABEL)),
+                    key=lambda e: e["ts"])
+    assert len(ranges) == 4
+    for i, r in enumerate(ranges):
+        launch = r["ts"] + r["dur"] / 2
+        events.append(dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=launch,
+                           dur=0, args={"correlation": 1000 + i}))
+        events.append(dict(ph="X", cat="cuda_runtime", name="cudaStreamSynchronize",
+                           ts=launch, dur=0, args={"correlation": 2000 + i}))
+        if i != 2:  # the trace lost call 2's kernel
+            events.append(dict(ph="X", cat="kernel", name="void k<1>(float*)",
+                               ts=launch + 1e4, dur=3.0, args={"correlation": 1000 + i}))
+        # The same range on the device's timeline, late and long enough to
+        # hold every launch of the trace.
+        events.append(dict(ph="X", cat="gpu_user_annotation", name=r["name"],
+                           ts=ranges[0]["ts"], dur=ranges[-1]["ts"] + ranges[-1]["dur"]
+                           - ranges[0]["ts"] + 1e4, args={}))
+    per_call = cs.split_calls(events, range(1, 4))
+    assert [len(c) for c in per_call] == [1, 0, 1]
+    assert [c[0]["args"]["correlation"] for c in per_call if c] == [1001, 1003]
