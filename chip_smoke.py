@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven main paths, at full width with random weights from seeded generators:
+Eight main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -32,7 +32,11 @@ Seven main paths, at full width with random weights from seeded generators:
   valid): ``lidar_like_cloud`` and the same cloud with its 16 object
   clusters moved 1.5 m (``data.synthetic.moving_objects_pair``);
 - the ``fastnsf`` estimator on the same pair, ``FastNSFConfig(
-  cluster_prior=False)`` (the 256 x 256 x 16 distance field, 500 steps).
+  cluster_prior=False)`` (the 256 x 256 x 16 distance field, 500 steps);
+- the training entry point end to end, ``himo_tpu_torch.cli.train.main``
+  over scene files the port writes (3 scenes x 12 frames x 64,800 points,
+  with SSL labels): ``seflowpp`` bf16, batch 8, 65,536 points, one epoch,
+  then a second run of two epochs that resumes from the first's checkpoint.
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -95,7 +99,19 @@ and prints no result):
    mean_sorted's inference and of path B's and mean_sorted's train step,
    and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of ``fastnsf``:
    device busy share, launches per call, the kernels with the most device
-   time and each of the port's kernels' device time per launch.
+   time and each of the port's kernels' device time per launch;
+9. train loop (``phase_train_loop``): the port's ``make_dataset`` writes
+   the scenes into a temporary directory, each rewritten with
+   ``ssl_dynamic`` and ``ssl_cluster``; ``cli.train.main`` runs one epoch
+   (28 train frames: 3 steps, 8 val frames: 1 val step), then two epochs
+   with ``resume``; checked: the resumed run starts at step 3 and ends at
+   6, finite metrics, the checkpoints (``ckpts`` by ``val_total``,
+   ``ckpts_latest``), the launches (6 train steps' and 2 val steps' as
+   above) and every frame read back against the arrays written; printed:
+   the host's ms per batch (``batch_iterator`` alone) and per frame (read,
+   build), the train step in the loop (synchronized, first run) against
+   the same step alone, the main thread's wait per batch, and the device
+   busy share of the resumed run's epoch loop (traced).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -159,6 +175,10 @@ NSFP_SHIFT_M = 1.5  # object motion in the pair: 15 m/s over 0.1 s
 KNN_K = 4
 KNN_DUPLICATES = 64  # reference rows copied once more for the tie check
 FASTNSF_DT = None  # FastNSFConfig().dt (a DTConfig) when None
+LOOP_SCENES, LOOP_FRAMES = 3, 12  # the train loop's dataset: 36 frames
+LOOP_BACKGROUND = 64000  # + 2 x 400 object points = 64,800 points a frame
+LOOP_LABEL = "train_loop epoch"  # the profiler range of each train epoch
+LOOP_ISOLATED_STEPS = 5
 # Roofline of one H100 SXM (NVIDIA's data sheet; at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -1181,10 +1201,17 @@ def phase_nn(device):
         if (batch, n, m) == NN_NSFP_SHAPE:
             dev = device_times(lambda: pnn.nn_argmin_rows(q, r))["device_ms"]
             bnd = bound(io + batch * n * 8, pairs * NN_OPS_PER_PAIR)
+            # K6 here too: off the main paths, the eval chamfer's shape.
+            min_ms = cuda_ms(lambda: pnn.nn_min_rows(q, r))
+            min_dev = device_times(lambda: pnn.nn_min_rows(q, r))["device_ms"]
+            min_plain = cuda_ms(lambda: pnn._nn_min_plain(q, r), iters=5)
+            min_bnd = bound(io + batch * n * 4, pairs * NN_OPS_PER_PAIR)
             log(f"nn B={batch} {n}x{m}: argmin d2 within tolerance, ties lowest-index, "
                 f"{flips} index differences at near-ties; argmin kernel {ms_arg:.4f} ms, "
                 f"device {dev:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-                f"plain {plain_arg:.4f} ms")
+                f"plain {plain_arg:.4f} ms; min kernel {min_ms:.4f} ms, device "
+                f"{min_dev:.4f} ms, bound {min_bnd['bound_ms']:.4f} ms "
+                f"({min_bnd['bound_by']}), plain {min_plain:.4f} ms")
             continue
         ms_min = cuda_ms(lambda: pnn.nn_min_rows(q, r))
         plain_min = cuda_ms(lambda: pnn._nn_min_plain(q, r), iters=5)
@@ -1966,6 +1993,256 @@ def phase_fastnsf(device, pair):
     return _profile_run("fastnsf", pair, dt=dt)
 
 
+def _loop_dataset(root: Path) -> dict:
+    """The train loop's scenes: the port's ``make_dataset``, then each scene
+    rewritten through the port's writer with ``ssl_dynamic`` (instance id >
+    0) and ``ssl_cluster`` (the instance id) on every frame, so that the SSL
+    loss has dynamic points. Returns the frames as written, by (scene,
+    group)."""
+    from himo_tpu_torch.data import h5, schema
+    from himo_tpu_torch.data.synthetic import make_dataset
+
+    make_dataset(root, num_scenes=LOOP_SCENES, num_frames=LOOP_FRAMES, seed=0,
+                 num_background=LOOP_BACKGROUND)
+    written = {}
+    for scene in schema.scene_ids(root):
+        path = root / f"{scene}.h5"
+        with h5.File(path) as f:
+            frames = [schema.read_frame(f, key) for key in f.keys()]
+        with h5.File(path, "w") as f:
+            for frame in frames:
+                frame.extras = {"ssl_dynamic": frame.flow_instance_id > 0,
+                                "ssl_cluster": frame.flow_instance_id.astype(np.int32)}
+                schema.write_frame(f, frame)
+                written[(scene, str(frame.timestamp))] = frame
+    return written
+
+
+def traced(fn):
+    """``(fn(), events)``: ``fn`` run under torch.profiler (host and
+    device), and the finished trace's complete events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, _trace_events(prof)
+
+
+def window_busy(events: list, label: str):
+    """``(busy ms, wall ms)`` over the host ranges named ``label``: the
+    union of the device events' intervals clipped to those ranges, and the
+    ranges' total length."""
+    windows = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("name") == label and e.get("cat", "").lower() == "user_annotation"]
+    if not windows:
+        raise AssertionError(f"the trace holds no {label!r} range")
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
+    clipped = [(max(a, lo), min(b, hi)) for lo, hi in windows for a, b in device
+               if a < hi and b > lo]
+    return _busy_ms(clipped), sum(hi - lo for lo, hi in windows) / 1e3
+
+
+@contextlib.contextmanager
+def instrumented_loop(record: dict, sync_steps: bool):
+    """Wrap the trainer's ``batch_iterator`` and ``make_train_step`` while
+    the block runs. Each train epoch (not the val split) runs in a
+    ``LOOP_LABEL`` profiler range, its wall time (device work included)
+    goes to ``record["epoch_ms"]`` and the time the main thread waited for
+    each batch to ``record["wait_ms"]``; with ``sync_steps`` each train
+    step is synchronized on both sides and timed into ``record["step_ms"]``."""
+    import torch
+    from torch.profiler import record_function
+
+    from himo_tpu_torch.training import trainer
+
+    batch_iterator, make_train_step = trainer.batch_iterator, trainer.make_train_step
+
+    def timed_iterator(*args, **kwargs):
+        if "gt" in kwargs.get("extra_keys", ()):
+            yield from batch_iterator(*args, **kwargs)
+            return
+        with record_function(LOOP_LABEL):
+            start = time.perf_counter()
+            batches = batch_iterator(*args, **kwargs)
+            while True:
+                wait = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                record["wait_ms"].append((time.perf_counter() - wait) * 1e3)
+                yield batch
+            torch.cuda.synchronize()
+            record["epoch_ms"].append((time.perf_counter() - start) * 1e3)
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+        if not sync_steps:
+            return step
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            record["step_ms"].append((time.perf_counter() - start) * 1e3)
+            return out
+
+        return timed_step
+
+    trainer.batch_iterator, trainer.make_train_step = timed_iterator, timed_make_train_step
+    try:
+        yield record
+    finally:
+        trainer.batch_iterator, trainer.make_train_step = batch_iterator, make_train_step
+
+
+TRAIN_VAL_LAUNCHES = dict(scatter_max_rows=4, fused_nn=1)
+
+
+def phase_train_loop(device, smi: str):
+    """The training entry point end to end: ``cli.train.main`` (``seflowpp``
+    at full width, bf16, batch ``BATCH``, ``NUM_POINTS`` points,
+    ``FUSED_POINTS`` chamfer samples) over scene files the port wrote, one
+    epoch, then two with ``resume`` (the second run continues at the first
+    one's step). Checks the resume step, finite metrics, the checkpoints,
+    the launches (every train step's and val step's) and the frames read
+    back against the arrays written; prints the host's ms per batch, the
+    step in the loop against the same step alone, and the device busy
+    share of the resumed run's epoch loop. Returns the launches."""
+    import tempfile
+
+    import torch
+
+    from himo_tpu_torch.cli.train import main as train_main
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.models.feedforward import init_params, make_model
+    from himo_tpu_torch.training import trainer
+    from himo_tpu_torch.training.checkpoints import CheckpointManager
+
+    with tempfile.TemporaryDirectory(prefix="himo_train_loop_") as tmp:
+        root, run_dir = Path(tmp) / "av2_train_loop", Path(tmp) / "run"
+        start = time.perf_counter()
+        written = _loop_dataset(root)
+        size = sum(p.stat().st_size for p in root.glob("*.h5"))
+        log(f"[train_loop] {len(written)} frames of {written[next(iter(written))].num_points:,}"
+            f" points in {LOOP_SCENES} scenes, {size / 2**20:.1f} MiB, written in "
+            f"{time.perf_counter() - start:.2f} s")
+        kw = dict(dataset_path=str(root), model="seflowpp", batch_size=BATCH,
+                  num_points=NUM_POINTS, loss_points=FUSED_POINTS, run_dir=str(run_dir),
+                  device=device)
+        first_record = {"wait_ms": [], "epoch_ms": [], "step_ms": []}
+        reset_counts()
+        with instrumented_loop(first_record, sync_steps=True):
+            first = train_main(epochs=1, **kw)
+        resume_step = CheckpointManager(run_dir / "ckpts_latest").latest_step()
+        second_record = {"wait_ms": [], "epoch_ms": [], "step_ms": []}
+        with instrumented_loop(second_record, sync_steps=False):
+            second, events = traced(lambda: train_main(epochs=2, **kw))
+        torch.cuda.synchronize()
+        counts = read_counts()
+
+        config = trainer.TrainConfig(batch_size=BATCH, num_points=NUM_POINTS,
+                                     loss_points=FUSED_POINTS)
+        dataset = SceneFlowDataset(
+            root, with_pc1=True, with_history=True,
+            extra_keys=("ssl_dynamic", "ssl_cluster", "ssl_prior", "ssl_prior_valid"),
+            next_keys=("ssl_dynamic",))
+        train_idx, val_idx = trainer.split_train_val(len(dataset), BATCH, config.val_fraction)
+        steps_per_epoch = len(train_idx) // BATCH
+        val_batches = 2 * (len(val_idx) // BATCH)
+        if resume_step != steps_per_epoch or first["steps"] != steps_per_epoch:
+            raise AssertionError(f"train_loop: the first run saved step {resume_step} after "
+                                 f"{first['steps']} steps, not {steps_per_epoch}")
+        if second["steps"] != 2 * steps_per_epoch:
+            raise AssertionError(f"train_loop: the resumed run ended at step "
+                                 f"{second['steps']}, not {2 * steps_per_epoch}")
+        if len(second_record["epoch_ms"]) != 1:
+            raise AssertionError(f"train_loop: the resumed run trained "
+                                 f"{len(second_record['epoch_ms'])} epochs, not 1")
+        for name, result in (("first", first), ("resumed", second)):
+            bad = {k: v for k, v in result["final_metrics"].items() if not np.isfinite(v)}
+            if bad or "val_total" not in result["final_metrics"]:
+                raise AssertionError(f"train_loop {name} run: metrics {result['final_metrics']}")
+        kept = {d: CheckpointManager(run_dir / d).all_steps() for d in ("ckpts", "ckpts_latest")}
+        if kept["ckpts_latest"] != [2 * steps_per_epoch] or \
+                kept["ckpts"] != [steps_per_epoch, 2 * steps_per_epoch]:
+            raise AssertionError(f"train_loop: checkpoints {kept}")
+        lines = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        validated = [x["step"] for x in lines if "val/val_total" in x]
+        if validated != [steps_per_epoch, 2 * steps_per_epoch]:
+            raise AssertionError(f"train_loop: validated at steps {validated}")
+        want = dict.fromkeys(counts, 0)
+        for name, n in TRAIN_LAUNCHES.items():
+            want[name] += second["steps"] * n
+        for name, n in TRAIN_VAL_LAUNCHES.items():
+            want[name] += val_batches * n
+        if counts != want:
+            raise AssertionError(f"train_loop launches {counts} != {want} "
+                                 f"({second['steps']} train steps, {val_batches} val steps)")
+
+        # What was written reads back, through the loop's dataset.
+        for i, (scene, ts) in enumerate(dataset.data_index):
+            frame, item = written[(scene, str(ts))], dataset[i]
+            for key, arr in (("pc0", frame.lidar), ("pose0", frame.pose),
+                             ("lidar_dt", frame.lidar_dt), ("flow", frame.flow),
+                             ("gm0", frame.ground_mask),
+                             ("flow_instance_id", frame.flow_instance_id),
+                             ("ssl_dynamic", frame.extras["ssl_dynamic"]),
+                             ("ssl_cluster", frame.extras["ssl_cluster"])):
+                if item[key].dtype != arr.dtype or item[key].tobytes() != arr.tobytes():
+                    raise AssertionError(f"train_loop: {scene}/{ts} {key} read back differs")
+
+        # The host alone: one epoch of batches with nobody waiting on them,
+        # and one frame's read and build.
+        start = time.perf_counter()
+        n_batches = sum(1 for _ in trainer.batch_iterator(
+            dataset, config, 3, np.random.default_rng(0), indices=train_idx))
+        host_ms = (time.perf_counter() - start) * 1e3 / n_batches
+        reads, builds = [], []
+        for i in train_idx:
+            t0 = time.perf_counter()
+            item = dataset[int(i)]
+            t1 = time.perf_counter()
+            trainer.build_frame_arrays(item, NUM_POINTS, 3, loss_points=FUSED_POINTS,
+                                       rng=np.random.default_rng(0))
+            reads.append(t1 - t0)
+            builds.append(time.perf_counter() - t1)
+
+        # The same step alone, on one of the loop's batches.
+        model, _ = make_model("seflowpp", device=device, dtype="bfloat16")
+        init_params(model, torch.Generator().manual_seed(0))
+        optimizer, _ = trainer.make_optimizer(model.parameters(), config, steps_per_epoch)
+        step = trainer.make_train_step(model, config, optimizer)
+        batch = trainer.to_device(list(trainer.batch_iterator(
+            dataset, config, 3, np.random.default_rng(0), indices=train_idx))[0], device)
+        alone = [_timed(lambda: step(batch))[1] * 1e3 for _ in range(LOOP_ISOLATED_STEPS)]
+        del model, optimizer, step, batch
+
+    busy, wall = window_busy(events, LOOP_LABEL)
+    loop_steps = first_record["step_ms"]
+    log(f"[train_loop] {smi}: host {host_ms:.3f} ms per batch of {BATCH} frames "
+        f"(batch_iterator alone, {n_batches} batches; a frame: read "
+        f"{np.median(reads) * 1e3:.3f} ms + build {np.median(builds) * 1e3:.3f} ms, medians "
+        f"of {len(reads)})")
+    log(f"[train_loop] {smi}: step in the loop {np.median(loop_steps[1:]):.3f} ms (median of "
+        f"steps 2-{len(loop_steps)} of the first run; {', '.join(f'{t:.3f}' for t in loop_steps)})"
+        f" vs the same step alone {np.median(alone[1:]):.3f} ms (median of steps 2-"
+        f"{len(alone)}; {', '.join(f'{t:.3f}' for t in alone)}); the loop's main thread "
+        f"waited {np.median(first_record['wait_ms']):.3f} ms per batch (median; "
+        f"{', '.join(f'{t:.3f}' for t in first_record['wait_ms'])}); epoch "
+        f"{first_record['epoch_ms'][0]:.3f} ms for {steps_per_epoch} steps")
+    log(f"[train_loop] {smi}: resumed run's epoch loop (profiled, steps unsynchronized): "
+        f"device busy {busy:.3f} ms of {wall:.3f} ms, busy share {busy / wall:.4f}; epoch "
+        f"{second_record['epoch_ms'][0]:.3f} ms, main thread waited "
+        f"{np.median(second_record['wait_ms']):.3f} ms per batch (median)")
+    log(f"[train_loop] launches of {second['steps']} train steps + {val_batches} val steps: "
+        f"{ {k: v for k, v in counts.items() if v} }; final metrics "
+        f"{ {k: round(v, 6) for k, v in second['final_metrics'].items()} }; checkpoints {kept}")
+    return counts
+
+
 def main(argv) -> int:
     """No arguments: every phase. ``--host-cost ROOT``: only the host cost
     per call of every wrapper (:func:`wrapper_host_us`) of the checkout at
@@ -2055,6 +2332,9 @@ def main(argv) -> int:
     phase_profile(f"nsfp_{NSFP_PROFILE_ITERS}_steps", run_nsfp, nsfp_ms, calls=1)
     run_fastnsf, fastnsf_ms = phase_fastnsf(device, pair)
     phase_profile(f"fastnsf_{NSFP_PROFILE_ITERS}_steps", run_fastnsf, fastnsf_ms, calls=1)
+    del pair, run_nsfp, run_fastnsf
+    torch.cuda.empty_cache()
+    paths.append(phase_train_loop(device, smi))
     total = {k: sum(path[k] for path in paths) for k in read_counts()}
     main_nn = NN_SHAPES[0]
     kernels = [

@@ -14,8 +14,12 @@ Layout
   use and loads them with ``ctypes``.
 - :mod:`himo_tpu_torch.models`  — the feed-forward flow networks and the
   estimator registry.
-- :mod:`himo_tpu_torch.utils`   — config overrides, flax -> torch weights.
-- :mod:`himo_tpu_torch.data`    — synthetic LiDAR-like clouds.
+- :mod:`himo_tpu_torch.training` — SSL losses, the train loop, checkpoints.
+- :mod:`himo_tpu_torch.cli`     — ``python -m himo_tpu_torch.cli.train``.
+- :mod:`himo_tpu_torch.utils`   — config overrides, the CLI parser, metrics
+  logging, flax -> torch weights.
+- :mod:`himo_tpu_torch.data`    — the scene files in numpy (no h5py), the
+  dataset, synthetic scenes and LiDAR-like clouds.
 
 Numerics: every float32 matmul and convolution runs in full float32. TF32
 would keep about three decimal digits, which is enough to flip the port's

@@ -1,7 +1,8 @@
-"""SE(3) helpers for host-side batch building (numpy; a copy of
-``himo_tpu/core/transforms.py``'s functions that ``build_frame_arrays``
-needs, so the port imports nothing of the JAX package).
+"""SE(3) helpers for host-side batch building and synthetic scenes (numpy;
+a copy of ``himo_tpu/core/transforms.py``, so the port imports nothing of
+the JAX package).
 
+- ``pose_from_yaw_xy``: planar yaw + xy translation -> 4x4 pose;
 - ``relative_pose``: ``inv(pose1) @ pose0``;
 - ``transform_points`` / ``rigid_flow``: point transforms.
 """
@@ -9,6 +10,16 @@ needs, so the port imports nothing of the JAX package).
 from __future__ import annotations
 
 import numpy as np
+
+
+def pose_from_yaw_xy(yaw: float, x: float, y: float) -> np.ndarray:
+    """4x4 SE(3) from planar yaw rotation and xy translation (z = 0)."""
+    pose = np.eye(4)
+    c, s = np.cos(yaw), np.sin(yaw)
+    pose[:3, :3] = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    pose[0, 3] = x
+    pose[1, 3] = y
+    return pose
 
 
 def relative_pose(pose0: np.ndarray, pose1: np.ndarray) -> np.ndarray:

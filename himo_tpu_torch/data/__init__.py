@@ -1,1 +1,2 @@
-"""Synthetic inputs (port of the parts of :mod:`himo_tpu.data` the slice needs)."""
+"""Scene files without h5py (``h5``, ``schema``, ``index``, ``dataset``),
+padding, and synthetic scenes and clouds."""

@@ -1,0 +1,149 @@
+"""The .h5 scene format — the contract every layer shares (port of
+``himo_tpu/data/schema.py`` on :mod:`himo_tpu_torch.data.h5`, no h5py).
+
+One HDF5 file per scene; one group per frame, keyed by the frame timestamp
+string. Datasets per group (reference schema: dataprocess/extract_sca.py:76-93,
+tools/test/repack_h5_scania.py:23-36; see SURVEY.md §2.5):
+
+| key                     | dtype    | shape   | meaning                          |
+|-------------------------|----------|---------|----------------------------------|
+| lidar                   | float32  | (N, 4)  | x, y, z, intensity               |
+| lidar_id                | uint8    | (N,)    | sensor id (multi-LiDAR rigs)     |
+| lidar_dt                | float32  | (N,)    | intra-sweep seconds from start   |
+| lidar_center            | float32  | (L,4,4) | per-LiDAR extrinsic (4x4)        |
+| pose                    | float64  | (4, 4)  | ego pose (world <- ego)          |
+| timestamp               | int64    | ()      | frame timestamp                  |
+| flow                    | float32  | (N, 3)  | GT flow incl. ego motion         |
+| flow_is_valid           | bool     | (N,)    | GT flow validity                 |
+| flow_category_indices   | uint8    | (N,)    | AV2 category index per point     |
+| flow_instance_id        | uint32   | (N,)    | instance id (0 = background)     |
+| ego_motion              | float32  | (4, 4)  | inv(pose1) @ pose0               |
+| ground_mask             | bool     | (N,)    | ground classification            |
+| anno_bbx                | float32  | opt.    | annotation boxes                 |
+| {method}                | float32  | (N, 3)  | estimated flow per method        |
+| seg_valid / seg_{m}     | int      | (N,)    | segmentation labels (downstream) |
+
+Sidecar indices live next to the .h5 files: ``index_total.pkl`` — list of
+``[scene_id, timestamp]`` — and optional subset ``index_eval.pkl``
+(tools/pkl_extract.py:9-19).
+
+A scene is written whole: open one writer (``h5.File(path, "w")``) and
+call :func:`write_frame` for each frame. ``write_method_flow`` (adding a
+method's flow to an existing scene file) is not ported: the writer does
+not append.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+
+from himo_tpu_torch.data import h5
+
+# Canonical dtypes for schema-defined keys (repack_h5_scania.py:23-36 is the
+# reference dtype map; uint32 instance ids are kept — consumers cast as needed).
+SCHEMA_DTYPES: Dict[str, np.dtype] = {
+    "lidar": np.float32,
+    "lidar_id": np.uint8,
+    "lidar_dt": np.float32,
+    "lidar_center": np.float32,
+    "pose": np.float64,
+    "flow": np.float32,
+    "flow_is_valid": np.bool_,
+    "flow_category_indices": np.uint8,
+    "flow_instance_id": np.uint32,
+    "ego_motion": np.float32,
+    "ground_mask": np.bool_,
+    "anno_bbx": np.float32,
+}
+
+
+@dataclasses.dataclass
+class FrameData:
+    """In-memory frame record matching one .h5 group."""
+
+    lidar: np.ndarray  # (N, 4)
+    lidar_id: np.ndarray  # (N,)
+    lidar_dt: np.ndarray  # (N,)
+    pose: np.ndarray  # (4, 4)
+    timestamp: int
+    lidar_center: Optional[np.ndarray] = None  # (L, 4, 4)
+    flow: Optional[np.ndarray] = None  # (N, 3)
+    flow_is_valid: Optional[np.ndarray] = None  # (N,)
+    flow_category_indices: Optional[np.ndarray] = None  # (N,)
+    flow_instance_id: Optional[np.ndarray] = None  # (N,)
+    ego_motion: Optional[np.ndarray] = None  # (4, 4)
+    ground_mask: Optional[np.ndarray] = None  # (N,)
+    anno_bbx: Optional[np.ndarray] = None
+    extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # h5 group key; defaults to str(timestamp). Scania scenes key groups by
+    # superframe number while `timestamp` holds the epoch-ns capture time.
+    group_key: Optional[str] = None
+
+    @property
+    def num_points(self) -> int:
+        return len(self.lidar)
+
+
+def write_frame(f: h5.FileWriter, frame: FrameData) -> None:
+    """Write one frame as a group keyed by its timestamp string."""
+    group = f.create_group(frame.group_key or str(frame.timestamp))
+    group.create_dataset("lidar", data=frame.lidar.astype(np.float32))
+    group.create_dataset("lidar_id", data=frame.lidar_id.astype(np.uint8))
+    group.create_dataset("lidar_dt", data=frame.lidar_dt.astype(np.float32))
+    group.create_dataset("pose", data=frame.pose.astype(np.float64))
+    group.create_dataset("timestamp", data=frame.timestamp)
+    if frame.lidar_center is not None:
+        group.create_dataset("lidar_center", data=frame.lidar_center.astype(np.float32))
+    if frame.flow is not None:
+        group.create_dataset("flow", data=frame.flow.astype(np.float32))
+        group.create_dataset("flow_is_valid", data=frame.flow_is_valid.astype(bool))
+        group.create_dataset(
+            "flow_category_indices", data=frame.flow_category_indices.astype(np.uint8)
+        )
+    if frame.flow_instance_id is not None:
+        group.create_dataset(
+            "flow_instance_id", data=frame.flow_instance_id.astype(np.uint32)
+        )
+    if frame.ego_motion is not None:
+        group.create_dataset("ego_motion", data=frame.ego_motion.astype(np.float32))
+    if frame.ground_mask is not None:
+        group.create_dataset("ground_mask", data=frame.ground_mask.astype(bool))
+    if frame.anno_bbx is not None:
+        group.create_dataset("anno_bbx", data=frame.anno_bbx.astype(np.float32))
+    for key, value in frame.extras.items():
+        group.create_dataset(key, data=value)
+
+
+def read_frame(f: h5.FileReader, timestamp, extra_keys=()) -> FrameData:
+    """Read one frame group back into a FrameData record."""
+    group = f[str(timestamp)]
+
+    def get(key):
+        return group[key][()] if key in group else None
+
+    extras = {k: group[k][()] for k in extra_keys if k in group}
+    return FrameData(
+        lidar=group["lidar"][()],
+        lidar_id=group["lidar_id"][()],
+        lidar_dt=group["lidar_dt"][()],
+        pose=group["pose"][()],
+        timestamp=int(np.asarray(group["timestamp"][()]).item()),
+        lidar_center=get("lidar_center"),
+        flow=get("flow"),
+        flow_is_valid=get("flow_is_valid"),
+        flow_category_indices=get("flow_category_indices"),
+        flow_instance_id=get("flow_instance_id"),
+        ego_motion=get("ego_motion"),
+        ground_mask=get("ground_mask"),
+        anno_bbx=get("anno_bbx"),
+        extras=extras,
+    )
+
+
+def scene_ids(data_dir) -> list:
+    """All scene ids (h5 file stems) in a data directory, sorted."""
+    return sorted(p.stem for p in Path(data_dir).glob("*.h5"))

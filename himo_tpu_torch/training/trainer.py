@@ -1,12 +1,23 @@
-"""The SSL train and validation steps (port of the step-level parts of
-``himo_tpu/training/trainer.py``).
+"""The SSL training loop (port of ``himo_tpu/training/trainer.py``).
 
 - :class:`TrainConfig`: the same fields and defaults as the JAX config;
 - :func:`build_frame_arrays`: one frame -> fixed-size numpy training arrays,
   the same output for the same ``np.random.Generator`` state;
+- :func:`split_train_val` and :func:`batch_iterator`: the same held-out
+  split and the same numpy batches as JAX's, drawing from the generator in
+  the same order (below);
 - :func:`make_optimizer`: Adam under a linear warmup and StepLR, after a
   global-norm clip, with optax's semantics (below);
-- :func:`make_train_step` / :func:`make_val_step`.
+- :func:`make_train_step` / :func:`make_val_step` / :func:`run_validation`;
+- :func:`train`: the whole run over a directory of scene files, on the GPU
+  unless the caller asks for the CPU, with torch-format checkpoints
+  (:mod:`himo_tpu_torch.training.checkpoints`).
+
+The generator's order, which keeps the batches equal to JAX's: ``train``
+makes one ``np.random.default_rng(config.seed)``; each epoch's
+``batch_iterator`` draws its permutation at its first batch, then its
+producer thread draws every ``loss_points`` sample of the epoch, frame by
+frame; the next epoch's permutation comes only after that thread is done.
 
 A batch is a dict of (B, ...) tensors on the model's device, with the keys
 ``build_frame_arrays`` emits. The loss is the mean over frames of the
@@ -32,18 +43,25 @@ computes optax's ``adam`` update.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import queue
+import threading
+import time
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from himo_tpu_torch.core.transforms import relative_pose, rigid_flow, transform_points
+from himo_tpu_torch.data.dataset import SceneFlowDataset
+from himo_tpu_torch.models.feedforward import init_params, make_model, resolve_device
+from himo_tpu_torch.training.checkpoints import CheckpointManager
 from himo_tpu_torch.training.losses import (
     SSLLossWeights,
     dyn_image_loss,
     seflowpp_loss,
     seflowpp_loss_sampled,
 )
+from himo_tpu_torch.utils.logging import MetricsLogger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +191,100 @@ def build_frame_arrays(
     return out
 
 
+def split_train_val(num_items: int, batch_size: int, val_fraction: float):
+    """Deterministic held-out split: every k-th frame goes to val (spread
+    across scenes), sized to at least one batch when the dataset allows."""
+    if val_fraction <= 0 or num_items < 2 * batch_size:
+        return np.arange(num_items), np.array([], dtype=np.int64)
+    n_val = max(batch_size, int(round(num_items * val_fraction)))
+    n_val -= n_val % batch_size  # whole batches only
+    stride = max(num_items // n_val, 2)
+    val = np.arange(0, num_items, stride)[:n_val]
+    train = np.setdiff1d(np.arange(num_items), val)
+    return train, val
+
+
+class _Failed:
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def batch_iterator(
+    dataset: SceneFlowDataset,
+    config: TrainConfig,
+    num_frames: int,
+    rng: Optional[np.random.Generator],
+    prefetch: int = 2,
+    indices: Optional[np.ndarray] = None,
+    extra_keys: tuple = (),
+) -> Iterator[Dict]:
+    """Shuffled, threaded batch producer of stacked numpy frame arrays.
+
+    The permutation is drawn at the first batch; one producer thread reads
+    and builds the batches in order, ``prefetch`` ahead, and draws each
+    frame's samples from ``rng``. An error in the producer is raised here.
+    Closing the iterator early stops the producer and waits for it, so
+    ``rng`` is never drawn from by two threads. (JAX's producer also warms
+    the page cache for the next batch's scene files through its native
+    io_uring reader when that library is built; that is not ported.)"""
+    pool = np.arange(len(dataset)) if indices is None else np.asarray(indices)
+    order = pool[rng.permutation(len(pool))] if rng is not None else pool
+    n_batches = len(order) // config.batch_size
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    done = threading.Event()
+    stop = object()
+
+    def put(item) -> bool:
+        while not done.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for b in range(n_batches):
+                idxs = order[b * config.batch_size : (b + 1) * config.batch_size]
+                frames = [
+                    build_frame_arrays(
+                        dataset[int(i)],
+                        config.num_points,
+                        num_frames,
+                        loss_points=config.loss_points,
+                        rng=rng,
+                        with_gt="gt" in extra_keys,
+                    )
+                    for i in idxs
+                ]
+                if not put({k: np.stack([f[k] for f in frames]) for k in frames[0]}):
+                    return
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the consumer
+            put(_Failed(exc))
+            return
+        put(stop)
+
+    thread = threading.Thread(target=worker, name="batch_iterator", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, _Failed):
+                raise item.error
+            yield item
+    finally:
+        done.set()
+        thread.join()
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
 # -------------------------------------------------------------- train step
 
 
@@ -258,6 +370,15 @@ class ClippedAdam:
         self.adam.step()
         self.count += 1
 
+    def state_dict(self) -> Dict:
+        """The Adam moments and steps (``torch.optim.Adam``'s state dict)
+        and the schedule's ``count``."""
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
 
 def make_schedule(config: TrainConfig, steps_per_epoch: int):
     """The learning rate at optimizer step ``count`` (0 at the first
@@ -326,3 +447,155 @@ def make_val_step(model, config: TrainConfig):
         }
 
     return val_step
+
+
+def run_validation(val_step, dataset, val_indices, config: TrainConfig, num_frames: int,
+                   device: torch.device) -> Dict:
+    """Mean SSL loss + EPE over the val split (a fixed rng, so comparable
+    across epochs). The JAX function also takes the parameters and the
+    mesh; the port's ``val_step`` holds its model, and ``device`` is where
+    the batches go."""
+    sums = {"total_sum": 0.0, "frames": 0.0, "epe_sum": 0.0, "epe_count": 0.0}
+    for batch in batch_iterator(
+        dataset,
+        config,
+        num_frames,
+        rng=np.random.default_rng(1234),
+        indices=val_indices,
+        extra_keys=("gt",),
+    ):
+        out = val_step(to_device(batch, device))
+        for k in sums:
+            sums[k] += float(out[k])
+    return {
+        "val_total": sums["total_sum"] / max(sums["frames"], 1.0),
+        "val_epe": sums["epe_sum"] / max(sums["epe_count"], 1.0),
+    }
+
+
+# -------------------------------------------------------------------- loop
+
+
+def train(
+    data_dir: str,
+    config: TrainConfig = TrainConfig(),
+    run_dir: str = "runs/seflowpp",
+    wandb_mode: str = "disabled",
+    model_overrides: Optional[dict] = None,
+    resume: bool = True,
+    device: torch.device | str | None = None,
+) -> Dict:
+    """Full training run; returns the final parameters (the model's state
+    dict) and summary stats, as JAX's ``train`` does.
+
+    The model is built on ``device`` (default: the GPU; without CUDA this
+    raises unless ``device="cpu"`` is passed) with the port's
+    ``init_params`` drawn from ``config.seed``. ``resume=True`` restores the
+    latest checkpoint in ``{run_dir}/ckpts_latest`` (or ``{run_dir}/ckpts``)
+    and continues from its step and epoch. Validation and a checkpoint come
+    every ``val_every`` epochs and at the end; with a val split the ``keep``
+    best checkpoints by ``val_total`` stay in ``ckpts`` and the latest in
+    ``ckpts_latest``. Multi-GPU data parallelism (the JAX ``mesh``) is not
+    ported."""
+    device = resolve_device(device)
+    model, model_config = make_model(config.model, device=device, **(model_overrides or {}))
+    num_frames = model_config.num_frames
+    dataset = SceneFlowDataset(
+        data_dir,
+        with_pc1=True,
+        with_history=num_frames >= 3,
+        extra_keys=("ssl_dynamic", "ssl_cluster", "ssl_prior", "ssl_prior_valid"),
+        next_keys=("ssl_dynamic",),
+    )
+    if len(dataset) < config.batch_size:
+        raise ValueError(
+            f"dataset has {len(dataset)} frames < batch_size {config.batch_size}"
+        )
+
+    rng = np.random.default_rng(config.seed)
+    train_idx, val_idx = split_train_val(
+        len(dataset), config.batch_size, config.val_fraction
+    )
+    steps_per_epoch = len(train_idx) // config.batch_size
+    init_params(model, torch.Generator().manual_seed(config.seed))
+    optimizer, schedule = make_optimizer(model.parameters(), config, steps_per_epoch)
+    train_step = make_train_step(model, config, optimizer)
+
+    logger = MetricsLogger(
+        run_dir,
+        wandb_mode=wandb_mode,
+        config={**dataclasses.asdict(config), "device": str(device)},
+    )
+    has_val = len(val_idx) >= config.batch_size
+    ckpts = CheckpointManager(
+        f"{run_dir}/ckpts",
+        keep=config.keep_checkpoints,
+        best_metric="val_total" if has_val else None,
+    )
+    # Best-metric retention prunes non-best steps, so the resume point lives
+    # in a separate recency-kept manager.
+    ckpts_latest = (
+        CheckpointManager(f"{run_dir}/ckpts_latest", keep=1) if has_val else ckpts
+    )
+    val_step = make_val_step(model, config) if has_val else None
+
+    step = 0
+    start_epoch = 0
+    if resume:
+        latest_step, tree = ckpts_latest.restore_latest()
+        if tree is None and ckpts_latest is not ckpts:
+            latest_step, tree = ckpts.restore_latest()
+        if tree is not None:
+            model.load_state_dict(tree["params"])
+            optimizer.load_state_dict(tree["opt_state"])
+            step = int(latest_step)
+            # Resumed runs train the REMAINING epochs, not all of them again.
+            start_epoch = min(step // max(steps_per_epoch, 1), config.epochs)
+            print(
+                f"[train] resumed from step {step} (epoch {start_epoch}) "
+                f"in {run_dir}/ckpts"
+            )
+    last_metrics: Dict[str, float] = {}
+    val_metrics: Dict[str, float] = {}
+    t0 = time.time()
+
+    def validate_and_save():
+        nonlocal val_metrics
+        tree = {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
+                "step": step}
+        if val_step is not None:
+            val_metrics = run_validation(
+                val_step, dataset, val_idx, config, num_frames, device
+            )
+            logger.log(val_metrics, step, prefix="val/")
+            logger.print(val_metrics, step, prefix="val ")
+            timing = ckpts.save(step, tree, metrics=dict(val_metrics))
+            timing2 = ckpts_latest.save(step, tree)
+            timing["drain_s"] += timing2["drain_s"]
+            timing["dispatch_s"] += timing2["dispatch_s"]
+        else:
+            timing = ckpts.save(step, tree)
+        logger.log(timing, step, prefix="ckpt/")
+
+    for epoch in range(start_epoch, config.epochs):
+        for batch in batch_iterator(dataset, config, num_frames, rng, indices=train_idx):
+            metrics = train_step(to_device(batch, device))
+            step += 1
+            if step % config.log_every == 0 or step == 1:
+                last_metrics = {k: float(v) for k, v in metrics.items()}
+                last_metrics["lr"] = float(schedule(step))
+                logger.log(last_metrics, step, prefix="train/")
+                logger.print(last_metrics, step, prefix=f"epoch {epoch} ")
+        if (epoch + 1) % config.val_every == 0 and epoch != config.epochs - 1:
+            validate_and_save()
+    validate_and_save()
+    ckpts.close()
+    if ckpts_latest is not ckpts:
+        ckpts_latest.close()
+    logger.close()
+    return {
+        "params": model.state_dict(),
+        "steps": step,
+        "seconds": time.time() - t0,
+        "final_metrics": {**last_metrics, **val_metrics},
+    }

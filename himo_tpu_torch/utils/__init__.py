@@ -1,1 +1,1 @@
-"""Config overrides and weight conversion."""
+"""Config overrides, the CLI, metrics logging and weight conversion."""

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, TypeVar
+from typing import Any, Dict, Mapping, Type, TypeVar
 
 T = TypeVar("T")
 
@@ -47,3 +47,14 @@ def apply_overrides(config: T, overrides: Mapping[str, Any]) -> T:
         base = changes.get(head, getattr(config, head))
         changes[head] = apply_overrides(base, sub)
     return dataclasses.replace(config, **changes)
+
+
+def split_known_overrides(
+    config_cls: Type, overrides: Mapping[str, Any]
+) -> tuple[Dict[str, Any], Dict[str, Any]]:
+    """Partition overrides into (matching config fields, the rest)."""
+    names = {f.name for f in dataclasses.fields(config_cls)}
+    known, rest = {}, {}
+    for key, value in overrides.items():
+        (known if key.split(".")[0] in names else rest)[key] = value
+    return known, rest

@@ -144,22 +144,36 @@ def test_lidar_like_cloud_identical_to_bench():
     np.testing.assert_array_equal(a, b)
 
 
+BANNED_ROOTS = ("jax", "jaxlib", "flax", "optax", "himo_tpu", "h5py", "orbax", "sklearn",
+                "pandas", "pyarrow", "tqdm")
+
+
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in jax, flax or
-    himo_tpu (the GPU host has none of them)."""
+    """Every module of the port imports without pulling in jax, flax,
+    optax, himo_tpu, or the host libraries the GPU host lacks (h5py,
+    orbax, sklearn, pandas, pyarrow, tqdm). ``import torch`` itself may
+    load some of the latter (some builds load tqdm), so at run
+    time only modules beyond torch's own count, and every import statement
+    of the port's sources is checked as well."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch\n"
+        "torch_own = set(sys.modules)\n"
         "import himo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "himo_tpu_torch.__path__, 'himo_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"bad = sorted(m for m in set(sys.modules) - torch_own if m.split('.')[0] in "
+        f"{BANNED_ROOTS!r})\n"
+        "bad += sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'himo_tpu'))\n"
         "assert not bad, bad\n"
         "for name in ('core.transforms', 'training.losses', 'training.trainer',\n"
         "             'ops.knn', 'ops.dt', 'models.coordinate_mlp', 'models.opt_loop',\n"
-        "             'models.nsfp', 'models.fastnsf', 'ops.mxu_scatter'):\n"
+        "             'models.nsfp', 'models.fastnsf', 'ops.mxu_scatter', 'data.h5',\n"
+        "             'data.dataset', 'data.index', 'training.checkpoints', 'utils.cli',\n"
+        "             'cli.train'):\n"
         "    assert 'himo_tpu_torch.' + name in names, names\n"
         "print(len(names))\n"
     )
@@ -168,7 +182,18 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 22
+    assert int(proc.stdout.strip()) >= 41
+    import ast
+
+    for path in sorted((REPO / "himo_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [alias.name.split(".")[0] for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & set(BANNED_ROOTS), (path, node.lineno, roots)
 
 
 def test_build_library_name_tracks_source_content(tmp_path, monkeypatch):

@@ -20,6 +20,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
+import himo_tpu_torch.cli.train  # noqa: E402,F401 - bound to TrainConfig before the rehearsal
+
 TOY = {"pillar.voxel_size": (0.4, 0.4), "depths": (16, 32),
        "refine.num_query": 64, "refine.num_ref": 128}
 
@@ -199,6 +201,58 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     host = cs.wrapper_host_us(dev)
     assert set(host) == set(none) - {cs.K10_STEP} and all(v > 0 for v in host.values())
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
+
+
+def test_train_loop_phase_on_the_cpu(rehearsal, monkeypatch, capsys):
+    """``phase_train_loop`` at a toy size: 2 scenes x 5 frames of 2,000
+    points, batch 2, so 4 steps an epoch; the trace is the CPU's (the
+    epoch ranges, no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from himo_tpu_torch.models import feedforward as pf
+    from himo_tpu_torch.training import trainer as pt
+
+    monkeypatch.setattr(pt, "make_model", pf.make_model)  # the rehearsal's toy model
+    for name, value in (("LOOP_SCENES", 2), ("LOOP_FRAMES", 5), ("LOOP_BACKGROUND", 1200),
+                        ("LOOP_ISOLATED_STEPS", 2)):
+        monkeypatch.setattr(cs, name, value)
+
+    def cpu_traced(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        return out, cs._trace_events(prof)
+
+    monkeypatch.setattr(cs, "traced", cpu_traced)
+    launches = cs.phase_train_loop(rehearsal, "Card, 700.00 W")
+    steps, val_steps = 2 * 4, 2 * 1
+    want = dict.fromkeys(launches, 0)
+    want.update(scatter_max_rows=4 * steps + 4 * val_steps, scatter_sum_rows=steps,
+                fused_nn_idx=steps, segment_rows_sum=3 * steps, sorted_gather_rows=3 * steps,
+                fused_nn=val_steps)
+    assert launches == want
+    assert pt.batch_iterator.__name__ == "batch_iterator"  # the wrappers are gone
+    assert pt.make_train_step.__name__ == "make_train_step"
+    out = capsys.readouterr().out
+    assert "[train_loop] 10 frames of 2,000 points in 2 scenes" in out
+    assert "[train_loop] Card, 700.00 W: host" in out and "ms per batch of 2 frames" in out
+    assert "vs the same step alone" in out and "busy share 0.0000" in out
+    assert "resumed from step 4 (epoch 1)" in out
+
+
+def test_window_busy_clips_device_time_to_the_ranges():
+    def ev(name, cat, ts, dur):
+        return {"name": name, "cat": cat, "ts": ts, "dur": dur}
+
+    events = [ev(cs.LOOP_LABEL, "user_annotation", 100, 100),
+              ev(cs.LOOP_LABEL, "user_annotation", 1000, 1000),
+              ev("other", "user_annotation", 0, 5000),
+              ev("k", "kernel", 50, 100), ev("k", "kernel", 120, 20),
+              ev("m", "gpu_memset", 1500, 1000), ev("k", "kernel", 300, 500),
+              ev("launch", "cuda_runtime", 150, 10)]
+    busy, wall = cs.window_busy(events, cs.LOOP_LABEL)
+    assert (busy, wall) == (0.05 + 0.5, 1.1)
+    with pytest.raises(AssertionError, match="no 'x' range"):
+        cs.window_busy(events, "x")
 
 
 def test_profile_picks_the_port_kernels_out_of_a_trace():
