@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight main paths, at full width with random weights from seeded generators:
+Twelve main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -33,10 +33,23 @@ Eight main paths, at full width with random weights from seeded generators:
   clusters moved 1.5 m (``data.synthetic.moving_objects_pair``);
 - the ``fastnsf`` estimator on the same pair, ``FastNSFConfig(
   cluster_prior=False)`` (the 256 x 256 x 16 distance field, 500 steps);
+- ``nsfp`` and ``fastnsf`` at the reference's defaults on the same pair:
+  the host cluster prior (``models/nsfp.cluster_prior_flow``: HDBSCAN of
+  both sweeps' dynamic points and ``icp_flow``'s matcher, numpy and scipy)
+  seeds the 500-step optimisation, ``knn_k=0``;
+- the ``icpflow`` estimator with ``ICPFlowConfig()`` on the same pair: host
+  clustering and matching, then 12 registration iterations, each one K7
+  launch over 32 clusters x 1,024 slots against the 65,536-point pc1;
+- ``seflowpp_trust`` at 512x512, bf16, 8 frames x 65,536 points x 3 sweeps
+  of ``moving_objects_pair`` scenes: each frame's host prior
+  (``feedforward.frame_priors``), the forward + de-skew with it, and two
+  train steps fed the prior as ``ssl_prior``;
 - the training entry point end to end, ``himo_tpu_torch.cli.train.main``
-  over scene files the port writes (3 scenes x 12 frames x 64,800 points,
-  with SSL labels): ``seflowpp`` bf16, batch 8, 65,536 points, one epoch,
-  then a second run of two epochs that resumes from the first's checkpoint.
+  over scene files the port writes (3 scenes x 12 frames x 64,800 points)
+  and labels with its SSL label writer (``training.ssl_labels.
+  write_ssl_labels``): ``seflowpp`` bf16, batch 8, 65,536 points, one
+  epoch, then a second run of two epochs that resumes from the first's
+  checkpoint.
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -54,7 +67,8 @@ and prints no result):
    signed features; K2 max also bitwise on signed features and timed at
    C = 1 (the dynamic-image loss's max); K10 also at the train step's C =
    65 (its own row in the kernels line); K4 also at unclamped ids; K7 also
-   at ``nsfp``'s shape (1 x 65,536 x 65,536); K6, K7 and both K8 variants bitwise equal
+   at ``nsfp``'s shape (1 x 65,536 x 65,536) and at ``icpflow``'s (32
+   clusters x 1,024 slots, some empty, x 65,536; ``phase_nn_icp``); K6, K7 and both K8 variants bitwise equal
    to their plain versions on quarter-metre grid coordinates, where every
    squared distance is exact in both forms, and K6 to K7's distances there
    (``phase_nn_grid``); then the host cost per call
@@ -94,15 +108,32 @@ and prints no result):
    known motion (printed only: random initialisation measures no quality);
 7. fastnsf: the distance-field build timed alone, then the 500-step run
    (no launch of the port's kernels); the same loss and flow checks;
+   then both at their defaults (``phase_opt_prior``): the host prior
+   alone (host ms; finite, zero on invalid points, no launch; its coverage
+   of the moving points and median error against the known motion), then
+   each estimator (launches 500 x one step's for nsfp, none for fastnsf;
+   final loss below the first; flow finite and zero on invalid points;
+   the moving points' EPE beside the cold start's); then ``icpflow``
+   (``phase_icpflow``: exactly 12 nn_argmin_rows launches; flow finite and
+   zero on invalid points; the registration through the kernels against
+   the plain versions, every filled slot within 1e-2 m; host ms and the
+   registration's device ms); then ``seflowpp_trust``
+   (``phase_trust``: the host prior per frame, slowest and sum, finite and
+   zero on invalid points; the forward as in 4 with the prior, the same
+   launches; two train steps as in 5 on the trust frames with the prior
+   as ``ssl_prior``, the 512x512 step's launches);
 8. profile: after each of the first two paths, three more calls of it
    under ``torch.profiler``, one call each of path A's, path B's and
    mean_sorted's inference and of path B's and mean_sorted's train step,
-   and one 20-step run each of ``nsfp`` at ``knn_k=4`` and of ``fastnsf``:
+   one 20-step run each of ``nsfp`` at ``knn_k=4`` and of ``fastnsf``, and
+   one call of the ``seflowpp_trust`` forward:
    device busy share, launches per call, the kernels with the most device
    time and each of the port's kernels' device time per launch;
 9. train loop (``phase_train_loop``): the port's ``make_dataset`` writes
-   the scenes into a temporary directory, each rewritten with
-   ``ssl_dynamic`` and ``ssl_cluster``; ``cli.train.main`` runs one epoch
+   the scenes into a temporary directory and ``write_ssl_labels`` labels
+   them (host seconds per frame; every scene reads back with its datasets
+   unchanged and the four ``ssl_*`` as written, in the reference's
+   dtypes); ``cli.train.main`` runs one epoch
    (28 train frames: 3 steps, 8 val frames: 1 val step), then two epochs
    with ``resume``; checked: the resumed run starts at step 3 and ends at
    6, finite metrics, the checkpoints (``ckpts`` by ``val_total``,
@@ -152,6 +183,12 @@ MEAN_CHANNELS = 33  # mean_sorted's pooled rows: 32 PFN channels + the count
 K10_STEP = f"sorted_segment_sum (C={GATHER_CHANNELS})"  # K10 in the step's backward
 NN_SHAPES = ((4096, 8192), (8192, 4096))  # ICP/null/score passes, claim pass
 NN_NSFP_SHAPE = (1, 65536, 65536)  # K7 in nsfp's chamfer: (frames, queries, refs)
+ICP_SHAPE = (32, 1024, 65536)  # K7 in icpflow's registration: (clusters, slots, pc1)
+ICP_ITERS = 12  # ICPFlowConfig().icp_iters: one K7 launch each
+# The registration, kernels vs plain versions, every filled slot: where the
+# two distance forms round a near-tie apart, one correspondence differs and
+# the cluster's transform moves by millimetres over the 12 iterations.
+ICP_TOL_M = 1e-2
 SEGMENT_SHAPES = ((16384, 65536), (32768, 16384))  # take_rows bwd, fused bwd
 FUSED_POINTS = 16384  # TrainConfig().loss_points
 SLICE_TOL_M = 1e-3  # refined points, kernels vs plain versions
@@ -1494,27 +1531,29 @@ INFER_SORTED_LAUNCHES = dict(sorted_segment_sum=3, sorted_segment_gather=1,
                              nn_argmin_rows=10, nn_min_rows=1)
 
 
-def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES, **overrides):
-    """One ``seflowpp`` path's inference + de-skew on ``clouds``, with the
-    model ``overrides``; the launches of one forward must be ``expected``."""
+def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES,
+                model_name="seflowpp", prior=None, **overrides):
+    """One path's inference + de-skew on ``clouds`` (the ``model_name``
+    preset with the model ``overrides``, and the prior presets' host
+    ``prior``); the launches of one forward must be ``expected``."""
     import torch
 
     from himo_tpu_torch.models.feedforward import frame, init_params, make_model
 
     pc0, pc1, pch, valid, dt0, n_valid = clouds
-    model, cfg = make_model("seflowpp", device=device, dtype="bfloat16", **overrides)
+    model, cfg = make_model(model_name, device=device, dtype="bfloat16", **overrides)
     init_params(model, torch.Generator().manual_seed(0))
     model.eval()
-    log(f"[{name}] seflowpp: grid {cfg.pillar.grid_shape}, {pc0.shape[1]} points per "
+    log(f"[{name}] {model_name}: grid {cfg.pillar.grid_shape}, {pc0.shape[1]} points per "
         f"sweep, pooling {cfg.pooling}, pfn {cfg.point_feat_dim}, "
         f"base {cfg.base_channels}, depths {cfg.depths}, slots {cfg.instance_slots}, "
         f"refine {cfg.refine.num_query}x{cfg.refine.num_ref}, dtype {cfg.dtype}")
     torch.cuda.reset_peak_memory_stats()
-    frame(model, pc0, pc1, pch, valid, dt0)  # warm-up: cuDNN/cuBLAS set-up
+    frame(model, pc0, pc1, pch, valid, dt0, prior)  # warm-up: cuDNN/cuBLAS set-up
     torch.cuda.synchronize()
 
     reset_counts()
-    flow, comp_dis, refined = frame(model, pc0, pc1, pch, valid, dt0)
+    flow, comp_dis, refined = frame(model, pc0, pc1, pch, valid, dt0, prior)
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"[{name}] launches in one batched forward: {launches}")
@@ -1535,7 +1574,7 @@ def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES, **ove
         raise AssertionError(f"{name}: padded points got a non-zero flow")
 
     with plain_kernels(), torch.inference_mode():
-        ref_flow, aux = model((pc0, pc1, pch), (valid, valid, valid),
+        ref_flow, aux = model((pc0, pc1, pch), (valid, valid, valid), prior,
                               with_aux=True, dts=(dt0, dt0))
         ref_refined = pc0 + ref_flow * (dt0 / 0.1)[..., None]
     torch.cuda.synchronize()
@@ -1556,7 +1595,7 @@ def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES, **ove
                              f"plain run")
 
     def run():
-        frame(model, pc0, pc1, pch, valid, dt0)
+        frame(model, pc0, pc1, pch, valid, dt0, prior)
 
     times = []
     for _ in range(5):
@@ -1669,12 +1708,13 @@ TRAIN_SORTED_LAUNCHES = {"scatter_max_rows": 1, "sorted_segment_sum": 3, K10_STE
 
 
 def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES,
-                val=True, num_points=None, **overrides):
-    """``steps`` SSL train steps of ``seflowpp`` with the model
+                val=True, num_points=None, model="seflowpp", batch=None, **overrides):
+    """``steps`` SSL train steps of the ``model`` preset with the model
     ``overrides`` at ``TrainConfig()`` (``num_points`` per sweep when
-    given), each launching ``expected``, then one validation step when
-    ``val``; returns the summed launches, one step for the profile and the
-    median ms of steps 2 on."""
+    given), on ``batch`` (``data.synthetic.train_batch``'s when None), each
+    launching ``expected``, then one validation step when ``val``; returns
+    the summed launches, one step for the profile and the median ms of
+    steps 2 on."""
     import torch
 
     from himo_tpu_torch.models.feedforward import init_params, make_model
@@ -1686,10 +1726,12 @@ def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES
         mean_losses,
     )
 
-    config = TrainConfig() if num_points is None else TrainConfig(num_points=num_points)
+    config = TrainConfig(model=model) if num_points is None else TrainConfig(
+        model=model, num_points=num_points)
     model, cfg = make_model(config.model, device=device, dtype="bfloat16", **overrides)
     init_params(model, torch.Generator().manual_seed(0))
-    batch = _train_batch(device, config)
+    if batch is None:
+        batch = _train_batch(device, config)
     log(f"[{name}] {config.model} {cfg.dtype}, pooling {cfg.pooling}, grid "
         f"{cfg.pillar.grid_shape}, "
         f"B={config.batch_size} N={config.num_points} K={config.loss_points}, lr "
@@ -1852,9 +1894,11 @@ def knn_loss_shift(warped, p1, v0, v1, k, cap):
     return share, fractions
 
 
-def phase_nsfp(device, pair):
-    """The nsfp estimator at knn_k 0 and KNN_K (see the module docstring);
-    returns the summed launch counts and a 20-step run for the profile."""
+def phase_nsfp(device, pair, epe=None):
+    """The nsfp estimator at knn_k 0 and KNN_K (see the module docstring),
+    ``cluster_prior=False``; returns the summed launch counts and a 20-step
+    run for the profile, and records the moving points' EPE at knn_k 0 as
+    ``epe["nsfp"]`` when given a dict."""
     import torch
 
     from himo_tpu_torch.models import nsfp as pn
@@ -1923,6 +1967,8 @@ def phase_nsfp(device, pair):
         for key, v in counts.items():
             totals[key] += v
         epe_moving, epe_static = _check_flow(f"nsfp knn_k={k}", flow, loss, first, pair)
+        if epe is not None and k == 0:
+            epe["nsfp"] = epe_moving
         log(f"nsfp knn_k={k}, {NSFP_ITERS} steps on {pc0.shape[0]} points: "
             f"{secs * 1e3:.3f} ms per frame, {secs * 1e3 / NSFP_ITERS:.4f} ms per step; "
             f"loss {first:.6f} -> {float(loss):.6f}; peak memory "
@@ -1951,10 +1997,12 @@ def _profile_run(name, pair, **overrides):
     return run, float(np.median([_timed(run)[1] for _ in range(3)])) * 1e3
 
 
-def phase_fastnsf(device, pair):
-    """The fastnsf estimator on the nsfp pair: the distance-field build
-    timed alone, then the full run; it launches none of the port's
-    kernels. Returns a 20-step run for the profile."""
+def phase_fastnsf(device, pair, epe=None):
+    """The fastnsf estimator on the nsfp pair, ``cluster_prior=False``: the
+    distance-field build timed alone, then the full run; it launches none
+    of the port's kernels. Returns a 20-step run for the profile, and
+    records the moving points' EPE as ``epe["fastnsf"]`` when given a
+    dict."""
     import torch
 
     from himo_tpu_torch.models import fastnsf as pf
@@ -1984,6 +2032,8 @@ def phase_fastnsf(device, pair):
     if any(counts.values()):
         raise AssertionError(f"fastnsf launched port kernels: {counts}")
     epe_moving, epe_static = _check_flow("fastnsf", flow, loss, first, pair)
+    if epe is not None:
+        epe["fastnsf"] = epe_moving
     step_ms = (secs * 1e3 - build_ms) / NSFP_ITERS
     log(f"fastnsf {dt.grid_shape} field, {NSFP_ITERS} steps on {pc0.shape[0]} points: "
         f"distance-field build {build_ms:.3f} ms, {secs * 1e3:.3f} ms per frame, "
@@ -1993,29 +2043,356 @@ def phase_fastnsf(device, pair):
     return _profile_run("fastnsf", pair, dt=dt)
 
 
-def _loop_dataset(root: Path) -> dict:
-    """The train loop's scenes: the port's ``make_dataset``, then each scene
-    rewritten through the port's writer with ``ssl_dynamic`` (instance id >
-    0) and ``ssl_cluster`` (the instance id) on every frame, so that the SSL
-    loss has dynamic points. Returns the frames as written, by (scene,
-    group)."""
+def _check_prior(name, prior, valid, gt, moving):
+    """A host prior: (N, 3) or (B, N, 3), finite and zero where ``valid``
+    is false. Returns its coverage of the valid moving points, the median
+    error of the covered moving points against the known motion, and the
+    number of covered points that did not move."""
+    import torch
+
+    if tuple(prior.shape) != tuple(gt.shape) or prior.dtype != torch.float32:
+        raise AssertionError(f"{name}: prior {tuple(prior.shape)} {prior.dtype}")
+    if not bool(torch.isfinite(prior).all()):
+        raise AssertionError(f"{name}: the prior has non-finite values")
+    if bool((prior[~valid] != 0).any()):
+        raise AssertionError(f"{name}: the prior is non-zero on invalid points")
+    covered = (prior != 0).any(dim=-1)
+    coverage = float(covered[moving & valid].float().mean())
+    err = (prior - gt).norm(dim=-1)[covered & moving]
+    median = float(err.median()) if err.numel() else float("nan")
+    return coverage, median, int((covered & ~moving).sum())
+
+
+def phase_opt_prior(device, pair, cold):
+    """``nsfp`` and ``fastnsf`` at the reference's defaults (the host
+    cluster prior, ``knn_k=0``, NSFP_ITERS steps) on the nsfp pair: the
+    prior alone (host ms, coverage and error against the known motion;
+    finite, zero on invalid points, no kernel launched), then each
+    estimator through the registry (launches: NSFP_ITERS x one step's for
+    nsfp, none for fastnsf; final loss below the first; flow finite and
+    zero on invalid points); the moving points' EPE beside the cold start's
+    (``cold``, by estimator). Returns the summed launches."""
+    import torch
+
+    from himo_tpu_torch.models import fastnsf as pf
+    from himo_tpu_torch.models import nsfp as pn
+    from himo_tpu_torch.models.coordinate_mlp import init_mlp
+    from himo_tpu_torch.models.registry import get_estimator
+    from himo_tpu_torch.ops.dt import DTConfig, distance_transform
+
+    pc0, pc1, gt, moving, v0, v1 = pair
+    config = pn.NSFPConfig(iterations=NSFP_ITERS)
+    reset_counts()
+    prior, secs = _timed(lambda: pn.cluster_prior_flow(pc0, pc1, v0, v1, config))
+    if any(read_counts().values()):
+        raise AssertionError(f"the host prior launched kernels: {read_counts()}")
+    coverage, median, static = _check_prior("cluster_prior_flow", prior, v0, gt, moving)
+    log(f"cluster_prior_flow (NSFPConfig defaults) on {pc0.shape[0]} points: host "
+        f"{secs * 1e3:.3f} ms; covers {coverage:.4f} of the valid moving points, median "
+        f"error {median:.6f} m against the known {NSFP_SHIFT_M} m motion, {static} static "
+        f"points covered")
+    totals = dict.fromkeys(read_counts(), 0)
+    dt = FASTNSF_DT or DTConfig()
+    for name in ("nsfp", "fastnsf"):
+        if name == "nsfp":
+            cfg, overrides = config, dict(iterations=NSFP_ITERS)
+            loss_fn, _ = pn.nsfp_loss_fn(pc0, pc1, v0, v1, cfg, prior)
+        else:
+            cfg = pf.FastNSFConfig(dt=dt, iterations=NSFP_ITERS)
+            overrides = dict(dt=dt, iterations=NSFP_ITERS)
+            grid = distance_transform(pc1, v1, dt)
+            loss_fn, _ = pf.fastnsf_loss_fn(pc0, v0, grid, cfg, prior)
+        init = init_mlp(torch.Generator().manual_seed(0), cfg.hidden, cfg.layers,
+                        device=device)
+        with torch.no_grad():
+            first = float(loss_fn(init))
+        estimate = get_estimator(name, device=device, **overrides)
+        if not (estimate.config.cluster_prior and estimate.config.knn_k == 0
+                if name == "nsfp" else estimate.config.cluster_prior):
+            raise AssertionError(f"{name}: not the reference's defaults {estimate.config}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (flow, loss), secs = _timed(lambda: estimate(
+            pc0, pc1, v0, v1, torch.Generator().manual_seed(0)))
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        if name == "nsfp":
+            want.update(nn_argmin_rows=2 * NSFP_ITERS, segment_rows_sum=NSFP_ITERS)
+        if counts != want:
+            raise AssertionError(f"{name} with the prior launched {counts} != {want}")
+        for key, v in counts.items():
+            totals[key] += v
+        epe_moving, epe_static = _check_flow(f"{name} prior", flow, loss, first, pair)
+        log(f"{name} (cluster prior, {NSFP_ITERS} steps): {secs * 1e3:.3f} ms per frame, "
+            f"the host prior included; loss {first:.6f} -> {float(loss):.6f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; EPE moving "
+            f"{epe_moving:.4f} m (cold start {cold[name]:.4f} m), static {epe_static:.4f} m "
+            f"(printed, not checked)")
+    return totals
+
+
+def _trust_clouds(device, n=None):
+    """The prior presets' frames: BATCH frame pairs of ``n`` points
+    (NUM_POINTS when None) from ``moving_objects_pair`` (seed 1): pc1 has
+    each frame's 16 object clusters moved NSFP_SHIFT_M, the history sweep
+    has them moved back as far, a random 92 % of each frame valid (the
+    object points are the frame's last 10 %), sweep times uniform in [0,
+    0.1) s. Returns the clouds as ``_clouds`` does (``n_valid`` the mean
+    valid count), the known flow and the moving mask."""
+    import torch
+
+    from himo_tpu_torch.data.synthetic import moving_objects_pair
+
+    n = NUM_POINTS if n is None else n
+    rng = np.random.default_rng(1)
+    frames = [moving_objects_pair(rng, n, NSFP_SHIFT_M) for _ in range(BATCH)]
+    pc0, pc1, flow, moving = (np.stack([f[i] for f in frames]) for i in range(4))
+    valid = rng.random((BATCH, n)) < VALID_FRACTION
+    n_valid = int(valid.sum()) // BATCH
+    dt0 = rng.uniform(0, 0.1, size=(BATCH, n)).astype(np.float32)
+    pc0, pc1, pch, flow, moving, valid, dt0 = (
+        torch.from_numpy(a).to(device) for a in (pc0, pc1, pc0 - flow, flow, moving,
+                                                  valid, dt0))
+    return (pc0, pc1, pch, valid, dt0, n_valid), flow, moving
+
+
+def phase_trust(device):
+    """``seflowpp_trust`` at full width (see the module docstring): the host
+    prior of each frame (``feedforward.frame_priors``, the registry
+    estimator's), the forward + de-skew with it through the kernels against
+    the plain versions, then ROUTE_TRAIN_STEPS train steps fed the prior as
+    ``ssl_prior``. Returns the forward's launches, the train steps'
+    launches and the forward for the profile with its ms."""
+    import torch
+
+    from himo_tpu_torch.data.synthetic import train_batch
+    from himo_tpu_torch.models.feedforward import frame_priors
+    from himo_tpu_torch.training.trainer import TrainConfig
+
+    clouds, gt, moving = _trust_clouds(device)
+    pc0, pc1, pch, valid, dt0, n_valid = clouds
+    priors, secs = [], []
+    reset_counts()
+    for b in range(BATCH):
+        one = slice(b, b + 1)
+        prior_b, s = _timed(lambda: frame_priors(pc0[one], pc1[one], valid[one], valid[one],
+                                                 dt0[one], dt0[one]))
+        priors.append(prior_b[0])
+        secs.append(s)
+    if any(read_counts().values()):
+        raise AssertionError(f"the host prior launched kernels: {read_counts()}")
+    prior = torch.stack(priors)
+    coverage, median, static = _check_prior("frame_priors", prior, valid, gt, moving)
+    log(f"[inference_trust] host prior of {BATCH} frames of {pc0.shape[1]} points: "
+        f"slowest frame {max(secs) * 1e3:.3f} ms, sum {sum(secs) * 1e3:.3f} ms "
+        f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}); covers {coverage:.4f} of the "
+        f"valid moving points, median error {median:.6f} m, {static} static points covered")
+    launches, run, ms = phase_slice(device, clouds, name="inference_trust",
+                                    model_name="seflowpp_trust", prior=prior)
+
+    config = TrainConfig(model="seflowpp_trust")
+    arrays = train_batch(np.random.default_rng(0), BATCH, config.num_points,
+                         config.loss_points)
+    batch = {key: torch.from_numpy(v).to(device) for key, v in arrays.items()}
+    covered = (prior != 0).any(dim=-1)
+    batch.update(pc0=pc0, pc1=pc1, pc_hist=pch, valid0=valid, valid1=valid, valid_hist=valid,
+                 dynamic0=moving & valid, dynamic1=moving & valid, prior0=prior,
+                 prior_valid0=covered)
+    train = phase_train(device, name="train_trust", steps=ROUTE_TRAIN_STEPS,
+                        expected=TRAIN_LAUNCHES, val=False, model="seflowpp_trust",
+                        batch=batch)[0]
+    return launches, train, run, ms
+
+
+def phase_nn_icp(device):
+    """K7 at ``icp_register_clusters``' shape (ICP_SHAPE: clusters x slots
+    x pc1 points): each cluster's slots filled up to a random count (the
+    rest at the padding sentinel, as ``nn_argmin`` pads masked queries)
+    near one uniform cloud that every cluster reads (replicated, as the
+    registration feeds it); d2 within tolerance of the plain version on
+    the filled slots and the index at the min; timed beside the bound
+    (every (slot, point) pair: the kernel walks masked slots too)."""
+    import torch
+
+    from himo_tpu_torch.ops import nn as pnn
+
+    c, k, m = ICP_SHAPE
+    gen = torch.Generator(device=device).manual_seed(7)
+    refs = torch.rand(1, m, 3, device=device, generator=gen) * 80.0 - 40.0
+    near = torch.randint(0, m, (c, k), device=device, generator=gen)
+    q = refs[0, near] + 0.5 * torch.randn(c, k, 3, device=device, generator=gen)
+    counts = torch.randint(0, k + 1, (c,), device=device, generator=gen)
+    qv = torch.arange(k, device=device)[None] < counts[:, None]
+    q = pnn._pad_coords(q, qv)
+    r = refs.expand(c, m, 3).contiguous()
+    d, idx = pnn.nn_argmin_rows(q, r)
+    pd, pidx = pnn._nn_argmin_plain(q, r)
+    torch.cuda.synchronize()
+    tol = 1e-5 * ((q * q).sum(-1) + torch.gather((r * r).sum(-1), 1, idx.long())) + 1e-6
+    err = (d - pd).abs()
+    if not bool((err <= tol)[qv].all()):
+        raise AssertionError(f"nn_argmin d2 off tolerance at {ICP_SHAPE}: "
+                             f"{float(err[qv].max())}")
+    chosen = torch.gather(r, 1, idx.long()[..., None].expand(-1, -1, 3))
+    if not bool(((((q - chosen) ** 2).sum(-1) - pd).abs() <= tol)[qv].all()):
+        raise AssertionError(f"nn_argmin index not at the min at {ICP_SHAPE}")
+    flips = int((idx != pidx)[qv].sum())
+    del pd, pidx
+    ms = cuda_ms(lambda: pnn.nn_argmin_rows(q, r))
+    plain_ms = cuda_ms(lambda: pnn._nn_argmin_plain(q, r), iters=3, warmup=1)
+    dev = device_times(lambda: pnn.nn_argmin_rows(q, r))["device_ms"]
+    bnd = bound(c * (k + m) * 12 + c * k * 8, c * k * m * NN_OPS_PER_PAIR)
+    torch.cuda.empty_cache()
+    log(f"nn icp B={c} {k}x{m} ({int(qv.sum())} filled slots): argmin d2 within tolerance, "
+        f"{flips} index differences at near-ties; kernel {ms:.4f} ms, device {dev:.4f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=float(err[qv].max()), ms=ms, plain_ms=plain_ms, device_ms=dev,
+                **bnd)
+
+
+def phase_icpflow(device, pair):
+    """The ``icpflow`` estimator with ``ICPFlowConfig()`` on the nsfp pair:
+    exactly ICP_ITERS launches of K7 (one per registration iteration) and
+    no other kernel; flow finite, (N, 3) and zero on invalid points; the
+    registration (captured from the call) through the kernels against the
+    same with the plain versions (every filled slot within ICP_TOL_M); the
+    call's ms, split into the registration's wall (synchronized, within
+    the call, where the 3x3 SVDs' first use sets up cuSOLVER) and the
+    host's rest, the registration's warm wall and device ms; the moving
+    points' EPE printed. Returns the launches."""
+    import torch
+
+    from himo_tpu_torch.models import icp_flow as pi
+    from himo_tpu_torch.models.registry import get_estimator
+
+    pc0, pc1, gt, moving, v0, v1 = pair
+    estimate = get_estimator("icpflow", device=device)
+    register = pi.icp_register_clusters
+    captured = []
+
+    def recording(*args):
+        out, seconds = _timed(lambda: register(*args))
+        captured.append((args, seconds))
+        return out
+
+    pi.icp_register_clusters = recording
+    try:
+        reset_counts()
+        (flow, loss), secs = _timed(lambda: estimate(pc0, pc1, v0, v1))
+        counts = read_counts()
+    finally:
+        pi.icp_register_clusters = register
+    want = dict.fromkeys(counts, 0)
+    want["nn_argmin_rows"] = ICP_ITERS
+    if counts != want or len(captured) != 1:
+        raise AssertionError(f"icpflow launched {counts} != {want} "
+                             f"({len(captured)} registrations)")
+    if tuple(flow.shape) != tuple(pc0.shape) or not bool(torch.isfinite(flow).all()):
+        raise AssertionError(f"icpflow: flow {tuple(flow.shape)} not finite or misshapen")
+    if bool((flow[~v0] != 0).any()) or float(loss) != 0.0:
+        raise AssertionError("icpflow: invalid points got a non-zero flow, or a loss")
+    args, reg_wall = captured[0]
+    slots = args[1]
+    kernel_flow, _, _ = register(*args)
+    reg_warm = _timed(lambda: register(*args))[1]
+    reg_device = device_ms(lambda: register(*args))
+    with plain_kernels():
+        plain_flow, _, _ = register(*args)
+    torch.cuda.synchronize()
+    dist = (kernel_flow - plain_flow).norm(dim=-1)[slots]
+    agree = float((dist <= ICP_TOL_M).float().mean())
+    close = float((dist <= SLICE_TOL_M).float().mean())
+    covered = (flow != 0).any(dim=-1)
+    epe = (flow - gt).norm(dim=-1)
+    log(f"icpflow (ICPFlowConfig()) on {pc0.shape[0]} points: {secs * 1e3:.3f} ms per "
+        f"frame, of which the registration {reg_wall * 1e3:.3f} ms wall (warm "
+        f"{reg_warm * 1e3:.3f} ms, device {reg_device:.3f} ms); host (clustering, matching) "
+        f"{(secs - reg_wall) * 1e3:.3f} ms; {int(slots.sum())} filled slots in "
+        f"{int(slots.any(dim=1).sum())} clusters; {counts['nn_argmin_rows']} nn_argmin_rows "
+        f"launches")
+    log(f"icpflow registration, kernels vs plain: {agree:.6f} of filled slots within "
+        f"{ICP_TOL_M} m, {close:.6f} within {SLICE_TOL_M} m (max "
+        f"{float(dist.max()) if dist.numel() else 0.0:.6f} m); covers "
+        f"{float(covered[moving & v0].float().mean()):.4f} of the valid moving points; EPE "
+        f"moving {float(epe[moving & v0].mean()):.4f} m, static "
+        f"{float(epe[~moving & v0].mean()):.4f} m (printed, not checked)")
+    if agree < 1.0:
+        raise AssertionError(f"icpflow: only {agree:.4f} of the registered slots agree with "
+                             f"the plain run within {ICP_TOL_M} m")
+    return counts
+
+
+def _read_datasets(path) -> dict:
+    """Every dataset of a scene file, by group and name, as the port's
+    reader returns it."""
+    from himo_tpu_torch.data import h5
+
+    with h5.File(path) as f:
+        return {key: {name: f[key][name][()] for name in f[key].keys()} for key in f.keys()}
+
+
+SSL_DTYPES = {"ssl_dynamic": np.bool_, "ssl_cluster": np.uint16, "ssl_prior": np.float32,
+              "ssl_prior_valid": np.bool_}
+
+
+def _loop_dataset(root: Path):
+    """The train loop's scenes: the port's ``make_dataset``, then SSL labels
+    from the port's writer, ``training.ssl_labels.write_ssl_labels``
+    (dynamic masks, HDBSCAN clusters, translation priors; each scene
+    rewritten whole). Checks that every scene reads back with each dataset
+    it had unchanged and the four ``ssl_*`` datasets equal to what the
+    writer was given, in the reference's dtypes. Returns the frames as
+    ``make_dataset`` wrote them and the labels, both by (scene, group), and
+    the labelling's host seconds."""
     from himo_tpu_torch.data import h5, schema
     from himo_tpu_torch.data.synthetic import make_dataset
+    from himo_tpu_torch.training import ssl_labels
 
     make_dataset(root, num_scenes=LOOP_SCENES, num_frames=LOOP_FRAMES, seed=0,
                  num_background=LOOP_BACKGROUND)
-    written = {}
+    written, before = {}, {}
     for scene in schema.scene_ids(root):
         path = root / f"{scene}.h5"
+        before[scene] = _read_datasets(path)
         with h5.File(path) as f:
-            frames = [schema.read_frame(f, key) for key in f.keys()]
-        with h5.File(path, "w") as f:
-            for frame in frames:
-                frame.extras = {"ssl_dynamic": frame.flow_instance_id > 0,
-                                "ssl_cluster": frame.flow_instance_id.astype(np.int32)}
-                schema.write_frame(f, frame)
-                written[(scene, str(frame.timestamp))] = frame
-    return written
+            for key in f.keys():
+                written[(scene, key)] = schema.read_frame(f, key)
+    labels = {}
+    write = ssl_labels.write_scene_labels
+
+    def recording(path, by_group):
+        for key, arrays in by_group.items():
+            labels[(Path(path).stem, key)] = dict(zip(ssl_labels.SSL_KEYS, arrays))
+        return write(path, by_group)
+
+    ssl_labels.write_scene_labels = recording
+    try:
+        start = time.perf_counter()
+        n = ssl_labels.write_ssl_labels(root, verbose=False)
+        secs = time.perf_counter() - start
+    finally:
+        ssl_labels.write_scene_labels = write
+    if not n == len(written) == len(labels):
+        raise AssertionError(f"train_loop: {n} frames labelled, {len(labels)} written, "
+                             f"{len(written)} in the dataset")
+    for scene, groups in before.items():
+        after = _read_datasets(root / f"{scene}.h5")
+        if after.keys() != groups.keys():
+            raise AssertionError(f"train_loop: {scene} groups changed by the label writer")
+        for key, arrays in groups.items():
+            if set(after[key]) != set(arrays) | set(SSL_DTYPES):
+                raise AssertionError(f"train_loop: {scene}/{key} holds {sorted(after[key])}")
+            for name, arr in arrays.items():
+                got = after[key][name]
+                if got.dtype != arr.dtype or got.tobytes() != arr.tobytes():
+                    raise AssertionError(f"train_loop: {scene}/{key}/{name} changed")
+            for name, dtype in SSL_DTYPES.items():
+                got, want = after[key][name], labels[(scene, key)][name]
+                if got.dtype != dtype or want.dtype != dtype or \
+                        got.tobytes() != want.tobytes():
+                    raise AssertionError(f"train_loop: {scene}/{key}/{name} reads back "
+                                         f"{got.dtype}, not what was written")
+    return written, labels, secs
 
 
 def traced(fn):
@@ -2124,11 +2501,16 @@ def phase_train_loop(device, smi: str):
     with tempfile.TemporaryDirectory(prefix="himo_train_loop_") as tmp:
         root, run_dir = Path(tmp) / "av2_train_loop", Path(tmp) / "run"
         start = time.perf_counter()
-        written = _loop_dataset(root)
+        written, labels, label_secs = _loop_dataset(root)
         size = sum(p.stat().st_size for p in root.glob("*.h5"))
+        dynamic = np.mean([v["ssl_dynamic"].mean() for v in labels.values()])
+        prior = np.mean([v["ssl_prior_valid"].mean() for v in labels.values()])
         log(f"[train_loop] {len(written)} frames of {written[next(iter(written))].num_points:,}"
-            f" points in {LOOP_SCENES} scenes, {size / 2**20:.1f} MiB, written in "
-            f"{time.perf_counter() - start:.2f} s")
+            f" points in {LOOP_SCENES} scenes, {size / 2**20:.1f} MiB, written and labelled "
+            f"in {time.perf_counter() - start:.2f} s; SSL labels (write_ssl_labels) "
+            f"{label_secs:.3f} s on the host, {label_secs / len(written) * 1e3:.3f} ms per "
+            f"frame; {dynamic:.4f} of points dynamic, {prior:.4f} with a prior (means over "
+            f"frames); read back: ssl_* as written, every other dataset unchanged")
         kw = dict(dataset_path=str(root), model="seflowpp", batch_size=BATCH,
                   num_points=NUM_POINTS, loss_points=FUSED_POINTS, run_dir=str(run_dir),
                   device=device)
@@ -2189,8 +2571,7 @@ def phase_train_loop(device, smi: str):
                              ("lidar_dt", frame.lidar_dt), ("flow", frame.flow),
                              ("gm0", frame.ground_mask),
                              ("flow_instance_id", frame.flow_instance_id),
-                             ("ssl_dynamic", frame.extras["ssl_dynamic"]),
-                             ("ssl_cluster", frame.extras["ssl_cluster"])):
+                             *labels[(scene, str(ts))].items()):
                 if item[key].dtype != arr.dtype or item[key].tobytes() != arr.tobytes():
                     raise AssertionError(f"train_loop: {scene}/{ts} {key} read back differs")
 
@@ -2281,6 +2662,7 @@ def main(argv) -> int:
     segment = phase_segment_sum(device)
     phase_host_cost(device)
     nn = phase_nn(device)
+    phase_nn_icp(device)
     fused = phase_fused(device)
     phase_nn_grid(device)
     pair = _nsfp_pair(device)
@@ -2327,12 +2709,22 @@ def main(argv) -> int:
     paths.append(train)
     del run_step
     torch.cuda.empty_cache()
-    nsfp, run_nsfp, nsfp_ms = phase_nsfp(device, pair)
+    cold = {}
+    nsfp, run_nsfp, nsfp_ms = phase_nsfp(device, pair, cold)
     paths.append(nsfp)
     phase_profile(f"nsfp_{NSFP_PROFILE_ITERS}_steps", run_nsfp, nsfp_ms, calls=1)
-    run_fastnsf, fastnsf_ms = phase_fastnsf(device, pair)
+    run_fastnsf, fastnsf_ms = phase_fastnsf(device, pair, cold)
     phase_profile(f"fastnsf_{NSFP_PROFILE_ITERS}_steps", run_fastnsf, fastnsf_ms, calls=1)
-    del pair, run_nsfp, run_fastnsf
+    del run_nsfp, run_fastnsf
+    torch.cuda.empty_cache()
+    paths.append(phase_opt_prior(device, pair, cold))
+    paths.append(phase_icpflow(device, pair))
+    del pair
+    torch.cuda.empty_cache()
+    launches, train, run_frame, frame_ms = phase_trust(device)
+    phase_profile("inference_trust", run_frame, frame_ms, calls=1)
+    paths += [launches, train]
+    del run_frame
     torch.cuda.empty_cache()
     paths.append(phase_train_loop(device, smi))
     total = {k: sum(path[k] for path in paths) for k in read_counts()}

@@ -8,7 +8,8 @@ without ``device=cpu`` it raises). Other ``TrainConfig`` fields
 (``val_every=1``, ``loss_points=0``, ``weights.chamfer_dis=2``) and model
 overrides (``pooling=mean_sorted``, ``pillar.voxel_size=(0.4,0.4)``) pass
 as further ``key=value`` pairs. The ``ssl_*`` pseudo-labels are read when
-the scene files hold them; the port has no label writer yet.
+the scene files hold them (``python -m himo_tpu_torch.cli.ssl_label``
+writes them).
 """
 
 from __future__ import annotations

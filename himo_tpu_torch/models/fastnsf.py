@@ -4,8 +4,9 @@
 The per-step NN search is replaced by one precomputed squared-distance
 field of pc1 (:mod:`himo_tpu_torch.ops.dt`), sampled trilinearly at the
 warped points; each step is a gather plus the coordinate MLP, and launches
-none of the port's CUDA kernels. As for ``nsfp``, the registry's factories
-refuse the reference's default ``cluster_prior=True``.
+none of the port's CUDA kernels. As for ``nsfp``, the reference's default
+``cluster_prior=True`` seeds the optimisation with the host cluster prior
+(``models/nsfp.cluster_prior_flow``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,13 @@ class FastNSFConfig:
     schedule: str = "constant"  # or 'cosine'
     coarse_init: float = 0.0  # coarse-to-fine truncation (see NSFPConfig)
     anneal_frac: float = 0.5
-    cluster_prior: bool = True  # the host cluster prior (not ported)
+    # Cluster translation prior seeding (see NSFPConfig.cluster_prior).
+    cluster_prior: bool = True
+    prior_threshold: float = 0.18
+    prior_eps: float = 1.0
+    prior_min_samples: int = 5
+    prior_match_gate: float = 6.0
+    prior_min_norm: float = 1.0
 
 
 def fastnsf_loss_fn(pc0, valid0, grid: DTGrid, config: FastNSFConfig, prior_flow=None):
@@ -82,9 +89,8 @@ def fastnsf_flow(
 
 @register_estimator("fastnsf")
 def make_fastnsf(device: torch.device | str | None = None, **overrides):
-    """The ``fastnsf`` estimator; ``overrides`` feed :class:`FastNSFConfig`,
-    and ``cluster_prior=False`` is required for now."""
-    return opt_estimator("fastnsf", fastnsf_flow, FastNSFConfig(**overrides), device)
+    """The ``fastnsf`` estimator; ``overrides`` feed :class:`FastNSFConfig`."""
+    return opt_estimator(fastnsf_flow, FastNSFConfig(**overrides), device)
 
 
 @register_estimator("fastnsf10")

@@ -75,9 +75,13 @@ class FlowNetConfig:
     gru_iters: int = 4
     num_frames: int = 2
     dtype: str = "float32"  # 'bfloat16' for inference speed
-    prior_feat: bool = False  # host cluster priors: not ported yet
-    prior_residual: bool = False  # not ported yet
-    prior_trust: bool = False  # not ported yet
+    # The host cluster translation prior (models/nsfp.cluster_prior_flow):
+    # ``prior_feat`` feeds it to the PFN as 3 extra channels of sweep 0;
+    # ``prior_residual`` adds it to the gated flow (the prior bypasses the
+    # gate); ``prior_trust`` emits it verbatim where it is non-zero.
+    prior_feat: bool = False
+    prior_residual: bool = False
+    prior_trust: bool = False
     pooling: str = "max"  # 'max' | 'mean_sorted' (sorted-stream mean, K10/K11)
     instance_head: bool = False
     instance_stride: int = 2  # coarse CC cell = stride x pillar voxel
@@ -152,18 +156,27 @@ class GroupNorm(nn.Module):
 
 class PointFeatureNet(nn.Module):
     """Per-point embedding before pillar pooling (PFN-lite): xyz, offset to
-    the pillar center, radial distance -> two Dense + relu."""
+    the pillar center, radial distance (and ``extra_dim`` conditioning
+    channels, zeros when ``extra`` is None) -> two Dense + relu."""
 
-    def __init__(self, dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, dtype: torch.dtype, extra_dim: int = 0):
         super().__init__()
         self.dtype = dtype
-        self.dense0 = nn.Linear(7, dim)
+        self.extra_dim = extra_dim
+        self.dense0 = nn.Linear(7 + extra_dim, dim)
         self.dense1 = nn.Linear(dim, dim)
 
-    def forward(self, points: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    def forward(self, points: torch.Tensor, offsets: torch.Tensor,
+                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
         xy = points[..., :2]
         r = torch.sqrt((xy * xy).sum(dim=-1, keepdim=True))
-        x = torch.cat([points[..., :3], offsets, r], dim=-1).to(self.dtype)
+        cols = [points[..., :3], offsets, r]
+        if self.extra_dim:
+            if extra is None:
+                extra = torch.zeros((*points.shape[:-1], self.extra_dim),
+                                    dtype=self.dtype, device=points.device)
+            cols.append(extra.to(r.dtype))
+        x = torch.cat(cols, dim=-1).to(self.dtype)
         x = F.relu(_linear(self.dense0, x, self.dtype))
         return F.relu(_linear(self.dense1, x, self.dtype))
 
@@ -364,15 +377,14 @@ class SceneFlowNet(nn.Module):
     def __init__(self, config: FlowNetConfig):
         super().__init__()
         cfg = config
-        if cfg.prior_feat or cfg.prior_residual or cfg.prior_trust:
-            raise NotImplementedError("cluster-prior variants are not ported yet")
         if cfg.instance_head and not cfg.gate_head:
             raise ValueError("instance_head requires gate_head")
         self.config = cfg
         dtype = _torch_dtype(cfg.dtype)
         self.dtype = dtype
         hidden = cfg.base_channels * 2
-        self.pfn = PointFeatureNet(cfg.point_feat_dim, dtype)
+        self.pfn = PointFeatureNet(cfg.point_feat_dim, dtype,
+                                   extra_dim=3 if cfg.prior_feat else 0)
         self.unet = UNet(
             cfg.num_frames * cfg.point_feat_dim, cfg.depths, hidden, dtype,
             aux_channels=1 if cfg.instance_head else 0,
@@ -388,7 +400,7 @@ class SceneFlowNet(nn.Module):
                 hidden, cfg.point_feat_dim, hidden, dtype, gate=cfg.gate_head
             )
 
-    def _pool_sorted(self, pc: torch.Tensor, grid):
+    def _pool_sorted(self, pc: torch.Tensor, grid, extra=None):
         """``pooling='mean_sorted'`` for one sweep: the points reordered by
         a stable sort of their pillar ids, the PFN on them (points out of
         range zeroed), and the per-pillar mean from one sorted sum (K10) of
@@ -399,7 +411,8 @@ class SceneFlowNet(nn.Module):
         spids, order = _stable_sort(grid.pillar_ids)
         in_s = torch.gather(grid.in_range, 1, order.long())
         f = self.pfn(_take_rows_at(pc[..., :3], order),
-                     _take_rows_at(grid.centers_offset, order))
+                     _take_rows_at(grid.centers_offset, order),
+                     None if extra is None else _take_rows_at(extra, order))
         f = torch.where(in_s[..., None], f, torch.zeros_like(f))
         aug = torch.cat([f.to(torch.float32), in_s.to(torch.float32)[..., None]], dim=-1)
         out = scatter_sum_sorted(spids, aug, num_rows=h * w,
@@ -408,14 +421,18 @@ class SceneFlowNet(nn.Module):
         return img.reshape(-1, h, w, img.shape[-1]).to(self.dtype), f, (order, spids)
 
     def forward(
-        self, sweeps, valids, with_gate: bool = False, soft_gate: bool = False,
-        with_aux: bool = False, refine: Optional[bool] = None, dts=None,
+        self, sweeps, valids, prior=None, with_gate: bool = False,
+        soft_gate: bool = False, with_aux: bool = False,
+        refine: Optional[bool] = None, dts=None,
     ):
         """
         Args:
             sweeps: tuple of (B, N_i, 3) clouds — (pc0_comp, pc1[, pc_hist]);
                 flow is predicted for sweeps[0].
             valids: matching (B, N_i) validity masks.
+            prior: optional (B, N_0, 3) translation prior for sweep 0
+                (``prior_feat``: zeros when absent; ``prior_residual`` and
+                ``prior_trust`` compose it after the gate).
             with_gate: also return the gate LOGITS; requires ``gate_head``.
             soft_gate: multiply flow by sigmoid(gate) instead of the hard cut.
             with_aux: return ``(flow, aux)`` with ``gate_logit``,
@@ -433,13 +450,16 @@ class SceneFlowNet(nn.Module):
         sweep0 = None  # (order, sorted pillar ids) of sweep 0, for the decoder
         for idx, (pc, valid) in enumerate(zip(sweeps, valids)):
             grid = voxelize_pillars(pc, valid, cfg.pillar)
+            extra = None
+            if cfg.prior_feat and idx == 0 and prior is not None:
+                extra = prior.to(dtype)
             if sorted_mode:
-                img, f, sort = self._pool_sorted(pc, grid)
+                img, f, sort = self._pool_sorted(pc, grid, extra)
                 images.append(img)
                 if idx == 0:
                     sweep0 = sort
             else:
-                f = self.pfn(pc, grid.centers_offset)
+                f = self.pfn(pc, grid.centers_offset, extra)
                 f = torch.where(grid.in_range[..., None], f, torch.zeros_like(f))
             grids.append(grid)
             feats.append(f)
@@ -548,14 +568,29 @@ class SceneFlowNet(nn.Module):
                 flow = torch.where(
                     (gate_logit > 0.0)[..., None], flow, torch.zeros_like(flow)
                 )
+        covered = None
+        if cfg.prior_residual and prior is not None:
+            p32 = prior.to(torch.float32)
+            covered = (p32.abs() > 1e-6).any(dim=-1, keepdim=True)
+            if cfg.prior_trust:
+                # flow = prior where covered, gated residual elsewhere.
+                flow = torch.where(covered, p32, flow)
+            else:
+                flow = flow + p32  # flow = prior + gated residual
         if (
             cfg.instance_head
             and cfg.refine_head
             and (refine if refine is not None else not soft_gate)
         ):
+            # Confident slots emit the refined translation, overriding the
+            # pooled mean, the gate and the prior; covered points count as
+            # open gates.
+            w0 = gate_w
+            if covered is not None:
+                w0 = torch.maximum(w0, covered[..., 0].to(torch.float32))
             flow = refine_flow(
                 flow, sweeps[0][..., :3].to(torch.float32), slot, valids[0],
-                gate_w, sweeps[1][..., :3].to(torch.float32), valids[1],
+                w0, sweeps[1][..., :3].to(torch.float32), valids[1],
                 dyn_logit, grids[1].pillar_ids, grids[1].in_range,
                 cfg.instance_slots, cfg.refine,
                 dt0=None if dts is None else dts[0],
@@ -589,11 +624,19 @@ _PRESETS = {
     "seflowpp_noprior": dict(
         decoder="deflow", num_frames=3, gate_head=True, corr_volume=True,
     ),
+    # The offline / labelling hybrid: the host cluster prior enters as 3
+    # PFN channels, as the residual base, and is emitted verbatim on
+    # covered points; slots the refine head verifies emit the measured
+    # translation instead.
+    "seflowpp_trust": dict(
+        decoder="deflow", num_frames=3, gate_head=True,
+        prior_feat=True, prior_residual=True, prior_trust=True,
+        corr_volume=True, instance_head=True, refine_head=True,
+    ),
     "seflow": dict(decoder="deflow", num_frames=2, gate_head=True),
+    # The prior-conditioned net's older name: feature channels only.
+    "seflowpp_prior": dict(decoder="deflow", num_frames=3, prior_feat=True),
 }
-# Presets that need host cluster priors (models/icp_flow + models/nsfp in
-# the JAX package); not ported yet.
-_PRIOR_PRESETS = ("seflowpp_trust", "seflowpp_prior")
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -619,10 +662,6 @@ def make_model(
     ``load_state_dict``."""
     from himo_tpu_torch.utils.config import apply_overrides
 
-    if name in _PRIOR_PRESETS:
-        raise NotImplementedError(
-            f"{name!r} needs host cluster priors, which are not ported yet"
-        )
     if name not in _PRESETS:
         raise KeyError(f"unknown feed-forward model {name!r}")
     config = FlowNetConfig(**_PRESETS[name])
@@ -681,15 +720,41 @@ def frame(
     pc_hist: torch.Tensor,
     valid: torch.Tensor,
     dt0: torch.Tensor,
+    prior: Optional[torch.Tensor] = None,
 ):
     """The de-skew path the JAX bench times, over a batch of frames: flow
     for (B, N, 3) ``pc0`` (with ``pc1`` and the history sweep sharing
-    ``valid``), ``dts = (dt0, dt0)`` for the refine head's de-smear, then
-    ``comp_dis = flow * dt0 / 0.1`` and ``refined = pc0 + comp_dis``.
-    Returns ``(flow, comp_dis, refined)``."""
-    flow = model((pc0, pc1, pc_hist), (valid, valid, valid), dts=(dt0, dt0))
+    ``valid``, and the prior presets' (B, N, 3) ``prior``), ``dts = (dt0,
+    dt0)`` for the refine head's de-smear, then ``comp_dis = flow * dt0 /
+    0.1`` and ``refined = pc0 + comp_dis``. Returns ``(flow, comp_dis,
+    refined)``."""
+    flow = model((pc0, pc1, pc_hist), (valid, valid, valid), prior, dts=(dt0, dt0))
     comp_dis = flow_to_comp_dis(flow, dt0)
     return flow, comp_dis, refine_points(pc0, comp_dis)
+
+
+def frame_priors(pc0, pc1, valid0, valid1, dt0=None, dt1=None, trackers=None,
+                 scene_id=None, pose1=None) -> torch.Tensor:
+    """The host cluster prior of each frame of a batch ((B, N, >=3) clouds,
+    (B, N) masks), stacked into a (B, N0, 3) float32 tensor on ``pc0``'s
+    device: ``models/nsfp.cluster_prior_flow`` at its keyword defaults, as
+    the reference's estimator calls it. With ``scene_id`` and ``pose1``
+    ((B, 4, 4)) the frames feed ``trackers[scene_id]`` in order."""
+    from himo_tpu_torch.models.icp_flow import ClusterTracker
+    from himo_tpu_torch.models.nsfp import cluster_prior_flow
+
+    tracker = None
+    if trackers is not None and scene_id is not None and pose1 is not None:
+        tracker = trackers.setdefault(scene_id, ClusterTracker())
+    return torch.stack([
+        cluster_prior_flow(
+            pc0[b], pc1[b], valid0[b], valid1[b],
+            dt0=None if dt0 is None else dt0[b],
+            dt1=None if dt1 is None else dt1[b],
+            tracker=tracker, pose1=None if tracker is None else pose1[b],
+        )
+        for b in range(pc0.shape[0])
+    ])
 
 
 def _feedforward_estimator(name: str):
@@ -713,12 +778,17 @@ def _feedforward_estimator(name: str):
             )
         model.load_state_dict(params)
         model.eval()
+        trackers = {}  # per-scene velocity continuity for the prior channel
 
         @torch.inference_mode()
         def estimate(pc0, pc1, valid0, valid1, key=None, history=None,
                      dt0=None, dt1=None, scene_id=None, pose1=None):
             """Flow for ``pc0``: clouds (N, >=3) or batched (B, N, >=3),
-            masks to match. Returns ``(flow, 0)`` like the JAX estimator."""
+            masks to match. Returns ``(flow, 0)`` like the JAX estimator.
+            The prior presets compute each frame's host cluster prior
+            (``models/nsfp.cluster_prior_flow``); with ``scene_id`` and
+            ``pose1`` (per frame: (4, 4), or (B, 4, 4) batched) the
+            frames, in order, share that scene's ``ClusterTracker``."""
             single = pc0.dim() == 2
             if single:
                 pc0, pc1, valid0, valid1 = (
@@ -730,6 +800,12 @@ def _feedforward_estimator(name: str):
                     dt0 = dt0[None]
                 if dt1 is not None:
                     dt1 = dt1[None]
+                if pose1 is not None:
+                    pose1 = pose1[None]
+            prior = None
+            if config.prior_feat:
+                prior = frame_priors(pc0, pc1, valid0, valid1, dt0, dt1,
+                                     trackers, scene_id, pose1)
             sweeps = [pc0[..., :3], pc1[..., :3]]
             valids = [valid0, valid1]
             if config.num_frames >= 3:
@@ -742,16 +818,17 @@ def _feedforward_estimator(name: str):
             dts = None
             if config.refine_head and dt0 is not None and dt1 is not None:
                 dts = (dt0, dt1)
-            flow = model(tuple(sweeps), tuple(valids), dts=dts)
+            flow = model(tuple(sweeps), tuple(valids), prior, dts=dts)
             if single:
                 flow = flow[0]
             return flow, torch.zeros((), device=flow.device)
 
         estimate.num_frames = config.num_frames
+        estimate.trackers = trackers
         return estimate
 
     return factory
 
 
-for _name in (*_PRESETS, *_PRIOR_PRESETS):
+for _name in _PRESETS:
     register_estimator(_name)(_feedforward_estimator(_name))

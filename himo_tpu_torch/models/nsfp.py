@@ -10,16 +10,17 @@ through ``csrc/nn.cu``'s argmin kernel and one ``segment_rows_sum``, plus two
 nor receive flow.
 
 The reference's default ``cluster_prior=True`` seeds the optimisation with
-host-side cluster translation priors (DBSCAN and ``icp_flow``'s matcher),
-which the port does not have yet: the registry's factory refuses that
-setting. :func:`nsfp_flow` itself takes an external ``prior_flow``, as the
-reference's does.
+host-side cluster translation priors (:func:`cluster_prior_flow`: HDBSCAN
+of both sweeps' dynamic points and ``icp_flow``'s matcher, numpy and scipy
+on the host); the MLP then learns the residual on top. ``cluster_prior=
+False`` is the classic cold start.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from himo_tpu_torch.models.coordinate_mlp import apply_mlp, init_mlp
@@ -46,8 +47,15 @@ class NSFPConfig:
     anneal_frac: float = 0.5
     # k-NN smoothed chamfer (ops/knn.py); 0 = the single-NN chamfer.
     knn_k: int = 0
-    # The host cluster prior (not ported; see the module docstring).
+    # Cluster translation prior (see :func:`cluster_prior_flow`): the
+    # optimisation starts from per-cluster deltas, so fast objects start
+    # inside the truncation radius. False = the classic cold start.
     cluster_prior: bool = True
+    prior_threshold: float = 0.18
+    prior_eps: float = 1.0  # looser than the label clustering's 0.6
+    prior_min_samples: int = 5
+    prior_match_gate: float = 6.0
+    prior_min_norm: float = 1.0  # seed only where the chamfer cannot reach
 
 
 def opt_schedule(config):
@@ -112,37 +120,111 @@ def nsfp_flow(
     return flow, loss
 
 
-def opt_estimator(name: str, flow_fn, config, device):
+def cluster_prior_flow(
+    pc0,
+    pc1,
+    valid0,
+    valid1,
+    config=None,
+    threshold: float = 0.18,
+    eps: float = 1.0,
+    min_samples: int = 5,
+    match_gate: float = 6.0,
+    min_norm: float = 1.0,
+    dt0=None,
+    dt1=None,
+    tracker=None,
+    pose1=None,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Host-side translation-prior field for seeding the optimisation:
+    HDBSCAN clusters the dynamic points of both (ego-compensated) sweeps
+    and matched cluster deltas spread over each pc0 cluster
+    (``training/ssl_labels.translation_priors``). ``config`` (an NSFP or
+    FastNSF config) overrides the keyword defaults. Per-point sweep times
+    (``dt0``/``dt1``) enable the de-smeared matcher, and a per-scene
+    ``models/icp_flow.ClusterTracker`` (+``pose1``) adds velocity
+    continuity. Inputs are tensors or numpy arrays; returns the (N0, 3)
+    float32 prior on ``device`` (default: ``pc0``'s device, or the CPU)."""
+    from himo_tpu_torch.models.icp_flow import to_numpy
+    from himo_tpu_torch.training.ssl_labels import (
+        cluster_dynamic_points,
+        dynamic_mask_from_nn,
+        translation_priors,
+    )
+
+    if config is not None:
+        threshold = config.prior_threshold
+        eps = config.prior_eps
+        min_samples = config.prior_min_samples
+        match_gate = config.prior_match_gate
+        min_norm = config.prior_min_norm
+    if device is None:
+        device = pc0.device if isinstance(pc0, torch.Tensor) else "cpu"
+
+    p0 = to_numpy(pc0)[:, :3].astype(np.float32)
+    p1 = to_numpy(pc1)[:, :3].astype(np.float32)
+    v0 = to_numpy(valid0).astype(bool)
+    v1 = to_numpy(valid1).astype(bool)
+    if not v0.any() or not v1.any():
+        return torch.zeros(p0.shape, dtype=torch.float32, device=device)
+    dt0 = None if dt0 is None else to_numpy(dt0)
+    dt1 = None if dt1 is None else to_numpy(dt1)
+    pose1 = None if pose1 is None else to_numpy(pose1)
+    dyn0 = np.zeros(len(p0), bool)
+    dyn0[v0] = dynamic_mask_from_nn(p0[v0], p1[v1], threshold)
+    labels0 = cluster_dynamic_points(p0, dyn0, eps=eps, min_samples=min_samples)
+    dyn1 = np.zeros(len(p1), bool)
+    dyn1[v1] = dynamic_mask_from_nn(p1[v1], p0[v0], threshold)
+    prior, _ = translation_priors(
+        p0, labels0, p1, dyn1, eps=eps, min_samples=min_samples,
+        match_gate=match_gate, min_norm=min_norm,
+        dt0=dt0, dt1=dt1, tracker=tracker, pose1=pose1,
+        # The valid masks exclude ground: the completion eligibility that
+        # complete_cluster_bodies needs.
+        eligible0=v0, eligible1=v1,
+    )
+    return torch.from_numpy(prior).to(device)
+
+
+def opt_estimator(flow_fn, config, device):
     """Registry adapter of an optimisation estimator: runs ``flow_fn`` with
-    ``config`` on ``device`` (default: the GPU; raises without CUDA).
-    Raises for ``cluster_prior=True``: nothing runs without the prior that
-    was asked for."""
+    ``config`` on ``device`` (default: the GPU; raises without CUDA). With
+    ``config.cluster_prior`` each frame pair is seeded by
+    :func:`cluster_prior_flow`, with one ``ClusterTracker`` per scene in
+    ``estimate.trackers`` when the caller passes ``scene_id`` and
+    ``pose1`` (frames in order)."""
     from himo_tpu_torch.models.feedforward import resolve_device
+    from himo_tpu_torch.models.icp_flow import ClusterTracker
 
-    if config.cluster_prior:
-        raise NotImplementedError(
-            f"{name}: cluster_prior=True needs the host cluster prior (DBSCAN "
-            "clustering and icp_flow's matcher and tracker), which the port does "
-            "not have yet (ROADMAP.md, Next slices: the cluster prior); pass "
-            "cluster_prior=False for the classic cold start"
-        )
     dev = resolve_device(device)
+    trackers = {}
 
-    def estimate(pc0, pc1, valid0, valid1, generator, prior_flow=None):
+    def estimate(pc0, pc1, valid0, valid1, generator, prior_flow=None, dt0=None,
+                 dt1=None, scene_id=None, pose1=None):
         """Flow for one frame pair (clouds (N, >=3), masks (N,)), moved to
-        the estimator's device; ``generator`` draws the MLP's weights.
-        Returns ``(flow, loss)``."""
+        the estimator's device; ``generator`` draws the MLP's weights (the
+        reference's ``key``). ``prior_flow``, when given, replaces the
+        cluster prior. Returns ``(flow, loss)``."""
         pc0, pc1, valid0, valid1 = (t.to(dev) for t in (pc0, pc1, valid0, valid1))
+        if prior_flow is None and config.cluster_prior:
+            tracker = None
+            if scene_id is not None and pose1 is not None:
+                tracker = trackers.setdefault(scene_id, ClusterTracker())
+            prior_flow = cluster_prior_flow(
+                pc0, pc1, valid0, valid1, config, dt0=dt0, dt1=dt1,
+                tracker=tracker, pose1=pose1, device=dev,
+            )
         if prior_flow is not None:
             prior_flow = prior_flow.to(dev)
         return flow_fn(pc0, pc1, valid0, valid1, generator, config, prior_flow)
 
     estimate.config = config
+    estimate.trackers = trackers
     return estimate
 
 
 @register_estimator("nsfp")
 def make_nsfp(device: torch.device | str | None = None, **overrides):
-    """The ``nsfp`` estimator; ``overrides`` feed :class:`NSFPConfig`, and
-    ``cluster_prior=False`` is required for now."""
-    return opt_estimator("nsfp", nsfp_flow, NSFPConfig(**overrides), device)
+    """The ``nsfp`` estimator; ``overrides`` feed :class:`NSFPConfig`."""
+    return opt_estimator(nsfp_flow, NSFPConfig(**overrides), device)

@@ -1,7 +1,7 @@
 """Method-name registry mapping CLI names to estimators
 (port of ``himo_tpu/models/registry.py``): the feed-forward networks and
 the runtime-optimisation estimators ``nsfp``, ``fastnsf`` and
-``fastnsf10``; ``icp_flow`` is not ported yet."""
+``fastnsf10``, and ``icpflow``."""
 
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ def _load_builtin_estimators():
     import himo_tpu_torch.models.nsfp  # noqa: F401
     import himo_tpu_torch.models.fastnsf  # noqa: F401
     import himo_tpu_torch.models.feedforward  # noqa: F401
+    import himo_tpu_torch.models.icp_flow  # noqa: F401
 
 
 def available_estimators():

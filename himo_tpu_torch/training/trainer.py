@@ -296,16 +296,22 @@ def _frame_flow_and_loss(model, config: TrainConfig, b: Dict):
     if num_frames >= 3:
         sweeps.append(b["pc_hist"])
         valids.append(b["valid_hist"])
+    # The prior presets see the stored translation prior where it is valid.
+    prior_in = None
+    if model.config.prior_feat and "prior0" in b:
+        prior_in = torch.where(b["prior_valid0"][..., None], b["prior0"],
+                               torch.zeros_like(b["prior0"]))
     gate_logit = None
     dyn_logit = None
     if model.config.gate_head:
         # soft_gate: training differentiates THROUGH the sigmoid gate; the
         # refine head is off (refine defaults to not soft_gate).
-        flow, aux = model(tuple(sweeps), tuple(valids), with_aux=True, soft_gate=True)
+        flow, aux = model(tuple(sweeps), tuple(valids), prior_in, with_aux=True,
+                          soft_gate=True)
         gate_logit = aux.get("gate_logit")
         dyn_logit = aux.get("dyn_logit")
     else:
-        flow = model(tuple(sweeps), tuple(valids))
+        flow = model(tuple(sweeps), tuple(valids), prior_in)
     common = dict(
         num_clusters=config.num_clusters,
         weights=config.weights,

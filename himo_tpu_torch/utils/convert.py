@@ -14,7 +14,9 @@ top-level ``"params"`` key. The mapping:
   cat(hr, hz, hn).T``, ``bias_ih = cat(b_ir, b_iz, b_in)`` and
   ``bias_hh = cat(0, 0, b_hn)`` (flax's ``hr`` and ``hz`` carry no bias).
 
-Module names: ``PointFeatureNet_0`` -> ``pfn``; ``UNet_0/ConvBlock_k`` ->
+Module names: ``PointFeatureNet_0`` -> ``pfn`` (its first Dense takes 7
+inputs, or 10 with ``prior_feat``: the kernel's shape carries either);
+``UNet_0/ConvBlock_k`` ->
 ``unet.down.k`` for the encoder levels and ``unet.up.(k - L)`` after them
 (L = ``len(config.depths)``), ``UNet_0/Conv_0`` -> ``unet.head``;
 ``DeFlowGRUDecoder_0`` Dense_0..3 -> ``decoder.pillar_in``, ``point_in``,

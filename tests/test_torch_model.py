@@ -188,8 +188,9 @@ def test_make_model_presets_and_unported_options():
         model, cfg = PF.make_model(name, device="cpu", depths=(16,))
         assert cfg.depths == (16,) and isinstance(model, PF.SceneFlowNet)
     for name in ("seflowpp_trust", "seflowpp_prior"):
-        with pytest.raises(NotImplementedError):
-            PF.make_model(name)
+        # The prior presets are ported: 3 more PFN inputs (the prior).
+        model, cfg = PF.make_model(name, device="cpu", depths=(16,))
+        assert cfg.prior_feat and model.pfn.dense0.in_features == 10
     model, cfg = PF.make_model("seflowpp", device="cpu", depths=(16,), pooling="mean_sorted")
     assert cfg.pooling == "mean_sorted" and isinstance(model, PF.SceneFlowNet)
     with pytest.raises(KeyError):

@@ -192,16 +192,72 @@ def test_fastnsf_flow_matches_jax():
 
 @pytest.mark.parametrize("name", ["nsfp", "fastnsf", "fastnsf10"])
 def test_registry_refuses_the_cluster_prior_and_runs_without_it(name):
-    with pytest.raises(NotImplementedError, match="cluster prior"):
-        get_estimator(name, device="cpu")
-    small = dict(hidden=16, layers=2, iterations=3, cluster_prior=False)
-    if name != "nsfp":
-        small["dt"] = PDT.DTConfig(**SMALL_DT)
-    est = get_estimator(name, device="cpu", **small)
-    assert est.config.iterations == 3 and est.config.cluster_prior is False
+    # The reference's default, cluster_prior=True, runs (the host cluster
+    # prior is ported); cluster_prior=False is the cold start.
+    assert get_estimator(name, device="cpu").config.cluster_prior is True
     rng = np.random.default_rng(4)
     pc0, pc1, v0, v1 = _pair(rng, n=80, m=90)
-    flow, loss = est(_t(pc0), _t(pc1), _t(v0), _t(v1), torch.Generator().manual_seed(0))
-    assert flow.shape == (80, 3) and torch.isfinite(flow).all() and torch.isfinite(loss)
+    for prior in (False, True):
+        small = dict(hidden=16, layers=2, iterations=3, cluster_prior=prior)
+        if name != "nsfp":
+            small["dt"] = PDT.DTConfig(**SMALL_DT)
+        est = get_estimator(name, device="cpu", **small)
+        assert est.config.iterations == 3 and est.config.cluster_prior is prior
+        flow, loss = est(_t(pc0), _t(pc1), _t(v0), _t(v1), torch.Generator().manual_seed(0))
+        assert flow.shape == (80, 3) and torch.isfinite(flow).all() and torch.isfinite(loss)
     if name == "fastnsf10":
         assert get_estimator(name, device="cpu", cluster_prior=False).config.iterations == 150
+
+
+def _fast_pair():
+    """tests/test_fast_objects.py's pair: static clutter and a blob moved
+    3.4 m (beyond the 2 m truncation), padded to 1,024 points."""
+    from test_fast_objects import _fast_scene
+
+    p0, p1, v, gt, n_static, n = _fast_scene(np.random.default_rng(0))
+    return p0, p1, v, gt, n_static, n
+
+
+@pytest.mark.parametrize("name", ["nsfp", "fastnsf"])
+def test_cluster_prior_estimators_match_jax(name, monkeypatch):
+    """cluster_prior=True at toy size: the host prior bitwise equal to the
+    reference's (both on scipy's KD-tree), then the prior-seeded
+    optimisation from JAX's own initial MLP within the tolerances above."""
+    import himo_tpu.native
+
+    monkeypatch.setattr(himo_tpu.native, "available", lambda: False)
+    p0, p1, v, gt, n_static, n = _fast_pair()
+    if name == "nsfp":
+        fields = dict(hidden=32, layers=2, lr=8e-3, iterations=20)
+        jcfg, pcfg = JN.NSFPConfig(**fields), PN.NSFPConfig(**fields)
+    else:
+        fields = dict(hidden=32, layers=3, lr=8e-3, iterations=20)
+        jcfg = JF.FastNSFConfig(dt=JDT.DTConfig(**SMALL_DT), **fields)
+        pcfg = PF.FastNSFConfig(dt=PDT.DTConfig(**SMALL_DT), **fields)
+    assert jcfg.cluster_prior and pcfg.cluster_prior
+    jprior = JN.cluster_prior_flow(p0, p1, v, v, jcfg)
+    prior = PN.cluster_prior_flow(_t(p0), _t(p1), _t(v), _t(v), pcfg)
+    np.testing.assert_array_equal(prior.numpy(), np.asarray(jprior))
+    moved = slice(n_static, n)
+    assert (np.abs(prior.numpy()[moved] - gt[moved]).max(1) < 0.3).mean() > 0.8
+    assert (prior.numpy()[:n_static] == 0).all()
+    _, pparams = _jax_mlp(5, 32, fields["layers"])
+    jflow_fn, pflow_fn = (JN.nsfp_flow, PN.nsfp_flow) if name == "nsfp" else (
+        JF.fastnsf_flow, PF.fastnsf_flow)
+    jflow, jloss = jflow_fn(jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(v), jnp.asarray(v),
+                            jax.random.PRNGKey(5), config=jcfg, prior_flow=jprior)
+    flow, loss = pflow_fn(_t(p0), _t(p1), _t(v), _t(v), None, pcfg, prior_flow=prior,
+                          params=pparams)
+    _close(flow.numpy(), jflow, 1e-4, 1e-4)
+    _close(float(loss), float(jloss), 1e-4, 0)
+    # The registry estimator seeds the same prior (its flow equals the
+    # flow function's from the same generator and that prior) and keeps a
+    # tracker per scene when given scene_id and pose1.
+    est = get_estimator(name, device="cpu", **({} if name == "nsfp" else dict(
+        dt=PDT.DTConfig(**SMALL_DT))), **fields)
+    flow, _ = est(_t(p0), _t(p1), _t(v), _t(v), torch.Generator().manual_seed(0),
+                  scene_id="s0", pose1=_t(np.eye(4)))
+    want, _ = pflow_fn(_t(p0), _t(p1), _t(v), _t(v), torch.Generator().manual_seed(0),
+                       pcfg, prior_flow=prior)
+    torch.testing.assert_close(flow, want, rtol=0, atol=0)
+    assert set(est.trackers) == {"s0"} and est.trackers["s0"].tracks

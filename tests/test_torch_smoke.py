@@ -203,6 +203,40 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
+def test_prior_paths_on_the_cpu(rehearsal, monkeypatch, capsys):
+    """The host cluster prior's paths at a toy size: K7 at a toy ICP shape,
+    ``nsfp`` and ``fastnsf`` at their defaults, ``icpflow`` and
+    ``seflowpp_trust`` (forward and two train steps), on 4,096-point
+    pairs (16 object clusters of about 25 points each, so the clustering
+    finds objects)."""
+    dev = rehearsal
+    monkeypatch.setattr(cs, "ICP_SHAPE", (4, 64, 512))
+    monkeypatch.setattr(cs, "NSFP_POINTS", 4096)
+    icp = cs.phase_nn_icp(dev)
+    assert icp["bound_by"] == "operations" and icp["bound_ms"] > 0 and icp["device_ms"] > 0
+    pair = cs._nsfp_pair(dev)
+    none = dict.fromkeys(cs.read_counts(), 0)
+    prior = cs.phase_opt_prior(dev, pair, {"nsfp": 1.0, "fastnsf": 1.0})
+    assert prior == {**none, "nn_argmin_rows": 2 * cs.NSFP_ITERS,
+                     "segment_rows_sum": cs.NSFP_ITERS}
+    assert cs.phase_icpflow(dev, pair) == {**none, "nn_argmin_rows": cs.ICP_ITERS}
+    launches, train, run_frame, frame_ms = cs.phase_trust(dev)
+    assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
+                        "nn_min_rows": 1}
+    steps = cs.ROUTE_TRAIN_STEPS
+    assert train == {**none, "scatter_max_rows": 4 * steps, "scatter_sum_rows": steps,
+                     "segment_rows_sum": 3 * steps, "fused_nn_idx": steps,
+                     "sorted_gather_rows": 3 * steps}
+    run_frame()
+    assert frame_ms > 0
+    out = capsys.readouterr().out
+    assert "cluster_prior_flow (NSFPConfig defaults)" in out and "(cold start 1.0000 m)" in out
+    assert "icpflow registration, kernels vs plain: 1.000000 of filled slots" in out
+    assert "[inference_trust] host prior of 2 frames" in out
+    assert "[inference_trust] kernels vs plain on the card" in out
+    assert "[train_trust] step 2" in out and "nn icp B=4 64x512" in out
+
+
 def test_train_loop_phase_on_the_cpu(rehearsal, monkeypatch, capsys):
     """``phase_train_loop`` at a toy size: 2 scenes x 5 frames of 2,000
     points, batch 2, so 4 steps an epoch; the trace is the CPU's (the
