@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve main paths, at full width with random weights from seeded generators:
+Fifteen main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -49,14 +49,25 @@ Twelve main paths, at full width with random weights from seeded generators:
   and labels with its SSL label writer (``training.ssl_labels.
   write_ssl_labels``): ``seflowpp`` bf16, batch 8, 65,536 points, one
   epoch, then a second run of two epochs that resumes from the first's
-  checkpoint.
+  checkpoint;
+- the batched fleet end to end, ``parallel/fleet.fleet_save`` at the JAX
+  bench's e2e setting: 12 scenes x 5 frames x 64,800 points that the
+  port's ``make_dataset`` writes, ``seflowpp`` bf16, batches of 8 at
+  65,536 points, the flow written back into every scene file;
+- the per-frame runner through ``himo_tpu_torch.cli.save.main``:
+  ``model=fastnsf`` at its defaults (the host cluster prior, the
+  scene-start repair), then ``model=seflowpp`` (bf16) from a saved
+  checkpoint, on 2 scenes x 4 frames x 64,800 points;
+- the flow-mode evaluation, ``cli.eval`` and ``cli.eval_flow``, on what
+  those two wrote (in a temporary working directory).
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every ``himo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
-   one nvcc per source, all at once;
+   and the native host library (``csrc/himo_native.cpp``) with g++, one
+   compiler per source, all at once;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, timed with CUDA events beside the plain version and, where
    one PyTorch call computes the same function, beside that call; the
@@ -142,7 +153,28 @@ and prints no result):
    the host's ms per batch (``batch_iterator`` alone) and per frame (read,
    build), the train step in the loop (synchronized, first run) against
    the same step alone, the main thread's wait per batch, and the device
-   busy share of the resumed run's epoch loop (traced).
+   busy share of the resumed run's epoch loop (traced);
+10. native (``phase_native``): ``pack_frames`` bitwise against numpy at 8
+   frames x <= 65,536 x 3, ``KDTree.query`` at 65,536 x 65,536 against
+   scipy's float64 ``cKDTree`` (the same index wherever the two best
+   distances differ by more than 1e-6 m), the Chamfer distance, and
+   ``preload_files``' byte count; host ms of each;
+11. fleet (``phase_fleet``): a warm pass, a timed pass (points per second
+   with the write-back inside; the producer's, stacking's and readback's
+   host ms per batch) and a traced pass (device busy share); checked: 3
+   scatter_max_rows, 10 nn_argmin_rows and 1 nn_min_rows per batch, an
+   (N, 3) float32 finite flow on every frame, every other dataset
+   unchanged, and the first batch's flows against the same step with the
+   plain versions (>= 0.99 of points within 1e-3 m);
+12. save (``phase_save``): a flow on exactly the frames with a successor,
+   every other dataset unchanged, the scene-start repair's count against
+   the pairs whose backcast has tracks, and the launches (none for
+   ``fastnsf``, the 512x512 forward's per frame for ``seflowpp``); host ms
+   per frame;
+13. eval (``phase_eval``): ``perfect`` scores below 1e-5 m of MPE and CDE,
+   ``raw`` worse, every other flow (and the fleet's) finite; ``eval_flow``
+   on the same flows; only the two ``res-*.json`` written, in the
+   temporary directory; host ms per frame.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -162,6 +194,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -216,6 +249,20 @@ LOOP_SCENES, LOOP_FRAMES = 3, 12  # the train loop's dataset: 36 frames
 LOOP_BACKGROUND = 64000  # + 2 x 400 object points = 64,800 points a frame
 LOOP_LABEL = "train_loop epoch"  # the profiler range of each train epoch
 LOOP_ISOLATED_STEPS = 5
+# The native host library: the fleet's packer at its batch, the KD-tree at
+# the eval chamfer's full-frame size, the page-cache preload.
+NATIVE_FRAMES = (64800, 70000, 61000, 65536, 64800, 58000, 66000, 64800)
+NATIVE_TREE = 65536
+NATIVE_TIE_M = 1e-6  # indices compared where the two best distances differ by more
+NATIVE_RUNS = 5
+# The fleet: the JAX bench's end-to-end cell (bench.py:158-180), 12 scenes x
+# 5 frames x 64,800 points, batches of 8 at 65,536 points.
+FLEET_SCENES, FLEET_FRAMES, FLEET_BACKGROUND = 12, 5, 64000
+FLEET_LABEL = "fleet pass"
+# cli.save: 2 scenes x 4 frames x 64,800 points with a perfect method flow
+# for the eval.
+SAVE_SCENES, SAVE_FRAMES, SAVE_BACKGROUND = 2, 4, 64000
+EVAL_PERFECT_MAX = 1e-5  # tests/test_eval_pipeline.py's bound on perfect's MPE and CDE
 # Roofline of one H100 SXM (NVIDIA's data sheet; at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -465,13 +512,23 @@ def phase_device():
 
 
 def phase_build():
+    """Every ``csrc/*.cu`` with nvcc and the native host library with the
+    C++ compiler, one compiler process each, all at once."""
+    from himo_tpu_torch import native
     from himo_tpu_torch.kernels import _build
 
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    cxx = native.compiler()
+    if cxx is None:
+        raise RuntimeError("native: no C++ compiler")
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(native.build, cxx)
         paths = dict(zip(names, pool.map(_build.build, names)))
-    log(f"build {', '.join(names)}: {time.perf_counter() - start:.2f} s in parallel")
+        host_lib = host.result()
+    log(f"build {', '.join(names)} and {native.SOURCE.name}: "
+        f"{time.perf_counter() - start:.2f} s in parallel")
+    log(f"  himo_native -> {host_lib.name} ({cxx})")
     for name, path in paths.items():
         log(f"  {name} -> {path.name}")
         entry, spills = "", ""
@@ -2624,6 +2681,359 @@ def phase_train_loop(device, smi: str):
     return counts
 
 
+def _median_ms(fn, runs: int = NATIVE_RUNS):
+    """(last result, median host ms) of ``runs`` calls of ``fn``."""
+    times, out = [], None
+    for _ in range(runs):
+        start = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    return out, float(np.median(times))
+
+
+def phase_native(smi: str) -> None:
+    """The native host library on the card's host: ``pack_frames`` bitwise
+    against numpy's pad and stack at the fleet's batch (8 frames, one
+    longer than the 65,536-point budget), ``KDTree.query`` at 65,536 x
+    65,536 against scipy's float64 ``cKDTree`` (the same index wherever
+    the two best float64 distances differ by more than ``NATIVE_TIE_M``),
+    the Chamfer distance against ``cKDTree``'s, and ``preload_files``'
+    byte count; host ms of each beside scipy's and numpy's."""
+    import tempfile
+
+    from scipy.spatial import cKDTree
+
+    from himo_tpu_torch import native
+    from himo_tpu_torch.data.synthetic import lidar_like_cloud
+
+    if not native.available():
+        raise AssertionError("native: the library is not available on the card's host")
+    rng = np.random.default_rng(0)
+    frames = [rng.normal(0, 20, (n, 3)).astype(np.float32) for n in NATIVE_FRAMES]
+    (batch, valid), pack_ms = _median_ms(lambda: native.pack_frames(frames, NUM_POINTS))
+
+    def numpy_pack():
+        out = np.zeros((len(frames), NUM_POINTS, 3), np.float32)
+        for b, f in enumerate(frames):
+            out[b, : min(len(f), NUM_POINTS)] = f[:NUM_POINTS]
+        return out
+
+    want, numpy_ms = _median_ms(numpy_pack)
+    if batch.tobytes() != want.tobytes() or \
+            valid.sum(1).tolist() != [min(n, NUM_POINTS) for n in NATIVE_FRAMES]:
+        raise AssertionError("native: pack_frames differs from numpy's pad and stack")
+
+    tree_pts = lidar_like_cloud(np.random.default_rng(1), 1, NATIVE_TREE)[0]
+    queries = lidar_like_cloud(np.random.default_rng(2), 1, NATIVE_TREE)[0] + np.float32(0.05)
+    (dist, idx), kd_ms = _median_ms(lambda: native.KDTree(tree_pts).query(queries))
+    (ref_d, ref_i), ckd_ms = _median_ms(
+        lambda: cKDTree(tree_pts.astype(np.float64)).query(queries.astype(np.float64), k=2))
+    clear = ref_d[:, 1] - ref_d[:, 0] > NATIVE_TIE_M
+    wrong = int((idx[clear] != ref_i[clear, 0]).sum())
+    d_err = float(np.abs(dist.astype(np.float64) - ref_d[:, 0]).max())
+    if wrong or d_err > 1e-4:
+        raise AssertionError(f"native: KDTree.query differs from cKDTree on {wrong} of "
+                             f"{int(clear.sum())} untied queries (max distance error {d_err})")
+    cham, cham_ms = _median_ms(lambda: native.chamfer(tree_pts, queries))
+    ref_cham = (ref_d[:, 0].mean() + cKDTree(queries.astype(np.float64)).query(
+        tree_pts.astype(np.float64))[0].mean()) / 2
+    if abs(cham - ref_cham) > 1e-5 * max(ref_cham, 1.0):
+        raise AssertionError(f"native: chamfer {cham} against cKDTree's {ref_cham}")
+
+    with tempfile.TemporaryDirectory(prefix="himo_native_") as tmp:
+        paths = []
+        for k, n in enumerate((4 << 20, (8 << 20) + 123, 77)):
+            path = Path(tmp) / f"file{k}.bin"
+            path.write_bytes(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+            paths.append(path)
+        size = sum(p.stat().st_size for p in paths)
+        got, preload_ms = _median_ms(lambda: native.preload_files(paths))
+    if got != size:
+        raise AssertionError(f"native: preload_files returned {got} bytes of {size}")
+    log(f"[native] {smi}: pack_frames {len(frames)} x <= {NUM_POINTS} x 3 {pack_ms:.3f} ms "
+        f"(numpy pad + stack {numpy_ms:.3f}), bitwise equal; KDTree build + query "
+        f"{NATIVE_TREE:,} x {NATIVE_TREE:,} {kd_ms:.3f} ms (cKDTree float64 k=2 "
+        f"{ckd_ms:.3f}), the same index on all {int(clear.sum()):,} queries whose two best "
+        f"distances differ by more than {NATIVE_TIE_M} m ({len(queries) - int(clear.sum())} "
+        f"near-ties), max distance error {d_err:.3g} m; chamfer {cham_ms:.3f} ms "
+        f"({cham:.6f} m, cKDTree {ref_cham:.6f}); preload_files {size:,} bytes in "
+        f"{preload_ms:.3f} ms (medians of {NATIVE_RUNS}; {len(os.sched_getaffinity(0))} cores)")
+
+
+FLEET_LAUNCHES = INFER_LAUNCHES  # per batch: the 512x512 headline's forward
+
+
+def _scene_datasets(root: Path) -> dict:
+    return {p.stem: _read_datasets(p) for p in sorted(root.glob("*.h5"))}
+
+
+def _check_written(name, root: Path, before: dict, key: str, frames) -> dict:
+    """Each (scene, group) of ``frames`` holds an (N, 3) float32 finite flow
+    under ``key``, no other group one, and every other dataset is as it was
+    in ``before``; returns the flows by (scene, group)."""
+    after, flows = _scene_datasets(root), {}
+    want = {(str(s), str(t)) for s, t in frames}
+    for scene, groups in before.items():
+        if after[scene].keys() != groups.keys():
+            raise AssertionError(f"{name}: {scene}'s groups changed")
+        for group, arrays in groups.items():
+            got = after[scene][group]
+            added = set(got) - set(arrays) - {key}
+            if added or set(arrays) - set(got):
+                raise AssertionError(f"{name}: {scene}/{group} holds {sorted(got)}")
+            for ds_name, arr in arrays.items():
+                if ds_name == key:
+                    continue
+                if got[ds_name].dtype != arr.dtype or got[ds_name].tobytes() != arr.tobytes():
+                    raise AssertionError(f"{name}: {scene}/{group}/{ds_name} changed")
+            if (scene, group) in want:
+                flow = got.get(key)
+                n = len(arrays["lidar"])
+                if flow is None or flow.dtype != np.float32 or flow.shape != (n, 3):
+                    raise AssertionError(f"{name}: {scene}/{group} has no (N, 3) float32 {key}")
+                if not np.isfinite(flow).all():
+                    raise AssertionError(f"{name}: {scene}/{group} {key} is not finite")
+                flows[(scene, group)] = flow
+            elif key in got and key not in arrays:
+                raise AssertionError(f"{name}: {scene}/{group} (no successor) got a {key}")
+    return flows
+
+
+def phase_fleet(device, smi: str, root: Path):
+    """The batched fleet end to end (``parallel/fleet.fleet_save``) at the
+    JAX bench's e2e setting: ``make_dataset`` writes ``FLEET_SCENES`` x
+    ``FLEET_FRAMES`` x 64,800 points into ``root``; ``seflowpp`` bf16 with
+    random weights, ``FleetConfig(num_points=NUM_POINTS,
+    batch_per_device=BATCH)``; one warm pass, a timed pass (points per
+    second with the write-back inside, as ``bench.py`` counts them), and a
+    traced pass for the device busy share. Checks the launches per batch,
+    a float32 (N, 3) finite flow on every frame, every other dataset
+    unchanged, and the first batch's flows against the same step with the
+    plain versions. Returns the timed pass's launches."""
+    import torch
+
+    from himo_tpu_torch import native
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.data.synthetic import make_dataset
+    from himo_tpu_torch.models.feedforward import init_params, make_model
+    from himo_tpu_torch.parallel import fleet
+    from torch.profiler import record_function
+
+    start = time.perf_counter()
+    make_dataset(root, num_scenes=FLEET_SCENES, num_frames=FLEET_FRAMES, seed=0,
+                 num_background=FLEET_BACKGROUND)
+    made_s = time.perf_counter() - start
+    before = _scene_datasets(root)
+    model, _ = make_model("seflowpp", device=device, dtype="bfloat16")
+    state = init_params(model, torch.Generator().manual_seed(0))
+    model.eval()
+    config = fleet.FleetConfig(num_points=NUM_POINTS, batch_per_device=BATCH)
+    kw = dict(model="seflowpp", params=state, output_key="fleet", config=config,
+              model_overrides={"dtype": "bfloat16"}, verbose=False, device=device)
+    fleet.fleet_save(str(root), **kw)  # warm: cuDNN/cuBLAS set-up, page cache
+    torch.cuda.synchronize()
+
+    reset_counts()
+    start = time.perf_counter()
+    stats = fleet.fleet_save(str(root), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = read_counts()
+    n_batches = -(-stats["frames"] // BATCH)
+    want = dict.fromkeys(launches, 0)
+    want.update({k: n_batches * v for k, v in FLEET_LAUNCHES.items()})
+    if launches != want:
+        raise AssertionError(f"fleet: launches {launches} != {want} ({n_batches} batches)")
+
+    def traced_pass():
+        with record_function(FLEET_LABEL):
+            out = fleet.fleet_save(str(root), **kw)
+            torch.cuda.synchronize()
+        return out
+
+    traced_stats, events = traced(traced_pass)
+    busy, traced_wall = window_busy(events, FLEET_LABEL)
+
+    dataset = SceneFlowDataset(root, with_pc1=True, with_history=True,
+                               extra_keys=("ssl_prior", "ssl_prior_valid"),
+                               next_keys=("lidar_dt",))
+    eval_index = SceneFlowDataset(root, eval=True).eval_index
+    flows = _check_written("fleet", root, before, "fleet", dataset.data_index)
+    if not {(s, str(t)) for s, t in eval_index} <= set(flows):
+        raise AssertionError("fleet: a frame of the eval index has no flow")
+
+    # The first batch again, with the plain versions on the card.
+    first = [fleet.frame_to_arrays(dataset[i], NUM_POINTS, True, defer_pack=native.available(),
+                                   with_dts=True) for i in range(BATCH)]
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in fleet.stack_fleet_batch(first, NUM_POINTS).items()}
+    step = fleet.make_fleet_step(model, config, outputs=("flow", "comp_dis"))
+    with plain_kernels():
+        out = step(batch)
+    plain = out["flow"].cpu().numpy()
+    moved = float((out["comp_dis"] != 0).any(-1).float().mean())
+    dist = []
+    for b, (scene, ts) in enumerate(dataset.data_index[:BATCH]):
+        n = first[b]["num_real"]
+        dist.append(np.linalg.norm(flows[(scene, str(ts))][:n] - plain[b, :n], axis=1))
+    dist = np.concatenate(dist)
+    agree = float((dist <= SLICE_TOL_M).mean())
+    if agree < SLICE_MIN_AGREE:
+        raise AssertionError(f"fleet: only {agree:.4f} of the first batch's points agree with "
+                             f"the plain versions within {SLICE_TOL_M} m")
+    n_pts = stats["points"]
+    frame_pts = sorted({len(g["lidar"]) for groups in before.values() for g in groups.values()})
+    log(f"[fleet] {smi}: {stats['frames']} frames ({FLEET_SCENES} scenes x {FLEET_FRAMES}) of "
+        f"{frame_pts} points written in {made_s:.2f} s; seflowpp bf16, batches of {BATCH} at "
+        f"{NUM_POINTS:,} points, {n_batches} batches")
+    log(f"[fleet] {smi}: timed pass {wall:.3f} s with the write-back: "
+        f"{n_pts / wall / 1e6:.4f} M points/s ({n_pts:,} points; run_fleet "
+        f"{stats['seconds']:.3f} s = {stats['points_per_sec'] / 1e6:.4f} M points/s, "
+        f"write-back {stats['write_s']:.3f} s); producer {stats['prep_s'] / n_batches * 1e3:.3f} "
+        f"host ms per batch (summed over its {config.prep_threads} threads), main thread: "
+        f"stack + upload {stats['stack_s'] / n_batches * 1e3:.3f} ms, waiting for a batch "
+        f"{stats['wait_s'] / n_batches * 1e3:.3f} ms, readback + consumer "
+        f"{stats['drain_s'] / n_batches * 1e3:.3f} ms per batch")
+    log(f"[fleet] {smi}: traced pass: device busy {busy:.3f} ms of {traced_wall:.3f} ms, busy "
+        f"share {busy / traced_wall:.4f} (run_fleet {traced_stats['seconds']:.3f} s, write-back "
+        f"{traced_stats['write_s']:.3f} s)")
+    log(f"[fleet] launches {({k: v for k, v in launches.items() if v})}; first "
+        f"batch vs plain versions: {agree:.6f} of points within {SLICE_TOL_M} m (max "
+        f"{float(dist.max()):.6f} m; {moved:.4f} of its points have a non-zero comp_dis); "
+        f"every frame has a finite (N, 3) float32 flow, every other dataset unchanged")
+    return launches
+
+
+def phase_save(device, smi: str, root: Path):
+    """``cli.save.main`` (the per-frame runner) on ``SAVE_SCENES`` x
+    ``SAVE_FRAMES`` x 64,800 points written into ``root`` with a perfect
+    method flow: ``model=fastnsf`` at its defaults (the host cluster prior
+    on, with the scene-start repair), then ``model=seflowpp`` (bf16) from a
+    saved random checkpoint. Checks a flow on exactly the frames with a
+    successor, every other dataset unchanged, the repair's count against
+    the pairs whose backcast has tracks, and the launches (none for
+    fastnsf, the headline's forward per frame for seflowpp). Returns the
+    launches of both runs."""
+    import tempfile
+
+    import torch
+
+    from himo_tpu_torch.cli.save import main as save_main
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.data.synthetic import make_dataset
+    from himo_tpu_torch.models import runner
+    from himo_tpu_torch.models.feedforward import init_params, make_model
+    from himo_tpu_torch.training.checkpoints import save_checkpoint
+
+    make_dataset(root, num_scenes=SAVE_SCENES, num_frames=SAVE_FRAMES, seed=0,
+                 num_background=SAVE_BACKGROUND, method_flows={"perfect": 0.0})
+    pairs = SceneFlowDataset(root, eval=True).eval_index  # every frame with a successor
+    estimators = []
+    get_estimator = runner.get_estimator
+
+    def capturing(*args, **kwargs):
+        estimators.append(get_estimator(*args, **kwargs))
+        return estimators[-1]
+
+    total = {}
+    runner.get_estimator = capturing
+    try:
+        for model, extra in (("fastnsf", {}), ("seflowpp", {"dtype": "bfloat16"})):
+            before = _scene_datasets(root)
+            with tempfile.TemporaryDirectory(prefix="himo_ckpt_") as ckpt:
+                if model == "seflowpp":
+                    net, _ = make_model("seflowpp", device=device, dtype="bfloat16")
+                    save_checkpoint(ckpt, {"params": init_params(
+                        net, torch.Generator().manual_seed(0))})
+                    extra = {**extra, "checkpoint": ckpt}
+                    del net
+                reset_counts()
+                start = time.perf_counter()
+                stats = save_main(dataset_path=str(root), model=model, device=device, **extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                launches = read_counts()
+            _check_written(f"save {model}", root, before, model, pairs)
+            if stats["frames"] != len(pairs):
+                raise AssertionError(f"save {model}: {stats['frames']} frames of {len(pairs)}")
+            trackers = getattr(estimators[-1], "trackers", None) or {}
+            n_pairs = {s: sum(1 for p in pairs if p[0] == s) for s, _ in pairs}
+            expected = sum(
+                1 for s, tr in trackers.items() if n_pairs.get(s, 0) >= 3
+                for j in range(min(2, n_pairs[s])) if tr.backcast(n_frames=n_pairs[s] - j).tracks)
+            if stats["repaired"] != expected:
+                raise AssertionError(f"save {model}: the repair re-estimated "
+                                     f"{stats['repaired']} pairs, not {expected}")
+            want = dict.fromkeys(launches, 0)
+            if model == "seflowpp":
+                want.update({k: len(pairs) * v for k, v in INFER_LAUNCHES.items()})
+            if launches != want:
+                raise AssertionError(f"save {model}: launches {launches} != {want}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            log(f"[save] {smi}: cli.save model={model}: {stats['frames']} frame pairs of "
+                f"{SAVE_SCENES} scenes, {stats['repaired']} re-estimated by the scene-start "
+                f"repair (of {len(pairs)}), {wall:.3f} s, "
+                f"{wall / (stats['frames'] + stats['repaired']) * 1e3:.3f} host ms per frame "
+                f"estimated; launches {({k: v for k, v in launches.items() if v})}; a flow on "
+                f"every frame with a successor and none on a scene's last, every other "
+                f"dataset unchanged")
+    finally:
+        runner.get_estimator = get_estimator
+    return total
+
+
+def phase_eval(smi: str, save_root: Path, fleet_root: Path) -> None:
+    """Flow-mode ``cli.eval`` and ``cli.eval_flow`` in a temporary working
+    directory (they write ``res-*.json`` there): ``perfect`` scores below
+    ``EVAL_PERFECT_MAX`` and ``raw`` worse; the saved ``fastnsf`` and
+    ``seflowpp`` flows and the fleet's score finite (random weights measure
+    no quality); host ms per frame."""
+    import tempfile
+
+    from himo_tpu_torch.cli.eval import main as eval_main
+    from himo_tpu_torch.cli.eval_flow import main as eval_flow_main
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="himo_eval_") as tmp:
+        os.chdir(tmp)
+        try:
+            scores, times = {}, {}
+            for root, names in ((save_root, ("perfect", "raw", "fastnsf", "seflowpp")),
+                                (fleet_root, ("fleet",))):
+                for name in names:
+                    start = time.perf_counter()
+                    metrics = eval_main(data_dir=str(root), res_name=name)
+                    times[name] = (time.perf_counter() - start) / metrics.frame_cnt * 1e3
+                    scores[name] = metrics.total_summary()
+            start = time.perf_counter()
+            flow_scores = eval_flow_main(data_dir=str(save_root),
+                                         res_names=["perfect", "raw", "fastnsf", "seflowpp"])
+            flow_ms = (time.perf_counter() - start) / 4 * 1e3
+            files = sorted(p.name for p in Path(tmp).iterdir())
+        finally:
+            os.chdir(cwd)
+    perfect, raw = scores["perfect"], scores["raw"]
+    if not (perfect["mpe"] < EVAL_PERFECT_MAX and perfect["cd"] < EVAL_PERFECT_MAX):
+        raise AssertionError(f"eval: perfect scores {perfect}")
+    if not (raw["mpe"] > perfect["mpe"] and raw["cd"] > perfect["cd"]):
+        raise AssertionError(f"eval: raw {raw} is not worse than perfect {perfect}")
+    for name, total in scores.items():
+        if total is None or not all(np.isfinite([total["mpe"], total["cd"]])):
+            raise AssertionError(f"eval: {name} scores {total}")
+    if flow_scores["perfect"]["EPE_3way"] > EVAL_PERFECT_MAX or not all(
+            np.isfinite(v) for r in flow_scores.values() for v in r.values()):
+        raise AssertionError(f"eval_flow: {flow_scores}")
+    if files != ["res-av2.json", "res-flow-av2.json"]:
+        raise AssertionError(f"eval wrote {files}")
+    log(f"[eval] {smi}: Total MPE / CDE: " + "; ".join(
+        f"{k} {v['mpe']:.6f} / {v['cd']:.6f} m ({times[k]:.3f} host ms per frame)"
+        for k, v in scores.items()))
+    log(f"[eval] {smi}: eval_flow EPE 3-way " + ", ".join(
+        f"{k} {v['EPE_3way']:.6f}" for k, v in flow_scores.items())
+        + f" m ({flow_ms:.3f} host ms per method)")
+
+
 def main(argv) -> int:
     """No arguments: every phase. ``--host-cost ROOT``: only the host cost
     per call of every wrapper (:func:`wrapper_host_us`) of the checkout at
@@ -2727,6 +3137,16 @@ def main(argv) -> int:
     del run_frame
     torch.cuda.empty_cache()
     paths.append(phase_train_loop(device, smi))
+    torch.cuda.empty_cache()
+    phase_native(smi)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="himo_inference_") as tmp:
+        fleet_root, save_root = Path(tmp) / "av2_fleet", Path(tmp) / "av2_save"
+        paths.append(phase_fleet(device, smi, fleet_root))
+        torch.cuda.empty_cache()
+        paths.append(phase_save(device, smi, save_root))
+        phase_eval(smi, save_root, fleet_root)
     total = {k: sum(path[k] for path in paths) for k in read_counts()}
     main_nn = NN_SHAPES[0]
     kernels = [

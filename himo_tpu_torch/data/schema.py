@@ -28,16 +28,19 @@ Sidecar indices live next to the .h5 files: ``index_total.pkl`` — list of
 (tools/pkl_extract.py:9-19).
 
 A scene is written whole: open one writer (``h5.File(path, "w")``) and
-call :func:`write_frame` for each frame. ``write_method_flow`` (adding a
-method's flow to an existing scene file) is not ported: the writer does
-not append.
+call :func:`write_frame` for each frame. The writer does not append (the
+reference adds datasets with h5py's ``"a"`` mode): :func:`rewrite_scene`
+rewrites a scene file with datasets added or replaced, and
+:func:`write_method_flow` / :func:`write_method_flows` add a method's flow
+through it, once per frame or once per scene.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 
@@ -142,6 +145,65 @@ def read_frame(f: h5.FileReader, timestamp, extra_keys=()) -> FrameData:
         anno_bbx=get("anno_bbx"),
         extras=extras,
     )
+
+
+def rewrite_scene(path, updates: Mapping[str, Mapping[str, np.ndarray]]) -> None:
+    """Rewrite one scene file whole with datasets added or replaced:
+    ``updates`` maps a frame group's key to ``{name: array}``. Every other
+    dataset keeps its bytes, dtype and shape. The new file is written
+    beside the old one (``<name>.tmp``), then moved over it, so a failed
+    write leaves the old file as it was."""
+    path = Path(path)
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    with h5.File(path) as f:
+        for key in f.keys():
+            group = f[key]
+            groups[key] = {}
+            for name in group.keys():
+                member = group[name]
+                if not isinstance(member, h5.Dataset):
+                    raise ValueError(f"{path}:{key}/{name}: nested groups are outside "
+                                     "the scene format")
+                groups[key][name] = member[()]
+    for key, arrays in updates.items():
+        if key not in groups:
+            raise KeyError(f"{path}: no frame group {key!r}")
+        groups[key].update(arrays)
+    tmp = path.with_name(path.name + ".tmp")
+    try:
+        with h5.File(tmp, "w") as f:
+            for key, arrays in groups.items():
+                group = f.create_group(key)
+                for name, arr in arrays.items():
+                    group.create_dataset(name, data=arr)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def write_method_flows(data_dir, scene_id: str, method: str,
+                       flows: Mapping[object, np.ndarray]) -> None:
+    """Add (or replace) a method's estimated flow in many frames of one
+    scene with one rewrite of its file: ``flows`` maps a frame's timestamp
+    (its group key) to its (N, 3) flow, stored as float32 under
+    ``method``."""
+    rewrite_scene(
+        Path(data_dir) / f"{scene_id}.h5",
+        {str(ts): {method: np.asarray(flow, dtype=np.float32)} for ts, flow in flows.items()},
+    )
+
+
+def write_method_flow(
+    data_dir, scene_id: str, timestamp, method: str, flow: np.ndarray
+) -> None:
+    """Add (or replace) an estimated flow field under the method name.
+
+    This is the write-back contract of the reference's ``save.py`` CLI
+    (SURVEY.md §2.9): per-frame (N, 3) float32 flow stored in the frame
+    group. Each call rewrites the scene file; writers of many frames of a
+    scene call :func:`write_method_flows` once instead.
+    """
+    write_method_flows(data_dir, scene_id, method, {timestamp: flow})
 
 
 def scene_ids(data_dir) -> list:

@@ -75,6 +75,28 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def compile_library(lib: Path, compiler: str, flags, source: Path) -> Path:
+    """``compiler flags -o lib source`` unless ``lib`` exists, through a
+    temporary file and an atomic rename; the compiler's output is kept
+    beside the library (``.log``). Raises with that output on failure."""
+    if lib.exists():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
+                          capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"{Path(compiler).name} failed for {source.name} (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a build of the same content exists;
     return the library's path (nvcc's output is beside it, ``.log``).
@@ -82,20 +104,7 @@ def build(name: str) -> Path:
     lib = _library_path(name)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
+    return compile_library(lib, nvcc_path(), NVCC_FLAGS, CSRC_DIR / f"{name}.cu")
 
 
 def check(code: int, what: str) -> None:

@@ -757,10 +757,27 @@ def frame_priors(pc0, pc1, valid0, valid1, dt0=None, dt1=None, trackers=None,
     ])
 
 
+def load_params(checkpoint, device: torch.device | str | None = None) -> dict:
+    """A network's state dict from ``checkpoint``: a checkpoint directory
+    the trainer writes (``training/checkpoints``: a step's directory or a
+    manager's, which resolves to its latest step; its ``params``), or a
+    ``torch.save`` file of the state dict itself. Tensors land on
+    ``device`` (default: the CPU)."""
+    from pathlib import Path
+
+    location = "cpu" if device is None else device
+    if Path(checkpoint).is_dir():
+        from himo_tpu_torch.training.checkpoints import load_checkpoint
+
+        return load_checkpoint(checkpoint, map_location=location)["params"]
+    return torch.load(checkpoint, map_location=location, weights_only=True)
+
+
 def _feedforward_estimator(name: str):
     """Registry adapter: the estimator closes over a model whose weights come
-    from ``params=`` (a state dict) or a torch state-dict file
-    (``checkpoint=``), on ``device`` (default: the GPU)."""
+    from ``params=`` (a state dict) or ``checkpoint=`` (:func:`load_params`:
+    a trainer checkpoint directory or a state-dict file), on ``device``
+    (default: the GPU)."""
 
     def factory(
         checkpoint: Optional[str] = None, params: Optional[dict] = None,
@@ -772,10 +789,7 @@ def _feedforward_estimator(name: str):
             )
         model, config = make_model(name, device=device, **overrides)
         if params is None:
-            params = torch.load(
-                checkpoint, map_location=next(model.parameters()).device,
-                weights_only=True,
-            )
+            params = load_params(checkpoint, next(model.parameters()).device)
         model.load_state_dict(params)
         model.eval()
         trackers = {}  # per-scene velocity continuity for the prior channel

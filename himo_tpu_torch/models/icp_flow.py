@@ -6,7 +6,8 @@ rigidly against the next sweep; its rigid transform becomes the flow of its
 points (static points keep zero residual). The module has two halves:
 
 - the host matcher, numpy and scipy, the reference's code call for call
-  (KD-tree queries through scipy's ``cKDTree``): :func:`_desmear`, the
+  (its NN queries through the native KD-tree where built, as the
+  reference's, else scipy's ``cKDTree``): :func:`_desmear`, the
   trimmed translation refinement and alignment errors,
   :func:`motion_beats_null`, the histogram candidates,
   :class:`ClusterTracker`, :func:`recover_split_translations` and
@@ -138,6 +139,10 @@ def _desmear(
 
 
 def _nn_query_fn(pts: np.ndarray):
+    from himo_tpu_torch import native
+
+    if native.available():
+        return native.KDTree(pts[:, :3]).query
     from scipy.spatial import cKDTree
 
     tree = cKDTree(pts[:, :3])

@@ -4,8 +4,10 @@ translation priors (port of ``himo_tpu/training/ssl_labels.py``).
 The numpy code is the reference's, call for call, with three host
 libraries replaced, since the card's host has none of them:
 
-- KD-tree queries go through scipy's ``cKDTree`` (the reference takes its
-  native tree when built and falls back to ``cKDTree``);
+- KD-tree queries take the branch the reference takes: the package's
+  native float32 tree (:mod:`himo_tpu_torch.native`) where the reference
+  asks for its own and it is built, scipy's ``cKDTree`` otherwise and
+  where the reference calls ``cKDTree`` directly;
 - sklearn's ``HDBSCAN`` and ``DBSCAN(min_samples=1)`` are
   :mod:`himo_tpu_torch.training.clustering`, which returns the same labels;
   the reference's DBSCAN fallback for sklearn < 1.3 is not ported;
@@ -34,26 +36,30 @@ Labels are written into the .h5 frame groups as ``ssl_dynamic`` (bool),
 
 from __future__ import annotations
 
-import os
 from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
 
+from himo_tpu_torch import native
+from himo_tpu_torch.core.transforms import rigid_flow
 from himo_tpu_torch.data import h5
 from himo_tpu_torch.data.dataset import SceneFlowDataset
-
-from himo_tpu_torch.core.transforms import rigid_flow
+from himo_tpu_torch.data.schema import rewrite_scene
 from himo_tpu_torch.training.clustering import connected_components, hdbscan
 
 
 def nn_residual_distances(pc0_comp: np.ndarray, pc1: np.ndarray) -> np.ndarray:
-    """Per-point NN distance into the next sweep (scipy's KD-tree)."""
+    """Per-point NN distance into the next sweep (host KD-tree; the native
+    C++ tree when built, scipy otherwise)."""
     if len(pc1) == 0:
         return np.full(len(pc0_comp), np.inf, np.float32)
-    from scipy.spatial import cKDTree
+    if native.available():
+        d, _ = native.KDTree(pc1[:, :3]).query(pc0_comp[:, :3])
+    else:
+        from scipy.spatial import cKDTree
 
-    d, _ = cKDTree(pc1[:, :3]).query(pc0_comp[:, :3], k=1)
+        d, _ = cKDTree(pc1[:, :3]).query(pc0_comp[:, :3], k=1)
     return np.asarray(d, np.float32)
 
 
@@ -116,9 +122,12 @@ def dynamic_mask_from_nn(
     thr = np.full(len(d), threshold, np.float32)
     own_idx = None
     if (coherent or local_floor > 0) and len(pc0_comp) > 6:
-        from scipy.spatial import cKDTree
+        if native.available():
+            own_d, own_idx = native.KDTree(pc0_comp[:, :3]).query(pc0_comp[:, :3], k=6)
+        else:
+            from scipy.spatial import cKDTree
 
-        own_d, own_idx = cKDTree(pc0_comp[:, :3]).query(pc0_comp[:, :3], k=6)
+            own_d, own_idx = cKDTree(pc0_comp[:, :3]).query(pc0_comp[:, :3], k=6)
         if local_floor > 0:
             thr = np.maximum(thr, local_floor * np.asarray(own_d)[:, 1])
     dyn = d > thr
@@ -731,33 +740,10 @@ def write_scene_labels(path, labels: Dict[str, Tuple]) -> None:
     """Rewrite one scene file whole with each frame's labels: ``labels``
     maps a group key to ``(dynamic, clusters, prior, prior_valid)``, written
     as ``ssl_dynamic``, ``ssl_cluster``, ``ssl_prior`` and
-    ``ssl_prior_valid`` (added, or replacing the file's). Every other
-    dataset keeps its bytes, dtype and shape. The new file is written
-    beside the old one, then moved over it."""
-    path = Path(path)
-    groups: Dict[str, Dict[str, np.ndarray]] = {}
-    with h5.File(path) as f:
-        for key in f.keys():
-            group = f[key]
-            groups[key] = {}
-            for name in group.keys():
-                member = group[name]
-                if not isinstance(member, h5.Dataset):
-                    raise ValueError(f"{path}:{key}/{name}: nested groups are outside "
-                                     "the scene format")
-                groups[key][name] = member[()]
-    for key, arrays in labels.items():
-        groups[key].update(zip(SSL_KEYS, arrays))
-    tmp = path.with_name(path.name + ".tmp")
-    try:
-        with h5.File(tmp, "w") as f:
-            for key, arrays in groups.items():
-                group = f.create_group(key)
-                for name, arr in arrays.items():
-                    group.create_dataset(name, data=arr)
-        os.replace(tmp, path)
-    finally:
-        tmp.unlink(missing_ok=True)
+    ``ssl_prior_valid`` (added, or replacing the file's) through
+    ``data/schema.rewrite_scene``: every other dataset keeps its bytes,
+    dtype and shape."""
+    rewrite_scene(path, {key: dict(zip(SSL_KEYS, arrays)) for key, arrays in labels.items()})
 
 
 def _write_labels(dataset, by_scene, label_fn, threshold: float, desc: str,

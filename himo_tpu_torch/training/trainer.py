@@ -51,6 +51,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from himo_tpu_torch import native
 from himo_tpu_torch.core.transforms import relative_pose, rigid_flow, transform_points
 from himo_tpu_torch.data.dataset import SceneFlowDataset
 from himo_tpu_torch.models.feedforward import init_params, make_model, resolve_device
@@ -224,9 +225,11 @@ def batch_iterator(
     and builds the batches in order, ``prefetch`` ahead, and draws each
     frame's samples from ``rng``. An error in the producer is raised here.
     Closing the iterator early stops the producer and waits for it, so
-    ``rng`` is never drawn from by two threads. (JAX's producer also warms
-    the page cache for the next batch's scene files through its native
-    io_uring reader when that library is built; that is not ported.)"""
+    ``rng`` is never drawn from by two threads. Where the native library is
+    built (:mod:`himo_tpu_torch.native`), the producer first warms the page
+    cache for the next batch's scene files it has not warmed yet
+    (``preload_files``, io_uring reads outside the interpreter lock), as
+    the reference's does."""
     pool = np.arange(len(dataset)) if indices is None else np.asarray(indices)
     order = pool[rng.permutation(len(pool))] if rng is not None else pool
     n_batches = len(order) // config.batch_size
@@ -243,9 +246,27 @@ def batch_iterator(
                 continue
         return False
 
+    preloaded: set = set()
+    # Scene files to warm: a SceneFlowDataset's (other datasets read no files
+    # the producer knows of).
+    preload = isinstance(dataset, SceneFlowDataset) and native.available()
+
+    def preload_batch(b: int) -> None:
+        """Warm the page cache for batch ``b``'s scene files while this
+        batch's frames decode: shuffled epochs touch scenes in random
+        order, so cold reads otherwise land mid-epoch."""
+        ix = dataset.eval_index if dataset.eval_index is not None else dataset.data_index
+        idxs = order[b * config.batch_size : (b + 1) * config.batch_size]
+        sids = {ix[int(i)][0] for i in idxs} - preloaded
+        if sids:
+            preloaded.update(sids)
+            native.preload_files([dataset.directory / f"{s}.h5" for s in sorted(sids)])
+
     def worker():
         try:
             for b in range(n_batches):
+                if preload and b + 1 < n_batches:
+                    preload_batch(b + 1)
                 idxs = order[b * config.batch_size : (b + 1) * config.batch_size]
                 frames = [
                     build_frame_arrays(

@@ -4,8 +4,8 @@ JAX package's on the CPU.
 The JAX side runs with x64 off (``with jax.enable_x64(False)``):
 ``tests/conftest.py`` turns x64 on, and ``icp_register_clusters``' scan carry then fails
 in the reference (its own ``tests/test_icpflow.py`` fails for that reason).
-Both sides take scipy's KD-tree for the host clustering (the reference's
-native tree is switched off for the test). Clouds are float32.
+Both sides take scipy's KD-tree for the host clustering (both packages'
+native trees are switched off for the test). Clouds are float32.
 
 Tolerances: ``weighted_kabsch`` rotation and translation within 1e-5;
 ``icp_register_clusters`` and ``icpflow_estimate`` flow within 1e-4 m. The
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import himo_tpu.native
+import himo_tpu_torch.native
 from himo_tpu.data.synthetic import _sample_box_points
 from himo_tpu.models import icp_flow as JI
 from himo_tpu_torch.models import icp_flow as PI
@@ -34,6 +35,7 @@ ATOL_FLOW = 1e-4
 @pytest.fixture(autouse=True)
 def reference_on_ckdtree(monkeypatch):
     monkeypatch.setattr(himo_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(himo_tpu_torch.native, "available", lambda: False)
 
 
 def _box_pair(seed, n_box=150, size=(4.5, 2.0, 1.6), shift=(1.2, -0.4, 0.0), yaw=0.0,

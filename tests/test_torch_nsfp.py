@@ -224,8 +224,10 @@ def test_cluster_prior_estimators_match_jax(name, monkeypatch):
     reference's (both on scipy's KD-tree), then the prior-seeded
     optimisation from JAX's own initial MLP within the tolerances above."""
     import himo_tpu.native
+    import himo_tpu_torch.native
 
     monkeypatch.setattr(himo_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(himo_tpu_torch.native, "available", lambda: False)
     p0, p1, v, gt, n_static, n = _fast_pair()
     if name == "nsfp":
         fields = dict(hidden=32, layers=2, lr=8e-3, iterations=20)

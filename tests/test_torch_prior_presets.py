@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import himo_tpu.native
+import himo_tpu_torch.native
 from himo_tpu.data.synthetic import _sample_box_points
 from himo_tpu.models import feedforward as JF
 from himo_tpu.models import icp_flow as JI
@@ -66,6 +67,7 @@ PRESETS = ("seflowpp_trust", "seflowpp_prior")
 @pytest.fixture(autouse=True)
 def reference_on_ckdtree(monkeypatch):
     monkeypatch.setattr(himo_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(himo_tpu_torch.native, "available", lambda: False)
 
 
 def _t(a):

@@ -273,6 +273,57 @@ def test_train_loop_phase_on_the_cpu(rehearsal, monkeypatch, capsys):
     assert "resumed from step 4 (epoch 1)" in out
 
 
+def test_inference_phases_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """The native, fleet, save and eval phases at a toy size: the fleet on
+    1 scene x 3 frames of 2,000 points (batches of 2, the second partial),
+    ``cli.save`` on 1 scene x 4 frames padded to 2,048 points (``fastnsf``
+    at 5 steps of a small MLP with its host prior and the scene-start
+    repair, then ``seflowpp`` from a checkpoint), the evals in a temporary
+    directory; the trace is the CPU's."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from himo_tpu_torch.models import fastnsf, runner
+    from himo_tpu_torch.ops.dt import DTConfig
+
+    for name, value in (("NATIVE_FRAMES", (2000, 2100, 1900, 2048)), ("NATIVE_TREE", 4096),
+                        ("NATIVE_RUNS", 2), ("FLEET_SCENES", 1), ("FLEET_FRAMES", 3),
+                        ("FLEET_BACKGROUND", 1200), ("SAVE_SCENES", 1),
+                        ("SAVE_BACKGROUND", 1200)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(fastnsf, "FastNSFConfig", functools.partial(
+        fastnsf.FastNSFConfig, iterations=5, hidden=16, layers=2,
+        dt=DTConfig(voxel_size=(3.2, 3.2, 1.6))))
+    monkeypatch.setattr(runner, "bucket_size", lambda n: 2048)  # the toy table route
+
+    def cpu_traced(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        return out, cs._trace_events(prof)
+
+    monkeypatch.setattr(cs, "traced", cpu_traced)
+    smi = "Card, 700.00 W"
+    cs.phase_native(smi)
+    fleet = cs.phase_fleet(rehearsal, smi, tmp_path / "av2_fleet")
+    none = dict.fromkeys(fleet, 0)
+    assert fleet == {**none, "scatter_max_rows": 3 * 2, "nn_argmin_rows": 10 * 2,
+                     "nn_min_rows": 2}
+    save = cs.phase_save(rehearsal, smi, tmp_path / "av2_save")
+    assert save == {**none, "scatter_max_rows": 3 * 3, "nn_argmin_rows": 10 * 3,
+                    "nn_min_rows": 3}
+    monkeypatch.chdir(tmp_path)
+    cs.phase_eval(smi, tmp_path / "av2_save", tmp_path / "av2_fleet")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["av2_fleet", "av2_save"]
+    out = capsys.readouterr().out
+    assert "[native] Card, 700.00 W: pack_frames 4 x <= 2048 x 3" in out
+    assert "[fleet] Card, 700.00 W: timed pass" in out and "busy share 0.0000" in out
+    assert "first batch vs plain versions: 1.000000 of points" in out
+    assert "cli.save model=fastnsf: 3 frame pairs of 1 scenes" in out
+    assert "cli.save model=seflowpp: 3 frame pairs of 1 scenes, 0 re-estimated" in out
+    assert "[eval] Card, 700.00 W: Total MPE / CDE: perfect 0.000000" in out
+
+
 def test_window_busy_clips_device_time_to_the_ranges():
     def ev(name, cat, ts, dur):
         return {"name": name, "cat": cat, "ts": ts, "dur": dur}

@@ -3,11 +3,12 @@
 ``himo_tpu_torch/models/icp_flow.py``, ``models/nsfp.cluster_prior_flow``)
 against the JAX package's, on the CPU.
 
-Every comparison is bitwise (values and dtypes). The reference takes its
-native KD-tree when the library is built; the card's host has none, so the
-port queries scipy's ``cKDTree`` only. Each test therefore makes the
-reference take ``cKDTree`` too, by patching ``himo_tpu.native.available``
-to return False for the test's duration. Clouds are float32.
+Every comparison is bitwise (values and dtypes). Both packages take their
+native KD-tree where the library is built and scipy's ``cKDTree``
+otherwise. Each test makes both take ``cKDTree``, by patching
+``himo_tpu.native.available`` and ``himo_tpu_torch.native.available`` to
+return False for the test's duration; the native branch's parity case is
+in ``tests/test_torch_native.py``. Clouds are float32.
 
 Scenes: the JAX package's ``make_dataset`` (moving boxes, ego motion,
 three lidars, ground), the fast-object pair of ``tests/test_fast_objects.py``
@@ -27,6 +28,7 @@ from test_fast_objects import _fast_scene
 from test_matcher_stress import World
 
 import himo_tpu.native
+import himo_tpu_torch.native
 from himo_tpu.data.dataset import SceneFlowDataset as JDataset
 from himo_tpu.data.synthetic import make_dataset
 from himo_tpu.models import icp_flow as JI
@@ -43,6 +45,7 @@ SSL_KEYS = ("ssl_dynamic", "ssl_cluster", "ssl_prior", "ssl_prior_valid")
 @pytest.fixture(autouse=True)
 def reference_on_ckdtree(monkeypatch):
     monkeypatch.setattr(himo_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(himo_tpu_torch.native, "available", lambda: False)
 
 
 def _same(got, want, what=""):
