@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen main paths, at full width with random weights from seeded generators:
+Seventeen main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -59,7 +59,14 @@ Fifteen main paths, at full width with random weights from seeded generators:
   scene-start repair), then ``model=seflowpp`` (bf16) from a saved
   checkpoint, on 2 scenes x 4 frames x 64,800 points;
 - the flow-mode evaluation, ``cli.eval`` and ``cli.eval_flow``, on what
-  those two wrote (in a temporary working directory).
+  those two wrote (in a temporary working directory);
+- downstream segmentation on those scenes: ``cli.seg_h5`` trains SegNet
+  (``SegConfig()``: 512x512, depths (64, 128, 256), fp32) one epoch at
+  32,768 points a frame, one frame a step, and segments ``raw``, then
+  segments ``perfect`` from its checkpoint; ``cli.eval_seg`` scores both;
+- downstream detection on the same scenes: ``cli.det_h5`` with
+  ``detector=learned`` (DetNet at voxel 0.4: 256x256, depths (64, 128),
+  one epoch) and with the geometric detector, on ``raw`` and ``perfect``.
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -174,7 +181,20 @@ and prints no result):
 13. eval (``phase_eval``): ``perfect`` scores below 1e-5 m of MPE and CDE,
    ``raw`` worse, every other flow (and the fleet's) finite; ``eval_flow``
    on the same flows; only the two ``res-*.json`` written, in the
-   temporary directory; host ms per frame.
+   temporary directory; host ms per frame;
+14. downstream (``phase_downstream``): ``cli.seg_h5``'s step 1 held
+   against the plain versions as in 5 (loss within 1e-4 relative); each
+   step 1 scatter_max_rows, 1 sorted_gather_rows (K5) and 1
+   scatter_sum_rows, each frame 1 scatter_max_rows; the ``seg_*`` and
+   ``seg_valid`` datasets written (uint8), every other dataset unchanged;
+   the first frame's logits against the plain run (argmax equal where
+   the top-2 margin exceeds 1e-3, the labels written equal to it there);
+   ``cli.eval_seg``'s mIoU finite; ``cli.det_h5`` learned the same way
+   (1 scatter_max_resident_rows a step and a frame, finite metrics), the
+   geometric detector with no launch; K1 max, K1 sum, K5 and K3 max at
+   these shapes against their plain versions and timed beside their
+   library calls; ms per train step and per frame (wall, traced device
+   busy, busy share), host ms a frame of the geometric detector.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -263,6 +283,24 @@ FLEET_LABEL = "fleet pass"
 # for the eval.
 SAVE_SCENES, SAVE_FRAMES, SAVE_BACKGROUND = 2, 4, 64000
 EVAL_PERFECT_MAX = 1e-5  # tests/test_eval_pipeline.py's bound on perfect's MPE and CDE
+# Downstream (cli.seg_h5, cli.eval_seg, cli.det_h5) on phase_save's scenes at
+# the reference's defaults: 32,768 points a frame, SegConfig() (512x512,
+# depths (64, 128, 256)), DetNetConfig() at det_h5's voxel 0.4 (256x256,
+# depths (64, 128)), fp32, one frame a step and a call, one epoch.
+DOWNSTREAM_POINTS = 32768
+DOWNSTREAM_MODES = ("raw", "perfect")
+SEG_OVERRIDES = {}  # SegConfig fields, passed through cli.seg_h5
+DET_VOXEL = 0.4  # cli.det_h5's voxel
+DOWNSTREAM_TRACE_CALLS = 3
+SEG_MARGIN = 1e-3  # argmax compared where the top-2 logit margin exceeds this
+# SegNet on the table route: the pillar max (K1 max), its backward's take
+# (K5) and the gather's backward (K1 sum); DetNet on the resident route: the
+# pillar max (K3 max), its backward plain indexing.
+SEG_STEP_LAUNCHES = dict(scatter_max_rows=1, sorted_gather_rows=1, scatter_sum_rows=1)
+SEG_FRAME_LAUNCHES = dict(scatter_max_rows=1)
+DET_STEP_LAUNCHES = dict(scatter_max_resident_rows=1)
+DET_FRAME_LAUNCHES = dict(scatter_max_resident_rows=1)
+DOWNSTREAM_LABEL = "downstream call"
 # Roofline of one H100 SXM (NVIDIA's data sheet; at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -299,6 +337,15 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")  # host-side API calls, with the
 # CUPTI correlation id that ties a launch to its device event
 SPLIT_LABEL = "device_split call "
+LEAD_LABEL = "trace lead"
+# One-element fills that open every trace (:func:`traced`). A trace of
+# short calls now and then loses the device events of its first calls, a
+# count that grows with the process's age, about one for every 12 s
+# (scripts/torch_profiler_probe.py: 4 at 60 s, 11 at 150 s, 24 at 300 s).
+LEAD_FILLS = 2048
+LEAD_LOST: list = []  # the fills that lost their device event, per trace
+TRAIL_S = 0.01  # the host's wait after a trace's last call, before it stops
+SPLIT_WHOLE = 0.75  # the share of device_split's calls that must be whole
 
 
 def _trace_events(prof) -> list:
@@ -311,11 +358,6 @@ def _trace_events(prof) -> list:
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     return [e for e in events if e.get("ph") == "X"]
-
-
-def _device_events(prof) -> list:
-    """The kernel, memcpy and memset events of a finished torch.profiler trace."""
-    return [e for e in _trace_events(prof) if e.get("cat") in DEVICE_CATS]
 
 
 def short_name(name: str) -> str:
@@ -355,34 +397,34 @@ def split_calls(events: list, calls: range) -> list:
     return [per_call[i] for i in calls]
 
 
-def device_split(fn, iters: int = 20, lead: int = 2) -> dict:
+def device_split(fn, iters: int = 20) -> dict:
     """Device milliseconds per call of ``fn`` (warm) by pass: the kernel,
-    memset and memcpy durations of ``iters`` calls traced by torch.profiler,
-    summed by :func:`short_name` and divided by the calls counted. The trace
-    now and then lacks a device event (one in a trace of 20 one-kernel
-    calls of the 1 x 65,536² NN argmin), so each call runs in a range of its
-    own (:func:`split_calls`), ``lead`` untimed calls open the trace and one
-    closes it, and a call with fewer device events than the most any timed
-    call had is left out. At least half the calls must be whole."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    memset and memcpy durations of ``iters`` calls traced by :func:`traced`,
+    summed by :func:`short_name` and divided by the calls counted. Each
+    call runs in a range of its own, its device events tied to it by
+    correlation id (:func:`split_calls`), and one untimed call closes the
+    trace. A call with fewer device events than the most any call held is
+    left out and named; fails unless ``SPLIT_WHOLE`` of the calls are
+    whole."""
+    from torch.profiler import record_function
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(lead + iters + 1):
+
+    def run():
+        for i in range(iters + 1):
             with record_function(f"{SPLIT_LABEL}{i}"):
                 fn()
-        torch.cuda.synchronize()
-    per_call = split_calls(_trace_events(prof), range(lead, lead + iters))
+
+    _, events = traced(run)
+    per_call = split_calls(events, range(iters))
     most = max(len(c) for c in per_call)
+    lost = [i for i, c in enumerate(per_call) if len(c) < most]
+    if most == 0 or len(lost) > (1 - SPLIT_WHOLE) * iters:
+        raise AssertionError(f"device_split: device events per call "
+                             f"{[len(c) for c in per_call]} in a trace of {iters} calls")
+    if lost:
+        log(f"device_split: calls {lost} of {iters} lacked a device event and were left out")
     whole = [c for c in per_call if len(c) == most]
-    if most == 0 or 2 * len(whole) < iters:
-        raise AssertionError(f"device_split: device events per call {[len(c) for c in per_call]}"
-                             f" in a trace of {iters} calls")
-    if len(whole) < iters:
-        log(f"device_split: {iters - len(whole)} of {iters} traced calls lacked a device "
-            f"event and were left out")
     split = {}
     for call in whole:
         for e in call:
@@ -1704,15 +1746,16 @@ def phase_profile(name: str, fn, wall_ms: float, calls: int = PROFILE_CALLS) -> 
     kernels with the most device time, and the device time per launch of
     each of the port's own kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         start = time.perf_counter()
         for _ in range(calls):
             fn()
             torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - start) * 1e3 / calls
-    device = _device_events(prof)
+        return (time.perf_counter() - start) * 1e3 / calls
+
+    prof_wall, events = traced(run)
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
     if not device:
         raise AssertionError(f"{name}: the trace holds no device activity")
     busy = _busy_ms((e["ts"], e["ts"] + e["dur"]) for e in device) / calls
@@ -2454,14 +2497,44 @@ def _loop_dataset(root: Path):
 
 def traced(fn):
     """``(fn(), events)``: ``fn`` run under torch.profiler (host and
-    device), and the finished trace's complete events."""
+    device), and the finished trace's complete events. ``LEAD_FILLS``
+    one-element fills, in a ``LEAD_LABEL`` range, open the trace and take
+    the loss of its first device events in place of ``fn``'s; their events
+    are left out, and how many of them were lost goes to ``LEAD_LOST``.
+    Fails when all of them were lost, as the loss may then reach ``fn``.
+    The host waits ``TRAIL_S`` after ``fn`` before the trace stops, a
+    guard: the probe once lost 5 of 100 calls after the first, in a trace
+    whose kernels started 0.6 ms or more after their launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    fill = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(LEAD_LABEL):
+            for _ in range(LEAD_FILLS):
+                fill.zero_()
         out = fn()
         torch.cuda.synchronize()
-    return out, _trace_events(prof)
+        time.sleep(TRAIL_S)
+    events, kept = without_lead(_trace_events(prof))
+    LEAD_LOST.append(LEAD_FILLS - kept)
+    if kept == 0:
+        raise AssertionError(f"traced: the trace lost the device events of all "
+                             f"{LEAD_FILLS} fills that open it")
+    return out, events
+
+
+def without_lead(events: list) -> tuple:
+    """``(events, kept)``: a trace's events without the device events of
+    the launches in its ``LEAD_LABEL`` range, and how many of those it held."""
+    lo, hi = next((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("name") == LEAD_LABEL
+                  and e.get("cat", "").lower() == "user_annotation")
+    lead = {e["args"]["correlation"] for e in events if e.get("cat") in LAUNCH_CATS
+            and "correlation" in e.get("args", {}) and lo <= e["ts"] <= hi}
+    rest = [e for e in events if e.get("cat") not in DEVICE_CATS
+            or e.get("args", {}).get("correlation") not in lead]
+    return rest, len(events) - len(rest)
 
 
 def window_busy(events: list, label: str):
@@ -3034,6 +3107,386 @@ def phase_eval(smi: str, save_root: Path, fleet_root: Path) -> None:
         + f" m ({flow_ms:.3f} host ms per method)")
 
 
+def _snapshot_counts():
+    from himo_tpu_torch.ops import mxu_scatter as pms
+
+    return ({key: getattr(*key).launches for key in _wrappers()},
+            dict(pms.sorted_segment_sum.launches_by_c))
+
+
+def _restore_counts(snap) -> None:
+    """Set every wrapper's count back to a :func:`_snapshot_counts`, so that
+    launches made to compare kernels with their plain versions inside a
+    path's run are not counted as the path's."""
+    from himo_tpu_torch.ops import mxu_scatter as pms
+
+    counts, by_c = snap
+    for key, n in counts.items():
+        getattr(*key).launches = n
+    pms.sorted_segment_sum.launches_by_c = dict(by_c)
+
+
+def _check_step_vs_plain(name, model, loss_fn) -> None:
+    """The loss and gradients of ``loss_fn()`` through the kernels against
+    the same with the plain versions on the card, at the current weights:
+    loss within ``TERM_RTOL`` relative, gradient norm within ``NORM_RTOL``,
+    cosine at least ``MIN_COSINE``; the launches it makes are not counted."""
+    import torch
+
+    snap = _snapshot_counts()
+    with plain_kernels():
+        model.zero_grad(set_to_none=True)
+        plain = loss_fn()
+        plain.backward()
+    plain_grads = _grads(model)
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    grads = _grads(model)
+    model.zero_grad(set_to_none=True)
+    _restore_counts(snap)
+    loss, plain = float(loss.detach()), float(plain.detach())
+    rel = abs(loss - plain) / max(abs(plain), 1e-12)
+    norm, plain_norm = float(grads.norm()), float(plain_grads.norm())
+    norm_rel = abs(norm - plain_norm) / plain_norm
+    cosine = float(torch.nn.functional.cosine_similarity(grads, plain_grads, dim=0))
+    log(f"[{name}] step 1, kernels vs plain: loss {loss:.6f} / {plain:.6f} (rel "
+        f"{rel:.3e}), grad norm {norm:.6f} / {plain_norm:.6f} (rel {norm_rel:.3e}), "
+        f"cosine {cosine:.6f}")
+    if not np.isfinite(loss) or rel > TERM_RTOL or norm_rel > NORM_RTOL or cosine < MIN_COSINE:
+        raise AssertionError(f"{name} step 1 through the kernels disagrees with the plain run "
+                             f"(limits: loss {TERM_RTOL}, norm {NORM_RTOL}, cosine {MIN_COSINE})")
+
+
+@contextlib.contextmanager
+def probed_steps(module, attr: str, name: str, loss_of, expected: dict, record: dict):
+    """Wrap ``module.<attr>`` (a train-step factory ``make(model,
+    optimizer)``) while the block runs: before the first step, the step's
+    loss and gradients are held against the plain versions
+    (:func:`_check_step_vs_plain` on ``loss_of(model, *args)``); each step
+    is synchronized and timed into ``record["step_ms"]``, must launch
+    exactly ``expected`` and return a finite loss; ``record["step"]`` and
+    ``record["forward"]`` keep the last step and the network's no-grad
+    forward on that step's frame, to be called again."""
+    import torch
+
+    make = getattr(module, attr)
+
+    def probed_make(model, optimizer):
+        step = make(model, optimizer)
+
+        def probed(*args):
+            if not record["step_ms"]:
+                _check_step_vs_plain(name, model, lambda: loss_of(model, *args))
+            before = read_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = step(*args)
+            torch.cuda.synchronize()
+            record["step_ms"].append((time.perf_counter() - start) * 1e3)
+            after = read_counts()
+            got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if got != expected:
+                raise AssertionError(f"{name} step {len(record['step_ms'])} launches {got} "
+                                     f"!= {expected}")
+            if not np.isfinite(float(loss)):
+                raise AssertionError(f"{name} step {len(record['step_ms'])}: loss {loss}")
+            record["step"] = lambda: step(*args)
+            record["forward"] = torch.inference_mode()(lambda: model(*args[:2]))
+            return loss
+
+        return probed
+
+    setattr(module, attr, probed_make)
+    try:
+        yield record
+    finally:
+        setattr(module, attr, make)
+
+
+def _busy_calls(fn, calls: int = DOWNSTREAM_TRACE_CALLS):
+    """``(device busy ms, wall ms)`` per call of ``fn`` (warm) over
+    ``calls`` traced calls, each in a ``DOWNSTREAM_LABEL`` range and
+    synchronized."""
+    import torch
+    from torch.profiler import record_function
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            with record_function(DOWNSTREAM_LABEL):
+                fn()
+                torch.cuda.synchronize()
+
+    _, events = traced(run)
+    busy, wall = window_busy(events, DOWNSTREAM_LABEL)
+    return busy / calls, wall / calls
+
+
+def _check_seg_written(root: Path, before: dict, key: str) -> None:
+    """Every frame group holds what it held in ``before``, bytes unchanged,
+    plus a uint8 ``key`` of its point count holding only the three classes'
+    category indices, and ``seg_valid`` (uint8 ones)."""
+    from himo_tpu_torch.downstream.segmentation import _expand_labels
+
+    classes = set(_expand_labels(np.arange(3)).tolist())
+    after = _scene_datasets(root)
+    for scene, groups in before.items():
+        if after[scene].keys() != groups.keys():
+            raise AssertionError(f"seg_h5 {key}: {scene}'s groups changed")
+        for group, arrays in groups.items():
+            got = after[scene][group]
+            if set(got) != set(arrays) | {key, "seg_valid"}:
+                raise AssertionError(f"seg_h5 {key}: {scene}/{group} holds {sorted(got)}")
+            for ds, arr in arrays.items():
+                if ds in (key, "seg_valid"):
+                    continue
+                if got[ds].dtype != arr.dtype or got[ds].tobytes() != arr.tobytes():
+                    raise AssertionError(f"seg_h5 {key}: {scene}/{group}/{ds} changed")
+            n = len(arrays["lidar"])
+            seg, valid = got[key], got["seg_valid"]
+            if seg.dtype != np.uint8 or seg.shape != (n,) or not set(np.unique(seg)) <= classes:
+                raise AssertionError(f"seg_h5 {key}: {scene}/{group} {seg.dtype} {seg.shape}")
+            if valid.dtype != np.uint8 or valid.shape != (n,) or not (valid == 1).all():
+                raise AssertionError(f"seg_h5 {key}: {scene}/{group} seg_valid is not ones")
+
+
+def _check_seg_first_frame(device, root: Path, ckpt: str, mode: str):
+    """The first frame's logits through the kernels against the plain
+    versions on the card (the checkpoint's weights, the input as
+    ``segment_dataset`` makes it): argmax equal wherever the top-2 margin
+    exceeds ``SEG_MARGIN``, and the labels written equal to the kernels'
+    there. Returns the max abs difference of the logits and the share of
+    points compared."""
+    import torch
+
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.downstream import segmentation as seg
+    from himo_tpu_torch.training.checkpoints import load_checkpoint
+
+    model, _ = seg.make_seg_model(device=device, **SEG_OVERRIDES)
+    model.load_state_dict(load_checkpoint(ckpt)["params"])
+    model.eval()
+    data = SceneFlowDataset(root, vis_name=mode if mode != "raw" else "")[0]
+    pts, valid, n = seg.seg_inputs(data, seg._dataset_name(str(root)), mode, DOWNSTREAM_POINTS)
+    pts, valid = (torch.from_numpy(a).to(device)[None] for a in (pts, valid))
+    snap = _snapshot_counts()
+    with torch.inference_mode():
+        got = model(pts, valid)[0]
+        with plain_kernels():
+            want = model(pts, valid)[0]
+    _restore_counts(snap)
+    m = min(n, DOWNSTREAM_POINTS)
+    got, want = got[:m].float().cpu().numpy(), want[:m].float().cpu().numpy()
+    top2 = np.sort(want, axis=1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > SEG_MARGIN
+    if not np.array_equal(got.argmax(1)[sure], want.argmax(1)[sure]):
+        raise AssertionError(f"seg_h5 {mode}: the first frame's argmax differs from the plain run")
+    written = _read_datasets(root / f"{data['scene_id']}.h5")[str(data["timestamp"])]
+    if not np.array_equal(written[f"seg_{mode}"][:m][sure],
+                          seg._expand_labels(got.argmax(1))[sure]):
+        raise AssertionError(f"seg_h5 {mode}: the labels written are not the kernels' argmax")
+    return float(np.abs(got - want).max()), float(sure.mean())
+
+
+def _downstream_kernels(device, root: Path):
+    """K1 max, K1 sum, K5 and K3 max at the downstream shapes: the first
+    frame's 32,768 points (``seg_inputs``, raw) on SegNet's grid and on
+    DetNet's, features at the networks' widths; each against its plain
+    version (bitwise; the sum within 1e-5 * sum|x| + 1e-6) and timed beside
+    its library call, its bound printed."""
+    import torch
+
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.downstream.det_net import DetNetConfig
+    from himo_tpu_torch.downstream.segmentation import SegConfig, _dataset_name, seg_inputs
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    data = SceneFlowDataset(root)[0]
+    pts, valid, _ = seg_inputs(data, _dataset_name(str(root)), "raw", DOWNSTREAM_POINTS)
+    pts, valid = (torch.from_numpy(a).to(device)[None] for a in (pts, valid))
+    seg_cfg = SegConfig(**SEG_OVERRIDES)
+    det_cfg = DetNetConfig(pillar=pvox.PillarConfig(voxel_size=(DET_VOXEL, DET_VOXEL)))
+    pids = pvox.voxelize_pillars(pts, valid, seg_cfg.pillar).pillar_ids.contiguous()
+    rows = seg_cfg.pillar.num_pillars
+    width, hidden = seg_cfg.point_feat_dim, seg_cfg.base_channels * 2
+    out = {}
+    feats = _relu_feats(device, (1, DOWNSTREAM_POINTS, width), 11)
+    out["scatter_max_rows"] = _check_max("[downstream] scatter_max_rows (SegNet)",
+                                         pvox.scatter_max_rows, pvox._scatter_max_rows_plain,
+                                         pids, feats, rows)
+    vals = _sparse_cotangents(device, (1, DOWNSTREAM_POINTS, hidden), 12)
+    out["scatter_sum_rows"] = _check_sum_kernel("[downstream] scatter_sum_rows (SegNet)",
+                                                pvox.scatter_sum_rows,
+                                                pvox._scatter_sum_rows_plain, pids, vals, rows)
+    spids, order = pvox._stable_sort(pids)
+    gen = torch.Generator(device=device).manual_seed(13)
+    image = torch.randn(1, rows, 2 * width, device=device, generator=gen)
+    table = torch.cat([image.reshape(-1, 2 * width), image.new_zeros(1, 2 * width)])
+    flat = _flat_rows(pids, rows)
+    out["sorted_gather_rows"] = _check_gather(
+        "[downstream] sorted_gather_rows (SegNet)", pvox.sorted_gather_rows,
+        pvox._sorted_gather_rows_plain, (image, spids, order), pids,
+        lambda: torch.index_select(table, 0, flat))
+    dpids = pvox.voxelize_pillars(pts, valid, det_cfg.pillar).pillar_ids.contiguous()
+    out["scatter_max_resident_rows"] = _check_max(
+        "[downstream] scatter_max_resident_rows (DetNet)", pvox.scatter_max_resident_rows,
+        pvox._scatter_max_rows_plain, dpids, feats, det_cfg.pillar.num_pillars)
+    for k, v in out.items():
+        log(f"[downstream] {k}: " + json.dumps(v))
+    return out
+
+
+def phase_downstream(device, smi: str, root: Path) -> dict:
+    """The downstream harness end to end on the scenes in ``root``
+    (``phase_save``'s, after ``phase_eval``): ``cli.seg_h5`` trains one
+    epoch (step 1 held against the plain versions, each step's launches
+    checked) and segments ``raw``, then segments ``perfect`` from the saved
+    checkpoint; the seg datasets written, every other dataset unchanged,
+    the first frame's logits against the plain run; ``cli.eval_seg``
+    scores both (finite mIoU). ``cli.det_h5`` with ``detector=learned``
+    (one epoch, checked as the segmentation's) and then the geometric
+    detector (no launch) on ``raw`` and ``perfect``; finite metrics. Then
+    K1 max, K1 sum, K5 and K3 max at these shapes (:func:`_downstream_kernels`).
+    Prints host and device ms per train step and per frame and the busy
+    share. Returns the launches of the CLI runs."""
+    import tempfile
+
+    import torch
+
+    from himo_tpu_torch.cli import det_h5, eval_seg, seg_h5
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.downstream import det_net, segmentation
+
+    phase_start = time.perf_counter()
+    # On the card the CLIs take their default device, the GPU.
+    dev_kw = {} if device.type == "cuda" else {"device": device}
+    frames = len(SceneFlowDataset(root))
+    eval_frames = len(SceneFlowDataset(root, eval=True))
+    total = dict.fromkeys(read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def expect(name, counts, parts):
+        want = dict.fromkeys(counts, 0)
+        for n, launches in parts:
+            for k, v in launches.items():
+                want[k] += n * v
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts} != {want}")
+
+    seg_rec = {"step_ms": []}
+    with tempfile.TemporaryDirectory(prefix="himo_seg_ckpt_") as tmp:
+        ckpt = str(Path(tmp) / "seg")
+        walls, agree = {}, {}
+        for mode in DOWNSTREAM_MODES:
+            before = _scene_datasets(root)
+            kw = dict(train=True, epochs=1) if mode == DOWNSTREAM_MODES[0] else {}
+            probe = probed_steps(segmentation, "make_seg_step", "seg_h5 train",
+                                 segmentation.seg_loss, SEG_STEP_LAUNCHES, seg_rec)
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with probe:
+                n = seg_h5.main(path_dataset=str(root), ckpt=ckpt, flow_mode=mode,
+                                num_points=DOWNSTREAM_POINTS, **kw, **dev_kw, **SEG_OVERRIDES)
+            torch.cuda.synchronize()
+            walls[mode] = (time.perf_counter() - start) * 1e3
+            launches = read_counts()
+            steps = len(seg_rec["step_ms"]) if kw else 0
+            expect(f"seg_h5 {mode}", launches,
+                   [(steps, SEG_STEP_LAUNCHES), (n, SEG_FRAME_LAUNCHES)])
+            if n != frames or (kw and steps != frames):
+                raise AssertionError(f"seg_h5 {mode}: {n} frames, {steps} steps of {frames}")
+            add(launches)
+            _check_seg_written(root, before, f"seg_{mode}")
+            agree[mode] = _check_seg_first_frame(device, root, ckpt, mode)
+    snap = _snapshot_counts()
+    seg_step_busy, seg_step_wall = _busy_calls(seg_rec["step"])
+    seg_busy, seg_wall = _busy_calls(seg_rec["forward"])
+    _restore_counts(snap)
+    start = time.perf_counter()
+    scores = eval_seg.main(data_dir=str(root), res_names=[f"seg_{m}" for m in DOWNSTREAM_MODES])
+    eval_ms = (time.perf_counter() - start) * 1e3
+    if not all(np.isfinite(r["miou"]) for r in scores.values()):
+        raise AssertionError(f"eval_seg: {scores}")
+    train_ms = seg_rec["step_ms"]
+    cfg = segmentation.SegConfig(**SEG_OVERRIDES)
+    log(f"[downstream] {smi}: seg_h5 SegNet, grid {cfg.pillar.grid_shape}, depths "
+        f"{cfg.depths}, {cfg.dtype}, at "
+        f"{DOWNSTREAM_POINTS:,} points: {len(train_ms)} train steps (one epoch), median "
+        f"{np.median(train_ms[1:] or train_ms):.3f} ms a step wall synchronized (step 1 "
+        f"{train_ms[0]:.3f}); traced: device busy {seg_step_busy:.3f} ms of {seg_step_wall:.3f}"
+        f" ms a step, busy share {seg_step_busy / seg_step_wall:.4f}")
+    log(f"[downstream] {smi}: seg_h5 inference: " + "; ".join(
+        f"{m} {walls[m] / frames:.3f} host ms a frame through the CLI" for m in walls)
+        + f" (the train run's includes its {len(train_ms)} steps); the forward alone (the "
+        f"last train frame): device busy {seg_busy:.3f} ms of {seg_wall:.3f} ms, busy share "
+        f"{seg_busy / seg_wall:.4f}")
+    log(f"[downstream] seg_h5 first frame, kernels vs plain: " + "; ".join(
+        f"{m} max |logit diff| {d:.3e}, argmax equal on the {s:.4f} of points with a top-2 "
+        f"margin above {SEG_MARGIN}" for m, (d, s) in agree.items()))
+    log(f"[downstream] {smi}: eval_seg mIoU " + ", ".join(
+        f"{k} {v['miou']:.6f}" for k, v in scores.items())
+        + f" ({eval_ms / eval_frames:.3f} host ms a frame; random weights, one epoch)")
+    del seg_rec
+    torch.cuda.empty_cache()
+
+    det_rec = {"step_ms": []}
+    reset_counts()
+    start = time.perf_counter()
+    with probed_steps(det_net, "make_det_step", "det_h5 train",
+                      lambda m, *a: det_net.det_loss(m, *a)[0], DET_STEP_LAUNCHES, det_rec):
+        learned = det_h5.main(data_dir=str(root), flow_modes=list(DOWNSTREAM_MODES),
+                              detector="learned", epochs=1, num_points=DOWNSTREAM_POINTS,
+                              voxel=DET_VOXEL, **dev_kw)
+    torch.cuda.synchronize()
+    det_wall = (time.perf_counter() - start) * 1e3
+    launches = read_counts()
+    steps = len(det_rec["step_ms"])
+    expect("det_h5 learned", launches,
+           [(steps, DET_STEP_LAUNCHES), (eval_frames * len(DOWNSTREAM_MODES), DET_FRAME_LAUNCHES)])
+    if steps == 0 or not all(np.isfinite(v) for r in learned.values() for v in r.values()):
+        raise AssertionError(f"det_h5 learned: {steps} steps, {learned}")
+    add(launches)
+    snap = _snapshot_counts()
+    det_step_busy, det_step_wall = _busy_calls(det_rec["step"])
+    det_busy, det_fwd_wall = _busy_calls(det_rec["forward"])
+    _restore_counts(snap)
+
+    reset_counts()
+    start = time.perf_counter()
+    geometric = det_h5.main(data_dir=str(root), flow_modes=list(DOWNSTREAM_MODES))
+    geo_ms = (time.perf_counter() - start) * 1e3 / (eval_frames * len(DOWNSTREAM_MODES))
+    launches = read_counts()
+    expect("det_h5 geometric", launches, [])
+    if not all(np.isfinite(v) for r in geometric.values() for v in r.values()):
+        raise AssertionError(f"det_h5 geometric: {geometric}")
+    det_ms = det_rec["step_ms"]
+    log(f"[downstream] {smi}: det_h5 learned DetNet at voxel {DET_VOXEL} "
+        f"({eval_frames} eval frames): {steps} train steps, median "
+        f"{np.median(det_ms[1:] or det_ms):.3f} ms a step wall synchronized (step 1 "
+        f"{det_ms[0]:.3f}); traced: device busy {det_step_busy:.3f} ms of {det_step_wall:.3f} "
+        f"ms a step, busy share {det_step_busy / det_step_wall:.4f}; the forward alone: "
+        f"device busy {det_busy:.3f} ms of {det_fwd_wall:.3f} ms, busy share "
+        f"{det_busy / det_fwd_wall:.4f}; the whole CLI {det_wall:.3f} ms, "
+        f"{det_wall / (steps + eval_frames * len(DOWNSTREAM_MODES)):.3f} a step or frame; "
+        + "; ".join(
+            f"{m} P {r['precision']:.3f} R {r['recall']:.3f} F1 {r['f1']:.3f}"
+            for m, r in learned.items()))
+    log(f"[downstream] {smi}: det_h5 geometric: {geo_ms:.3f} host ms a frame, no launch; "
+        + "; ".join(f"{m} P {r['precision']:.3f} R {r['recall']:.3f} F1 {r['f1']:.3f} "
+                    f"meanIoU {r['mean_iou']:.3f}" for m, r in geometric.items()))
+    log(f"[downstream] launches {({k: v for k, v in total.items() if v})}")
+    _downstream_kernels(device, root)
+    log(f"[downstream] the phase took {time.perf_counter() - phase_start:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     """No arguments: every phase. ``--host-cost ROOT``: only the host cost
     per call of every wrapper (:func:`wrapper_host_us`) of the checkout at
@@ -3147,6 +3600,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         paths.append(phase_save(device, smi, save_root))
         phase_eval(smi, save_root, fleet_root)
+        torch.cuda.empty_cache()
+        paths.append(phase_downstream(device, smi, save_root))
     total = {k: sum(path[k] for path in paths) for k in read_counts()}
     main_nn = NN_SHAPES[0]
     kernels = [
@@ -3208,6 +3663,8 @@ def main(argv) -> int:
              replaces="himo_tpu/ops/voxelize.py:630",
              launches=total["sorted_gather_rows"], **sorted_gather_k5),
     ]
+    log(f"traces: {len(LEAD_LOST)}, each opened by {LEAD_FILLS} fills; fills that lost "
+        f"their device event, trace by trace: {LEAD_LOST}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -115,11 +115,13 @@ def _same_pads(size: int, stride: int, kernel: int = 3) -> Tuple[int, int]:
 def _conv_same(
     conv: nn.Conv2d, x: torch.Tensor, stride: int, dtype: torch.dtype
 ) -> torch.Tensor:
-    """3x3 'SAME' conv on NCHW ``x`` in ``dtype``. Stride 2 on an even size
-    pads (0, 1) — bottom/right only — which ``padding=1`` would get wrong."""
+    """'SAME' conv on NCHW ``x`` in ``dtype`` at the conv's kernel size (a
+    1x1 kernel pads nothing). A 3x3 kernel at stride 2 on an even size pads
+    (0, 1) — bottom/right only — which ``padding=1`` would get wrong."""
+    kh, kw = conv.kernel_size
     (ty, by), (lx, rx) = (
-        _same_pads(x.shape[-2], stride),
-        _same_pads(x.shape[-1], stride),
+        _same_pads(x.shape[-2], stride, kh),
+        _same_pads(x.shape[-1], stride, kw),
     )
     w, b = conv.weight.to(dtype), conv.bias.to(dtype)
     x = x.to(dtype)

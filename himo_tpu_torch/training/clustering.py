@@ -1,4 +1,4 @@
-"""Host clustering without sklearn: HDBSCAN and single-linkage components.
+"""Host clustering without sklearn: HDBSCAN and DBSCAN.
 
 The JAX package's label pipeline (``himo_tpu/training/ssl_labels.py``)
 clusters dynamic points with ``sklearn.cluster.HDBSCAN`` and merges surface
@@ -18,12 +18,13 @@ this module computes the same results in numpy and scipy:
   numpy's default kind (``hdbscan.py:165``); union-find single linkage
   (``_linkage.pyx:226-290``); the condensed tree, its stabilities, the
   excess-of-mass selection and the labelling (``_tree.pyx``).
-- :func:`connected_components` returns the partition that
-  ``DBSCAN(eps, min_samples=1).fit_predict`` gives: components of the
-  graph of pairs at distance ``<= eps``.
+- :func:`dbscan` returns the labels of ``DBSCAN(eps,
+  min_samples).fit_predict`` bit for bit: the label pipeline's fragment
+  merge at ``min_samples=1`` and the downstream detector's clustering
+  (``downstream/detection.detect_frame``).
 
 Prim's loop is O(n^2), as sklearn's is; the dynamic points of one frame
-number in the thousands.
+number in the thousands. The module says "sklearn" for sklearn 1.9.
 """
 
 from __future__ import annotations
@@ -323,16 +324,55 @@ def hdbscan(points: np.ndarray, min_cluster_size: int,
     return labels.astype(np.int64)
 
 
-def connected_components(points: np.ndarray, eps: float) -> np.ndarray:
-    """Components of the graph joining points at float64 distance ``<=
-    eps``: the partition of ``DBSCAN(eps=eps, min_samples=1)``, numbered by
-    ``scipy.sparse.csgraph``."""
+def dbscan(points: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
+    """sklearn 1.9's ``DBSCAN(eps=eps, min_samples=min_samples)
+    .fit_predict(points)`` for finite euclidean points, bit for bit:
+
+    - the neighbourhoods are sklearn's KD-tree radius query on the points
+      cast to float64: a pair is in reach when its squared difference,
+      summed over the coordinates in order, is at most ``eps * eps``
+      (``_binary_tree.pxi.tp``'s leaf test; the candidate pairs come from
+      scipy's ``cKDTree`` at a radius a millionth larger);
+    - a point is a core point when its neighbours, itself included, number
+      at least ``min_samples``;
+    - the clusters are the components of the core points' graph, numbered
+      in the order of their lowest-index core point, as ``dbscan_inner``
+      walks them; a border point takes the lowest-numbered cluster of the
+      core points in its reach (the first walk to reach it);
+    - every other point is noise, ``-1``."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components as components
     from scipy.spatial import cKDTree
 
-    x = np.asarray(points, np.float64)
-    pairs = cKDTree(x).query_pairs(eps, output_type="ndarray")
-    graph = coo_matrix((np.ones(len(pairs), np.int8), (pairs[:, 0], pairs[:, 1])),
-                       shape=(len(x), len(x)))
-    return components(graph, directed=False)[1].astype(np.int64)
+    x = np.ascontiguousarray(points, dtype=np.float64)
+    n = len(x)
+    labels = np.full(n, NOISE, np.int64)
+    if n == 0:
+        return labels
+    pairs = cKDTree(x).query_pairs(eps * (1.0 + 1e-6), output_type="ndarray")
+    d2 = np.zeros(len(pairs))
+    for j in range(x.shape[1]):
+        diff = x[pairs[:, 0], j] - x[pairs[:, 1], j]
+        d2 = d2 + diff * diff
+    pairs = pairs[d2 <= eps * eps]
+    count = 1 + np.bincount(pairs[:, 0], minlength=n) + np.bincount(pairs[:, 1], minlength=n)
+    core = count >= min_samples
+    if not core.any():
+        return labels
+    both = pairs[core[pairs[:, 0]] & core[pairs[:, 1]]]
+    graph = coo_matrix((np.ones(len(both), np.int8), (both[:, 0], both[:, 1])), shape=(n, n))
+    comp = components(graph, directed=False)[1]
+    core_idx = np.flatnonzero(core)  # ascending
+    comps, first = np.unique(comp[core_idx], return_index=True)
+    number = np.empty(comp.max() + 1, np.int64)
+    number[comps[np.argsort(core_idx[first], kind="stable")]] = np.arange(len(comps))
+    labels[core] = number[comp[core]]
+    # Border points: the lowest-numbered cluster among core points in reach.
+    src = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    dst = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    edge = ~core[src] & core[dst]
+    border = np.full(n, np.iinfo(np.int64).max)
+    np.minimum.at(border, src[edge], labels[dst[edge]])
+    reached = ~core & (border != np.iinfo(np.int64).max)
+    labels[reached] = border[reached]
+    return labels

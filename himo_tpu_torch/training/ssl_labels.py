@@ -46,7 +46,7 @@ from himo_tpu_torch.core.transforms import rigid_flow
 from himo_tpu_torch.data import h5
 from himo_tpu_torch.data.dataset import SceneFlowDataset
 from himo_tpu_torch.data.schema import rewrite_scene
-from himo_tpu_torch.training.clustering import connected_components, hdbscan
+from himo_tpu_torch.training.clustering import dbscan, hdbscan
 
 
 def nn_residual_distances(pc0_comp: np.ndarray, pc1: np.ndarray) -> np.ndarray:
@@ -162,7 +162,7 @@ def _merge_surface_fragments(
     ids = np.unique(labels[labels >= 0])
     if len(ids) < 2:
         return labels
-    comp = connected_components(pts, eps_eff)
+    comp = dbscan(pts, eps_eff, 1)
     out = labels.copy()
     # Map each component to the first cluster id seen in it; relabel the
     # rest of that component's clusters to it.

@@ -3,7 +3,9 @@
 :func:`mlp_from_jax` takes the coordinate MLP's ``[(W (in, out), b), ...]``
 as they are: the port keeps the reference's layout.
 
-For :func:`flax_to_torch`, the JAX parameters arrive as a nested dict of numpy arrays (what
+For :func:`flax_to_torch` (the flow networks), :func:`seg_flax_to_torch`
+and :func:`det_flax_to_torch` (the downstream networks), the JAX
+parameters arrive as a nested dict of numpy arrays (what
 ``jax.tree_util.tree_map(np.asarray, params)`` gives), with or without the
 top-level ``"params"`` key. The mapping:
 
@@ -21,7 +23,10 @@ inputs, or 10 with ``prior_feat``: the kernel's shape carries either);
 (L = ``len(config.depths)``), ``UNet_0/Conv_0`` -> ``unet.head``;
 ``DeFlowGRUDecoder_0`` Dense_0..3 -> ``decoder.pillar_in``, ``point_in``,
 ``hidden``, ``out``; ``LinearDecoder_0`` Dense_0..2 -> ``decoder.dense0``,
-``dense1``, ``out``.
+``dense1``, ``out``. The downstream heads: ``SegNet``'s ``Dense_0``,
+``Dense_1`` -> ``dense0``, ``dense1``; ``DetNet``'s ``Conv_0`` (3x3),
+``Conv_1`` (1x1 heat), ``Conv_2`` (1x1 regression) -> ``conv``, ``heat``,
+``reg``. A parameter left over raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -71,13 +76,10 @@ def _unexpected(where: str, keys) -> None:
         raise KeyError(f"unexpected flax parameters under {where}: {sorted(keys)}")
 
 
-def flax_to_torch(params: dict, config) -> dict:
-    """Map a flax ``SceneFlowNet`` parameter tree (numpy leaves) to the
-    port's state dict for the same ``FlowNetConfig``."""
-    tree = params.get("params", params)
-    out: dict = {}
+def _backbone(out: dict, tree: dict, config) -> None:
+    """``PointFeatureNet_0`` -> ``pfn`` and ``UNet_0`` -> ``unet``, as every
+    network on the pillar backbone names them."""
     levels = len(config.depths)
-
     pfn = tree["PointFeatureNet_0"]
     _dense(out, "pfn.dense0", pfn["Dense_0"])
     _dense(out, "pfn.dense1", pfn["Dense_1"])
@@ -96,6 +98,14 @@ def flax_to_torch(params: dict, config) -> dict:
         _conv(out, f"{prefix}.conv1", block["Conv_1"])
         _norm(out, f"{prefix}.norm0", block["GroupNorm_0"])
         _norm(out, f"{prefix}.norm1", block["GroupNorm_1"])
+
+
+def flax_to_torch(params: dict, config) -> dict:
+    """Map a flax ``SceneFlowNet`` parameter tree (numpy leaves) to the
+    port's state dict for the same ``FlowNetConfig``."""
+    tree = params.get("params", params)
+    out: dict = {}
+    _backbone(out, tree, config)
 
     if "DeFlowGRUDecoder_0" in tree:
         dec = tree["DeFlowGRUDecoder_0"]
@@ -116,4 +126,35 @@ def flax_to_torch(params: dict, config) -> dict:
         set(tree) - {"PointFeatureNet_0", "UNet_0", "DeFlowGRUDecoder_0",
                      "LinearDecoder_0"},
     )
+    return out
+
+
+def seg_flax_to_torch(params: dict, config) -> dict:
+    """Map a flax ``SegNet`` parameter tree to the port's
+    ``downstream.segmentation.SegNet`` state dict for the same
+    ``SegConfig``: the backbone as :func:`flax_to_torch` maps it, the head's
+    ``Dense_0`` and ``Dense_1`` -> ``dense0`` and ``dense1``."""
+    tree = params.get("params", params)
+    out: dict = {}
+    _backbone(out, tree, config)
+    _dense(out, "dense0", tree["Dense_0"])
+    _dense(out, "dense1", tree["Dense_1"])
+    _unexpected("the top level",
+                set(tree) - {"PointFeatureNet_0", "UNet_0", "Dense_0", "Dense_1"})
+    return out
+
+
+def det_flax_to_torch(params: dict, config) -> dict:
+    """Map a flax ``DetNet`` parameter tree to the port's
+    ``downstream.det_net.DetNet`` state dict for the same ``DetNetConfig``:
+    the backbone as :func:`flax_to_torch` maps it, ``Conv_0`` (3x3) ->
+    ``conv``, ``Conv_1`` (the 1x1 heat head) -> ``heat`` and ``Conv_2`` (the
+    1x1 regression head) -> ``reg``."""
+    tree = params.get("params", params)
+    out: dict = {}
+    _backbone(out, tree, config)
+    for i, name in enumerate(("conv", "heat", "reg")):
+        _conv(out, name, tree[f"Conv_{i}"])
+    _unexpected("the top level",
+                set(tree) - {"PointFeatureNet_0", "UNet_0", "Conv_0", "Conv_1", "Conv_2"})
     return out

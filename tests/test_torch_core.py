@@ -177,7 +177,9 @@ def test_port_imports_no_jax():
         "             'models.icp_flow', 'cli.ssl_label', 'native', 'utils.profiling',\n"
         "             'models.runner', 'parallel.fleet', 'eval.chamfer', 'eval.pipeline',\n"
         "             'eval.instance_metrics', 'eval.flow_metrics', 'cli.save', 'cli.eval',\n"
-        "             'cli.eval_flow'):\n"
+        "             'cli.eval_flow', 'eval.seg', 'cli.eval_seg', 'downstream',\n"
+        "             'downstream.segmentation', 'downstream.detection', 'downstream.det_net',\n"
+        "             'cli.seg_h5', 'cli.det_h5'):\n"
         "    assert 'himo_tpu_torch.' + name in names, names\n"
         "print(len(names))\n"
     )
@@ -186,7 +188,7 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 58
+    assert int(proc.stdout.strip()) >= 66
     import ast
 
     for path in [*sorted((REPO / "himo_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]:

@@ -9,8 +9,12 @@ sklearn 1.9, which the JAX package's label pipeline calls.
   tree and of the sorts is exercised), duplicated points, one lone
   cluster (where eom finds nothing without ``allow_single_cluster``),
   uniform noise, and a cloud of exactly ``min_samples`` points.
-- ``connected_components``: the same partition as ``DBSCAN(eps,
-  min_samples=1)`` (the numbering is scipy's; only the partition is used).
+- ``dbscan``: equal to ``DBSCAN(eps, min_samples).fit_predict`` bit for
+  bit, numbering included, at several ``eps`` and ``min_samples`` on the
+  clouds above (``min_samples=1`` is the label pipeline's fragment merge) (on the quarter-metre grids many pairs sit at exactly
+  ``eps``), on border points in reach of two clusters, and on the
+  detector's own setting (``eps`` 0.9, 15 samples) over a frame-sized
+  cloud.
 """
 
 import numpy as np
@@ -92,11 +96,49 @@ def test_prim_tree_takes_the_first_node_at_the_lowest_reachability():
     np.testing.assert_array_equal(mst["distance"], [1.0, 1.0, 1.0])
 
 
-@pytest.mark.parametrize("name", ["blobs0", "grid", "duplicates", "noise"])
-@pytest.mark.parametrize("eps", [0.25, 0.7, 2.0])
-def test_connected_components_partition_equals_dbscan(name, eps):
+@pytest.mark.parametrize("min_samples", [1, 2, 4, 15])
+@pytest.mark.parametrize("name", sorted(CLOUDS))
+def test_dbscan_equals_sklearn_bitwise(name, min_samples):
     points = CLOUDS[name]()
-    got = clustering.connected_components(points, eps)
-    want = DBSCAN(eps=eps, min_samples=1).fit_predict(points)
-    pairs = set(zip(got.tolist(), want.tolist()))
-    assert len(pairs) == len(set(got.tolist())) == len(set(want.tolist()))
+    found = -1
+    for eps in (0.25, 0.5, 0.7, 0.9, 2.0):
+        want = DBSCAN(eps=eps, min_samples=min_samples).fit_predict(points)
+        got = clustering.dbscan(points, eps, min_samples)
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} eps={eps}")
+        found = max(found, int(want.max()))
+    # No vacuous case: at min_samples 1 every point is core and every cloud
+    # splits; the clouds with density structure keep several clusters up to
+    # 4 samples.
+    if min_samples == 1 or (min_samples <= 4 and name.startswith(("blobs", "grid", "dup"))):
+        assert found >= 1
+
+
+def test_dbscan_border_point_takes_the_first_cluster():
+    # Two 3-point cores on a line at unit spacing, a border point between
+    # them in reach of one core point of each: it joins the cluster of the
+    # lower-index core point (numbered first), whichever side comes first in
+    # the array; with min_samples 4 nothing is core.
+    left = [[0, 0, 0], [1, 0, 0], [2, 0, 0]]
+    right = [[6, 0, 0], [5, 0, 0], [4, 0, 0]]
+    border = [[3, 0, 0]]
+    for rows in (left + right + border, right + left + border, border + left + right):
+        points = np.array(rows, np.float32)
+        want = DBSCAN(eps=1.0, min_samples=3).fit_predict(points)
+        got = clustering.dbscan(points, 1.0, 3)
+        np.testing.assert_array_equal(got, want)
+        b = rows.index(border[0])
+        first = min(rows.index(left[2]), rows.index(right[2]))
+        assert got[b] == got[first]
+    assert (clustering.dbscan(np.array(left + right, np.float32), 1.0, 4) == -1).all()
+
+
+def test_dbscan_at_the_detectors_setting():
+    rng = np.random.default_rng(8)
+    centers = rng.uniform(-40, 40, (30, 3))
+    points = np.concatenate([
+        c + rng.normal(0, [1.5, 0.8, 0.5], (int(rng.integers(5, 300)), 3)) for c in centers
+    ] + [rng.uniform(-50, 50, (3000, 3))]).astype(np.float32)
+    points = np.concatenate([points, points[:200]])  # duplicates
+    want = DBSCAN(eps=0.9, min_samples=15).fit_predict(points)
+    np.testing.assert_array_equal(clustering.dbscan(points, 0.9, 15), want)
+    assert want.max() >= 10

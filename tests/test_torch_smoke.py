@@ -413,3 +413,90 @@ def test_split_calls_ties_device_events_to_the_call_that_launched_them():
     per_call = cs.split_calls(events, range(1, 4))
     assert [len(c) for c in per_call] == [1, 0, 1]
     assert [c[0]["args"]["correlation"] for c in per_call if c] == [1001, 1003]
+
+
+def test_downstream_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """``phase_downstream`` at a toy size on 1 scene x 4 frames of 2,000
+    points (3 eval frames) with a ``perfect`` flow, 2,048 points a frame:
+    SegNet on a 256x256 grid at depths (16, 32), which the shrunk
+    thresholds send down the table route as the 512x512 grid at 32,768
+    points goes on the card; DetNet at voxel 0.8 (128x128, resident, as
+    256x256 on the card); the trace is the CPU's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from himo_tpu_torch.data.synthetic import make_dataset
+    from himo_tpu_torch.ops.voxelize import PillarConfig
+
+    for name, value in (("DOWNSTREAM_POINTS", 2048), ("DET_VOXEL", 0.8),
+                        ("DOWNSTREAM_TRACE_CALLS", 1),
+                        ("SEG_OVERRIDES", {"pillar": PillarConfig(voxel_size=(0.4, 0.4)),
+                                           "depths": (16, 32)})):
+        monkeypatch.setattr(cs, name, value)
+
+    def cpu_traced(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        return out, cs._trace_events(prof)
+
+    monkeypatch.setattr(cs, "traced", cpu_traced)
+    root = tmp_path / "av2_down"
+    make_dataset(root, num_scenes=1, num_frames=4, seed=0, num_background=1200,
+                 method_flows={"perfect": 0.0})
+    launches = cs.phase_downstream(rehearsal, "Card, 700.00 W", root)
+    frames, eval_frames = 4, 3
+    want = dict.fromkeys(launches, 0)
+    want.update(scatter_max_rows=frames + 2 * frames, sorted_gather_rows=frames,
+                scatter_sum_rows=frames)
+    det_steps = launches["scatter_max_resident_rows"] - 2 * eval_frames
+    assert 1 <= det_steps <= eval_frames
+    want["scatter_max_resident_rows"] = det_steps + 2 * eval_frames
+    assert launches == want
+    out = capsys.readouterr().out
+    assert "[seg_h5 train] step 1, kernels vs plain" in out
+    assert "[det_h5 train] step 1, kernels vs plain" in out
+    assert "[downstream] Card, 700.00 W: seg_h5 SegNet, grid (256, 256)" in out
+    assert "busy share 0.0000" in out and "eval_seg mIoU seg_raw" in out
+    assert "argmax equal on the" in out and "det_h5 geometric:" in out
+    for kernel in ("scatter_max_rows (SegNet)", "scatter_sum_rows (SegNet)",
+                   "sorted_gather_rows (SegNet)", "scatter_max_resident_rows (DetNet)"):
+        assert f"[downstream] {kernel} B=1 N=2048" in out
+    assert out.count('[downstream] scatter_max') >= 2 and '"bound_ms"' in out
+
+
+def test_device_split_fails_when_a_call_lost_its_device_events(monkeypatch, capsys):
+    """A call that lost a device event is left out and named; a trace with
+    fewer than ``SPLIT_WHOLE`` of its calls whole fails (17 of 20 calls of
+    K5 once came back empty on the card, before each trace opened with
+    its lead of fills)."""
+    kernel = {"name": "void (anonymous namespace)::k<1>(float*)", "dur": 2000.0}
+    calls = {"whole": [[kernel]] * 20, "one lost": [[kernel]] * 19 + [[]],
+             "lost": [[] for _ in range(17)] + [[kernel]] * 3,
+             "six lost": [[]] * 6 + [[kernel]] * 14}
+    monkeypatch.setattr(cs, "traced", lambda fn: (fn(), []))
+    for case in ("whole", "one lost"):
+        monkeypatch.setattr(cs, "split_calls", lambda events, c: calls[case])
+        split = cs.device_split(lambda: None)
+        assert set(split) == {"k"} and split["k"] == pytest.approx(2.0)
+    assert "calls [19] of 20 lacked a device event" in capsys.readouterr().out
+    for case in ("lost", "six lost"):
+        monkeypatch.setattr(cs, "split_calls", lambda events, c: calls[case])
+        with pytest.raises(AssertionError, match="device events per call"):
+            cs.device_split(lambda: None)
+
+
+def test_without_lead_drops_the_fills_device_events():
+    """The device events of the launches in the lead range go, the ones
+    lost are not counted, and the rest of the trace stays whole."""
+    def ev(name, cat, ts, corr=None):
+        return {"name": name, "cat": cat, "ts": ts, "dur": 1.0,
+                **({"args": {"correlation": corr}} if corr is not None else {})}
+
+    lead = [ev(cs.LEAD_LABEL, "user_annotation", 0)]
+    lead[0]["dur"] = 100.0
+    launches = [ev("cudaLaunchKernel", "cuda_runtime", 10 * i, i) for i in (1, 2, 3)]
+    filled = [ev("fill", "kernel", 200 + i, i) for i in (1, 2)]  # fill 3 lost
+    timed = [ev("cudaLaunchKernel", "cuda_runtime", 150, 4), ev("k", "kernel", 300, 4),
+             ev(f"{cs.SPLIT_LABEL}0", "user_annotation", 140)]
+    events, kept = cs.without_lead(lead + launches + filled + timed)
+    assert kept == 2
+    assert events == lead + launches + timed
