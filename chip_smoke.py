@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen main paths, at full width with random weights from seeded generators:
+Eighteen main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -60,6 +60,10 @@ Seventeen main paths, at full width with random weights from seeded generators:
   checkpoint, on 2 scenes x 4 frames x 64,800 points;
 - the flow-mode evaluation, ``cli.eval`` and ``cli.eval_flow``, on what
   those two wrote (in a temporary working directory);
+- the leaderboard submission on those scenes: ``cli.save_zip`` of the
+  ``perfect`` and ``seflowpp`` flows, ``cli.save_zip_gt``, zip-mode
+  ``cli.eval`` and ``cli.score`` (host only; feather files read and written
+  by ``io/arrow``, no pandas);
 - downstream segmentation on those scenes: ``cli.seg_h5`` trains SegNet
   (``SegConfig()``: 512x512, depths (64, 128, 256), fp32) one epoch at
   32,768 points a frame, one frame a step, and segments ``raw``, then
@@ -182,7 +186,16 @@ and prints no result):
    ``raw`` worse, every other flow (and the fleet's) finite; ``eval_flow``
    on the same flows; only the two ``res-*.json`` written, in the
    temporary directory; host ms per frame;
-14. downstream (``phase_downstream``): ``cli.seg_h5``'s step 1 held
+14. submit (``phase_submit``): ``save_zip`` of ``perfect`` and
+   ``seflowpp`` and ``save_zip_gt`` (every archive holds the GT's
+   sweeps); zip-mode ``cli.eval`` of each equal to flow mode, its totals
+   and its printed table; ``cli.score`` of GT and of ``perfect`` against
+   GT below 1e-5 m of MPE and CDE, of ``seflowpp`` finite, each writing
+   ``scores.json`` and ``res-av2.json``; no kernel launched; the committed
+   LZ4 feather fixture read to its generator's columns, its frames decoded
+   byte for byte alike by the native library and by numpy; host ms per
+   frame of each CLI, the decoders' MB/s;
+15. downstream (``phase_downstream``): ``cli.seg_h5``'s step 1 held
    against the plain versions as in 5 (loss within 1e-4 relative); each
    step 1 scatter_max_rows, 1 sorted_gather_rows (K5) and 1
    scatter_sum_rows, each frame 1 scatter_max_rows; the ``seg_*`` and
@@ -283,6 +296,12 @@ FLEET_LABEL = "fleet pass"
 # for the eval.
 SAVE_SCENES, SAVE_FRAMES, SAVE_BACKGROUND = 2, 4, 64000
 EVAL_PERFECT_MAX = 1e-5  # tests/test_eval_pipeline.py's bound on perfect's MPE and CDE
+# The leaderboard submission (save_zip, save_zip_gt, zip-mode cli.eval,
+# cli.score) on phase_save's scenes, and the committed LZ4 feather fixture
+# (pandas-written; the card's host has no pandas to write one).
+SUBMIT_METHODS = ("perfect", "seflowpp")
+LZ4_FIXTURE = Path("tests") / "data" / "lz4_fixture.py"
+LZ4_RUNS = 5
 # Downstream (cli.seg_h5, cli.eval_seg, cli.det_h5) on phase_save's scenes at
 # the reference's defaults: 32,768 points a frame, SegConfig() (512x512,
 # depths (64, 128, 256)), DetNetConfig() at det_h5's voxel 0.4 (256x256,
@@ -3107,6 +3126,144 @@ def phase_eval(smi: str, save_root: Path, fleet_root: Path) -> None:
         + f" m ({flow_ms:.3f} host ms per method)")
 
 
+def _printed(fn, *args, **kwargs):
+    """(result, standard output) of ``fn(*args, **kwargs)``."""
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = fn(*args, **kwargs)
+    return out, text.getvalue()
+
+
+def _lz4_fixture(root: Path):
+    """The fixture generator module ``tests/data/lz4_fixture.py`` of the
+    checkout at ``root`` (numpy only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("lz4_fixture", root / LZ4_FIXTURE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_submit(smi: str, save_root: Path, root: Path) -> None:
+    """The leaderboard submission on ``phase_save``'s scenes, in a
+    temporary working directory: ``cli.save_zip`` of ``perfect`` and
+    ``seflowpp`` (the flow ``cli.save`` wrote through K1 max, K7 and K6)
+    and ``cli.save_zip_gt``, each frame's feather file written by
+    ``io/arrow``; zip-mode ``cli.eval`` of each method, whose totals and
+    printed table must equal flow mode's; ``cli.score`` of the GT archive
+    against itself and of ``perfect`` against it (both below
+    ``EVAL_PERFECT_MAX``) and of ``seflowpp`` (finite; random weights
+    measure no quality). Then the committed LZ4 fixture: every LZ4 frame in
+    it decoded by the native library and by ``io/lz4.decode_frame``, byte
+    for byte the same, and the columns read equal to the generator's.
+    Prints host ms per frame of each CLI and the decoders' MB/s."""
+    import shutil
+    import tempfile
+
+    from himo_tpu_torch import native
+    from himo_tpu_torch.cli.eval import main as eval_main
+    from himo_tpu_torch.cli.save_zip import main as save_zip_main
+    from himo_tpu_torch.cli.save_zip_gt import main as save_zip_gt_main
+    from himo_tpu_torch.cli.score import main as score_main
+    from himo_tpu_torch.io import arrow, lz4
+    from himo_tpu_torch.io.submission import list_sweep_uuids
+
+    phase_start = time.perf_counter()
+    save_root = save_root.resolve()
+    cwd = os.getcwd()
+    times, scores = {}, {}
+    with tempfile.TemporaryDirectory(prefix="himo_submit_") as tmp:
+        os.chdir(tmp)
+        try:
+            zips = {}
+            for name in SUBMIT_METHODS:
+                start = time.perf_counter()
+                zips[name], _ = _printed(save_zip_main, data_dir=str(save_root), res_name=name)
+                times[f"save_zip {name}"] = time.perf_counter() - start
+            start = time.perf_counter()
+            zips["gt"], _ = _printed(save_zip_gt_main, data_dir=str(save_root),
+                                     output_dir=str(Path(tmp) / "gt_av2"), res_name="flow")
+            times["save_zip_gt"] = time.perf_counter() - start
+            frames = len(list_sweep_uuids(zips["gt"]))
+            if not frames:
+                raise AssertionError(f"submit: no frame in the GT archive of {save_root}")
+            for name, path in zips.items():
+                if sorted(list_sweep_uuids(path)) != sorted(list_sweep_uuids(zips["gt"])):
+                    raise AssertionError(f"submit: {name}'s archive holds other sweeps")
+            for name in SUBMIT_METHODS:
+                flow, flow_text = _printed(eval_main, data_dir=str(save_root), res_name=name)
+                start = time.perf_counter()
+                zipped, zip_text = _printed(eval_main, data_dir=str(save_root), res_name=name,
+                                            comp_dis_zip=zips[name])
+                times[f"eval zip {name}"] = time.perf_counter() - start
+                table = "HiMo refinement metrics"
+                if "Using provided comp_dis_zip" not in zip_text or \
+                        zipped.total_summary() != flow.total_summary() or \
+                        zip_text[zip_text.index(table):] != flow_text[flow_text.index(table):]:
+                    raise AssertionError(f"submit: zip-mode eval of {name} differs from flow "
+                                         f"mode: {zipped.total_summary()} against "
+                                         f"{flow.total_summary()}")
+            for pred in ("gt", *SUBMIT_METHODS):
+                out = Path(tmp) / f"score_{pred}"
+                start = time.perf_counter()
+                scores[pred], _ = _printed(score_main, ["--gt_zip", zips["gt"], "--pred_zip",
+                                                        zips[pred], "--output_dir", str(out)])
+                times[f"score {pred}"] = time.perf_counter() - start
+                if sorted(p.name for p in out.iterdir()) != ["res-av2.json", "scores.json"]:
+                    raise AssertionError(f"submit: score wrote {list(out.iterdir())}")
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(save_root / "results", ignore_errors=True)
+    for pred, s in scores.items():
+        if s["num_frames"] != frames or not np.isfinite([s["mpe"], s["chamfer"]]).all():
+            raise AssertionError(f"submit: score of {pred}: {s}")
+        if pred != "seflowpp" and not (s["mpe"] < EVAL_PERFECT_MAX
+                                       and s["chamfer"] < EVAL_PERFECT_MAX):
+            raise AssertionError(f"submit: {pred} against GT scores {s}")
+
+    fixture = _lz4_fixture(root)
+    frames_seen = []
+    decode = lz4.decode
+
+    def recording(data, size):
+        frames_seen.append((bytes(data), size))
+        return decode(data, size)
+
+    lz4.decode = recording
+    try:
+        columns = arrow.read_feather(fixture.PATH)
+    finally:
+        lz4.decode = decode
+    want = fixture.columns()
+    if list(columns) != list(want) or any(
+            columns[k].dtype != v.dtype or columns[k].tobytes() != v.tobytes()
+            for k, v in want.items()):
+        raise AssertionError("submit: the LZ4 fixture's columns differ from the generator's")
+    if not native.available():
+        raise AssertionError("submit: the native library is not available on the card's host")
+    decoded = sum(size for _, size in frames_seen)
+    rates = {}
+    for name, fn in (("native", native.lz4_frame_decode), ("numpy", lz4.decode_frame)):
+        outs, ms = _median_ms(lambda fn=fn: [fn(f, n) for f, n in frames_seen], LZ4_RUNS)
+        rates[name] = (outs, decoded / ms / 1e3)
+    if rates["native"][0] != rates["numpy"][0]:
+        raise AssertionError("submit: the native and numpy LZ4 decoders differ")
+    per_frame = {k: v / frames * 1e3 for k, v in times.items()}
+    log(f"[submit] {smi}: host ms per frame over {frames} frames: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per_frame.items()))
+    log(f"[submit] {smi}: zip-mode eval equals flow mode (totals and table) for "
+        f"{', '.join(SUBMIT_METHODS)}; score MPE / CDE: " + "; ".join(
+            f"{k} {v['mpe']:.6f} / {v['chamfer']:.6f} m" for k, v in scores.items()))
+    log(f"[submit] {smi}: LZ4 fixture ({fixture.PATH.stat().st_size:,} bytes, "
+        f"{len(frames_seen)} frames, {decoded:,} bytes decoded): native "
+        f"{rates['native'][1]:.1f} MB/s, numpy {rates['numpy'][1]:.1f} MB/s (medians of "
+        f"{LZ4_RUNS}), byte for byte the same; columns equal the generator's")
+    log(f"[submit] the phase took {time.perf_counter() - phase_start:.1f} s")
+
+
 def _snapshot_counts():
     from himo_tpu_torch.ops import mxu_scatter as pms
 
@@ -3600,6 +3757,11 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         paths.append(phase_save(device, smi, save_root))
         phase_eval(smi, save_root, fleet_root)
+        reset_counts()
+        phase_submit(smi, save_root, root)
+        paths.append(read_counts())
+        if any(paths[-1].values()):
+            raise AssertionError(f"submit: a host path launched kernels: {paths[-1]}")
         torch.cuda.empty_cache()
         paths.append(phase_downstream(device, smi, save_root))
     total = {k: sum(path[k] for path in paths) for k in read_counts()}

@@ -1,6 +1,7 @@
 // himo_native — host-side runtime primitives of himo_tpu_torch (a copy of
 // the JAX package's native/himo_native.cpp; the code is the same, so both
-// packages' trees, chamfers and packers agree bit for bit).
+// packages' trees, chamfers and packers agree bit for bit; the LZ4 frame
+// decoder at the end is the port's own).
 //
 // The GPU owns the per-point compute path; this library owns the host hot
 // loops around it (the roles the reference delegates to scipy cKDTree /
@@ -10,7 +11,8 @@
 //   * symmetric Chamfer distance in one call,
 //   * raw attribute-file readers for Scania superframes,
 //   * io_uring page-cache warming of upcoming scene files,
-//   * a multi-threaded pad-and-stack batch packer feeding the device.
+//   * a multi-threaded pad-and-stack batch packer feeding the device,
+//   * an LZ4 frame decoder for the Arrow IPC (feather) files pandas writes.
 //
 // C ABI only; Python binds via ctypes (himo_tpu_torch/native.py), which
 // releases the interpreter lock for the length of each call.
@@ -477,3 +479,146 @@ extern "C" int64_t himo_preload_files(const char** paths, int32_t n_paths,
   return total;
 }
 
+
+// ------------------------------------------------------------------- lz4
+// LZ4 frame decoding (the frame format, version 1.6.x of its
+// specification), the buffers of pandas' feather files: the magic
+// 0x184D2204 (skippable frames passed over, frames one after another
+// decoded in turn), FLG and BD, the optional content size (checked), the
+// header checksum byte, blocks compressed or stored raw (the size word's
+// high bit), optional block and content checksums (parsed, not verified),
+// the end mark. Every block decodes into the one output, so linked blocks
+// (a match reaching back into the blocks before) decode as independent
+// ones do. Returns the bytes written, or a negative code: -1 a malformed
+// frame (magic, version, block size, checksum flags), -2 more output than
+// `cap`, -3 a corrupt block (a sequence past the block's end, an offset
+// outside the output), -4 a frame that needs a dictionary, -5 a content
+// size that differs from the output, -6 a truncated frame.
+
+namespace {
+
+inline uint32_t rd32(const uint8_t* p) {
+  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+         (static_cast<uint32_t>(p[2]) << 16) | (static_cast<uint32_t>(p[3]) << 24);
+}
+
+inline uint64_t rd64(const uint8_t* p) {
+  return static_cast<uint64_t>(rd32(p)) | (static_cast<uint64_t>(rd32(p + 4)) << 32);
+}
+
+// One LZ4 block src[0, n) onto dst at *out (dst holds cap bytes).
+int64_t lz4_block(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
+                  int64_t* out) {
+  int64_t ip = 0, op = *out;
+  for (;;) {
+    if (ip >= n) return -3;
+    const uint32_t token = src[ip++];
+    int64_t lit = token >> 4;
+    if (lit == 15) {
+      uint32_t b;
+      do {
+        if (ip >= n) return -3;
+        b = src[ip++];
+        lit += b;
+      } while (b == 255);
+    }
+    if (lit > n - ip) return -3;
+    if (lit > cap - op) return -2;
+    std::memcpy(dst + op, src + ip, static_cast<size_t>(lit));
+    ip += lit;
+    op += lit;
+    if (ip == n) break;  // the last sequence holds literals only
+    if (n - ip < 2) return -3;
+    const int64_t offset = src[ip] | (src[ip + 1] << 8);
+    ip += 2;
+    if (offset == 0 || offset > op) return -3;
+    int64_t len = token & 15;
+    if (len == 15) {
+      uint32_t b;
+      do {
+        if (ip >= n) return -3;
+        b = src[ip++];
+        len += b;
+      } while (b == 255);
+    }
+    len += 4;
+    if (len > cap - op) return -2;
+    const uint8_t* from = dst + op - offset;
+    if (offset >= len) {
+      std::memcpy(dst + op, from, static_cast<size_t>(len));
+    } else {  // overlapping: byte by byte repeats the last `offset` bytes
+      for (int64_t i = 0; i < len; ++i) dst[op + i] = from[i];
+    }
+    op += len;
+  }
+  *out = op;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int64_t himo_lz4_frame_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                                         int64_t cap) {
+  int64_t ip = 0, op = 0;
+  while (ip < n) {
+    if (n - ip < 4) return -6;
+    const uint32_t magic = rd32(src + ip);
+    ip += 4;
+    if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {  // a skippable frame
+      if (n - ip < 4) return -6;
+      const int64_t skip = rd32(src + ip);
+      ip += 4;
+      if (skip > n - ip) return -6;
+      ip += skip;
+      continue;
+    }
+    if (magic != 0x184D2204u) return -1;
+    if (n - ip < 2) return -6;
+    const uint32_t flg = src[ip], bd = src[ip + 1];
+    ip += 2;
+    if ((flg >> 6) != 1) return -1;
+    if (flg & 1) return -4;
+    const uint32_t code = (bd >> 4) & 7;
+    if (code < 4) return -1;
+    const int64_t block_max = int64_t{1} << (8 + 2 * code);  // 64 KiB .. 4 MiB
+    int64_t content_size = -1;
+    if (flg & 0x08) {
+      if (n - ip < 8) return -6;
+      content_size = static_cast<int64_t>(rd64(src + ip));
+      ip += 8;
+    }
+    if (n - ip < 1) return -6;
+    ip += 1;  // the header checksum
+    const int64_t first = op;
+    for (;;) {
+      if (n - ip < 4) return -6;
+      const uint32_t word = rd32(src + ip);
+      ip += 4;
+      if (word == 0) break;
+      const int64_t size = word & 0x7FFFFFFFu;
+      if (size > block_max) return -1;
+      if (size > n - ip) return -6;
+      if (word & 0x80000000u) {
+        if (size > cap - op) return -2;
+        std::memcpy(dst + op, src + ip, static_cast<size_t>(size));
+        op += size;
+      } else {
+        const int64_t before = op;
+        const int64_t rc = lz4_block(src + ip, size, dst, cap, &op);
+        if (rc < 0) return rc;
+        if (op - before > block_max) return -3;
+      }
+      ip += size;
+      if (flg & 0x10) {
+        if (n - ip < 4) return -6;
+        ip += 4;
+      }
+    }
+    if (flg & 0x04) {
+      if (n - ip < 4) return -6;
+      ip += 4;
+    }
+    if (content_size >= 0 && op - first != content_size) return -5;
+  }
+  return op;
+}

@@ -30,7 +30,7 @@ Sidecar indices live next to the .h5 files: ``index_total.pkl`` — list of
 A scene is written whole: open one writer (``h5.File(path, "w")``) and
 call :func:`write_frame` for each frame. The writer does not append (the
 reference adds datasets with h5py's ``"a"`` mode): :func:`rewrite_scene`
-rewrites a scene file with datasets added or replaced, and
+rewrites a scene file with datasets added, replaced or removed, and
 :func:`write_method_flow` / :func:`write_method_flows` add a method's flow
 through it, once per frame or once per scene.
 """
@@ -147,12 +147,13 @@ def read_frame(f: h5.FileReader, timestamp, extra_keys=()) -> FrameData:
     )
 
 
-def rewrite_scene(path, updates: Mapping[str, Mapping[str, np.ndarray]]) -> None:
-    """Rewrite one scene file whole with datasets added or replaced:
-    ``updates`` maps a frame group's key to ``{name: array}``. Every other
-    dataset keeps its bytes, dtype and shape. The new file is written
-    beside the old one (``<name>.tmp``), then moved over it, so a failed
-    write leaves the old file as it was."""
+def rewrite_scene(path, updates: Mapping[str, Mapping[str, Optional[np.ndarray]]]) -> None:
+    """Rewrite one scene file whole with datasets added, replaced or
+    removed: ``updates`` maps a frame group's key to ``{name: array}``, a
+    ``None`` in place of an array removing the dataset. Every other dataset keeps its
+    bytes, dtype and shape. The new file is written beside the old one
+    (``<name>.tmp``), then moved over it, so a failed write leaves the old
+    file as it was."""
     path = Path(path)
     groups: Dict[str, Dict[str, np.ndarray]] = {}
     with h5.File(path) as f:
@@ -168,7 +169,11 @@ def rewrite_scene(path, updates: Mapping[str, Mapping[str, np.ndarray]]) -> None
     for key, arrays in updates.items():
         if key not in groups:
             raise KeyError(f"{path}: no frame group {key!r}")
-        groups[key].update(arrays)
+        for name, arr in arrays.items():
+            if arr is None:
+                groups[key].pop(name, None)
+            else:
+                groups[key][name] = arr
     tmp = path.with_name(path.name + ".tmp")
     try:
         with h5.File(tmp, "w") as f:

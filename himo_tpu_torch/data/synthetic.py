@@ -1,7 +1,8 @@
 """Synthetic scenes, LiDAR-like clouds and train batches.
 
-``make_scene`` / ``make_dataset`` (with ``BoxObject``) port the scene
-writers of ``himo_tpu/data/synthetic.py``: for the same seed and arguments
+``make_scene`` / ``make_dataset`` / ``make_benchmark_dataset`` (with
+``BoxObject`` and ``adversarial_objects``) port the scene writers of
+``himo_tpu/data/synthetic.py``: for the same seed and arguments
 they write the same arrays, through :mod:`himo_tpu_torch.data.h5`, and the
 same ``index_total.pkl`` / ``index_eval.pkl``. Scenes have known rigid ego
 motion and constant-velocity box objects, so GT flow and compensation are
@@ -368,5 +369,164 @@ def make_dataset(
     for scene_id, ts in total:
         if ts != last_by_scene[scene_id]:
             eval_entries.append([scene_id, ts])
+    save_index(eval_entries, output_dir, INDEX_EVAL)
+    return output_dir
+
+
+def adversarial_objects(
+    rng, num_frames: int, kind: str, points_per_object: int = 400
+) -> List[BoxObject]:
+    """Objects for one adversarial scene (the matcher stress suite's
+    failure modes, scored under the real eval): 'crossing' paths that
+    intersect mid-scene, 'occlusion' (half-shadowed target near a clean
+    mover), 'stopgo' (brake to zero / pull away), 'enterleave' (FOV entry
+    and exit mid-scene)."""
+    car = np.array([4.5, 2.0, 1.6])
+    truck = np.array([9.0, 2.6, 3.2])
+    if kind == "crossing":
+        # Two fast objects whose paths cross between frames 1 and 2.
+        meet = np.array([14.0, 3.0, 1.0])
+        t_meet = (num_frames // 2) * SWEEP_DT
+        v1 = 18.0 * np.array([np.cos(0.4), np.sin(0.4), 0.0])
+        v2 = 22.0 * np.array([np.cos(2.4), np.sin(2.4), 0.0])
+        return [
+            BoxObject(meet - v1 * t_meet + [0, 1.6, 0], v1, car.copy(),
+                      "REGULAR_VEHICLE", points_per_object),
+            BoxObject(meet - v2 * t_meet - [0, 1.6, 0], v2, truck.copy(),
+                      "TRUCK", points_per_object),
+        ]
+    if kind == "occlusion":
+        # A mover half-shadowed in the middle frames next to a clean one.
+        occ = tuple(range(1, num_frames - 1))
+        return [
+            BoxObject(np.array([16.0, -4.0, 1.0]),
+                      np.array([20.0, 2.0, 0.0]), car.copy(),
+                      "REGULAR_VEHICLE", points_per_object,
+                      occlude_frames=occ),
+            BoxObject(np.array([-12.0, 8.0, 1.2]),
+                      np.array([-6.0, -14.0, 0.0]), truck.copy(),
+                      "TRUCK", points_per_object),
+        ]
+    if kind == "stopgo":
+        # Emergency brake to rest, and a pull-away from rest.
+        brake = np.zeros((num_frames, 3))
+        brake[:, 0] = np.maximum(24.0 - 12.0 * np.arange(num_frames), 0.0)
+        pull = np.zeros((num_frames, 3))
+        pull[:, 1] = np.minimum(6.0 * np.arange(num_frames), 16.0)
+        return [
+            BoxObject(np.array([10.0, 6.0, 1.0]), brake[0], car.copy(),
+                      "REGULAR_VEHICLE", points_per_object,
+                      velocity_schedule=brake),
+            BoxObject(np.array([-8.0, -10.0, 1.2]), pull[0], truck.copy(),
+                      "TRUCK", points_per_object, velocity_schedule=pull),
+        ]
+    if kind == "enterleave":
+        visible_late = [fi >= 1 for fi in range(num_frames)]
+        visible_early = [fi < num_frames - 1 for fi in range(num_frames)]
+        return [
+            BoxObject(np.array([20.0, 10.0, 1.0]),
+                      np.array([-19.0, -4.0, 0.0]), car.copy(),
+                      "REGULAR_VEHICLE", points_per_object,
+                      visible=visible_late),
+            BoxObject(np.array([-15.0, -6.0, 1.2]),
+                      np.array([8.0, 21.0, 0.0]), truck.copy(),
+                      "TRUCK", points_per_object, visible=visible_early),
+        ]
+    raise KeyError(f"unknown adversarial kind {kind!r}")
+
+
+ADVERSARIAL_KINDS = ("crossing", "occlusion", "stopgo", "enterleave")
+
+
+def make_benchmark_dataset(
+    output_dir,
+    num_scenes: int = 18,
+    num_frames: int = 4,
+    seed: int = 0,
+    objects_per_scene: int = 6,
+    points_per_object: int = 400,
+    num_background: int = 16000,
+    adversarial_scenes: int = 8,
+    **scene_kwargs,
+) -> Path:
+    """Bucket-complete validation suite for quality-parity evidence.
+
+    Objects systematically cover every (metacategory, velocity bucket,
+    distance bucket) cell of the reference eval table — CAR and
+    OTHER_VEHICLES at ~6/15/25/34 m/s starting ~6/15/25/34 m out, with
+    mixed tangential/radial headings so the distance buckets also fill from
+    motion. Default 18 scenes x (num_frames - 1) eval frames = 54 frames.
+
+    ``adversarial_scenes`` appends ``scene_adv_*`` scenes cycling the
+    :data:`ADVERSARIAL_KINDS` (crossing / occlusion / stop-and-go /
+    FOV entry+exit) so the SCORED table also measures the conditions the
+    matcher stress suite exercises as pass/fail tests. Evaluate them
+    separately with the eval CLIs' ``scene_filter="scene_adv"``.
+    """
+    cat_specs = {
+        "REGULAR_VEHICLE": np.array([4.5, 2.0, 1.6]),
+        "TRUCK": np.array([9.0, 2.6, 3.2]),
+    }
+    speeds = (6.0, 15.0, 25.0, 34.0)
+    dists = (6.0, 15.0, 25.0, 34.0)
+    combos = [
+        (c, v, d) for c in cat_specs for v in speeds for d in dists
+    ]  # 32 cells
+    output_dir = Path(output_dir)
+    slot = 0
+    for si in range(num_scenes):
+        rng = np.random.default_rng(seed + 1000 + si)
+        objects = []
+        for _ in range(objects_per_scene):
+            cname, speed, dist = combos[slot % len(combos)]
+            slot += 1
+            ang = rng.uniform(0, 2 * np.pi)
+            center = np.array(
+                [dist * np.cos(ang), dist * np.sin(ang), 1.0]
+            )
+            # Heading: tangential +- up to 45 deg of radial drift.
+            head = ang + np.pi / 2 + rng.uniform(-np.pi / 4, np.pi / 4)
+            velocity = speed * np.array([np.cos(head), np.sin(head), 0.0])
+            objects.append(
+                BoxObject(
+                    center=center,
+                    velocity=velocity,
+                    size=cat_specs[cname].copy(),
+                    category=cname,
+                    points_per_frame=points_per_object,
+                )
+            )
+        make_scene(
+            output_dir,
+            scene_id=f"scene_{si:03d}",
+            num_frames=num_frames,
+            seed=seed + si,
+            objects=objects,
+            num_background=num_background,
+            ego_speed=5.0,
+            **scene_kwargs,
+        )
+    for ai in range(adversarial_scenes):
+        kind = ADVERSARIAL_KINDS[ai % len(ADVERSARIAL_KINDS)]
+        rng = np.random.default_rng(seed + 5000 + ai)
+        make_scene(
+            output_dir,
+            scene_id=f"scene_adv_{ai:03d}",
+            num_frames=num_frames,
+            seed=seed + 5000 + ai,
+            objects=adversarial_objects(
+                rng, num_frames, kind, points_per_object
+            ),
+            num_background=num_background,
+            ego_speed=5.0,
+            **scene_kwargs,
+        )
+    total = create_reading_index(output_dir, save=True)
+    last_by_scene = {}
+    for scene_id, ts in total:
+        last_by_scene[scene_id] = ts
+    eval_entries = [
+        [scene_id, ts] for scene_id, ts in total if ts != last_by_scene[scene_id]
+    ]
     save_index(eval_entries, output_dir, INDEX_EVAL)
     return output_dir

@@ -5,7 +5,8 @@
 The library holds the host-side hot loops: a 3-D KD-tree (float32, the
 reference's bucketed tree) with multi-threaded k-NN queries, the symmetric
 Chamfer distance of the eval, raw attribute-file reads, io_uring page-cache
-warming of scene files, and the threaded pad-and-stack batch packer. ctypes
+warming of scene files, the threaded pad-and-stack batch packer, and the
+LZ4 frame decoder of the feather reader (``io/arrow.py``). ctypes
 releases the interpreter lock for the length of each call, so the packer
 and the preload run beside the thread that dispatches to the GPU.
 
@@ -94,6 +95,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.himo_pack_frames.restype = None
     lib.himo_pack_frames.argtypes = [ctypes.POINTER(f32p), i32p, i32, i32, i32, f32p,
                                      ctypes.POINTER(ctypes.c_uint8), i32]
+    lib.himo_lz4_frame_decode.restype = ctypes.c_int64
+    lib.himo_lz4_frame_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                          ctypes.c_int64]
     return lib
 
 
@@ -225,3 +229,24 @@ def pack_frames(frames, target: int,
                          valid.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                          nthreads or _default_threads())
     return batch, valid.astype(bool)
+
+
+LZ4_ERRORS = {-1: "a malformed frame", -2: "more output than expected",
+              -3: "a corrupt block", -4: "a frame that needs a dictionary",
+              -5: "a content size that differs from the output", -6: "a truncated frame"}
+
+
+def lz4_frame_decode(data: bytes, size: int) -> bytes:
+    """The ``size`` bytes that the LZ4 frame ``data`` holds (the format
+    ``io/lz4.decode_frame`` decodes); raises unless the frame holds exactly
+    ``size`` bytes."""
+    lib = _require()
+    data = bytes(data)
+    out = bytearray(size)
+    buf = (ctypes.c_char * size).from_buffer(out) if size else None
+    got = lib.himo_lz4_frame_decode(data, len(data), buf, size)
+    if got < 0:
+        raise ValueError(f"lz4: {LZ4_ERRORS.get(got, f'error {got}')}")
+    if got != size:
+        raise ValueError(f"lz4: frame holds {got} bytes, not the {size} expected")
+    return bytes(out)

@@ -154,8 +154,21 @@ def test_printed_table_is_tabulates(synthetic_dataset, tmp_path, monkeypatch, ca
         assert not rows or want in text
 
 
-def test_zip_mode_is_refused(synthetic_dataset, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        p_eval(data_dir=str(synthetic_dataset), res_name="x", comp_dis_zip="pred-submit.zip")
-    assert not list(tmp_path.iterdir())
+def test_zip_mode_is_refused(synthetic_dataset, tmp_path, monkeypatch, capsys):
+    """A ``comp_dis_zip`` that does not exist is refused as the source: the
+    eval falls back to the flow ``res_name`` names, as the JAX package's
+    ``check_valid`` does, and prints what the reference prints."""
+    out = {}
+    for side, main in (("jax", j_eval), ("port", p_eval)):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        capsys.readouterr()
+        metrics = main(data_dir=str(synthetic_dataset), res_name="noisy",
+                       comp_dis_zip="pred-submit.zip")
+        out[side] = (metrics.total_summary(), capsys.readouterr().out,
+                     sorted(p.name for p in (tmp_path / side).iterdir()))
+        flow = main(data_dir=str(synthetic_dataset), res_name="noisy")
+        assert flow.total_summary() == metrics.total_summary()
+    assert out["port"] == out["jax"]
+    assert "No valid comp_dis_zip provided, evaluating based on noisy" in out["port"][1]
+    assert out["port"][2] == ["res-av2.json"]

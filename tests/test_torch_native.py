@@ -134,7 +134,8 @@ def test_library_exports_what_the_binding_declares():
                          capture_output=True, text=True, check=True).stdout
     exported = {line.split()[-1] for line in out.splitlines() if " T " in line}
     for name in ("himo_kd_build", "himo_kd_free", "himo_kd_query", "himo_kd_query_k",
-                 "himo_chamfer", "himo_read_attr", "himo_preload_files", "himo_pack_frames"):
+                 "himo_chamfer", "himo_read_attr", "himo_preload_files", "himo_pack_frames",
+                 "himo_lz4_frame_decode"):
         assert name in exported
 
 

@@ -1,98 +1,16 @@
-"""``chip_smoke.py``'s phases rehearsed on the CPU at a tiny size.
+"""``chip_smoke.py``'s kernel phases and its trace helpers rehearsed on
+the CPU at a tiny size (``tests/torch_rehearsal.py`` sets the phases up).
+What it checks is the script's own logic: shapes, the kernel-vs-plain
+comparisons, the launch counts each path expects, and the kernels line it
+prints. The rehearsals of the later paths are in
+``tests/test_torch_smoke_paths.py``, so that a second test worker takes
+them. It imports no JAX, like the script."""
 
-The script needs a card to run; this drives its phase functions with the
-CUDA-only calls stubbed (synchronize, events, memory statistics), a toy
-grid and batch, and every kernel wrapper replaced by a counting call of its
-plain version (the real wrappers count only kernel launches). What it
-checks is the script's own logic: shapes, the kernel-vs-plain comparisons,
-the launch counts each path expects, and the kernels line it prints. It
-imports no JAX, like the script."""
-
-import functools
 import json
-import sys
-import time
-from pathlib import Path
 
 import pytest
 import torch
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke as cs  # noqa: E402
-
-import himo_tpu_torch.cli.train  # noqa: E402,F401 - bound to TrainConfig before the rehearsal
-
-TOY = {"pillar.voxel_size": (0.4, 0.4), "depths": (16, 32),
-       "refine.num_query": 64, "refine.num_ref": 128}
-
-
-class _Event:
-    def __init__(self, **_):
-        self.t = 0.0
-
-    def record(self):
-        self.t = time.perf_counter()
-
-    def synchronize(self):
-        pass
-
-    def elapsed_time(self, other):
-        return (other.t - self.t) * 1e3
-
-
-@pytest.fixture()
-def rehearsal(monkeypatch):
-    from himo_tpu_torch.models import feedforward as pf
-    from himo_tpu_torch.ops import voxelize as pv
-    from himo_tpu_torch.ops.dt import DTConfig
-    from himo_tpu_torch.training import trainer as pt
-
-    # Route thresholds shrunk with the shapes: the main paths' toy 256x256
-    # grid at 2,048 points takes the table route (as 512x512 at 65,536),
-    # path A's 128x128 grid the resident route, path B's 4,096 points the
-    # stream route; 3 x 2,048 points do not fuse.
-    monkeypatch.setattr(pv, "_RESIDENT_BYTES", 16 * 1024 * 1024)
-    monkeypatch.setattr(pv, "_TABLE_BYTES", 1536 * 1024)
-    for name, value in (("BATCH", 2), ("NUM_POINTS", 2048), ("FUSED_POINTS", 256),
-                        ("GRID_256", {"pillar.voxel_size": (0.8, 0.8)}),
-                        ("BIG_POINTS", 4096),
-                        ("NN_SHAPES", ((128, 256), (256, 128))),
-                        ("NN_NSFP_SHAPE", (1, 512, 512)),
-                        ("SEGMENT_SHAPES", ((256, 2048), (512, 256))),
-                        ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
-                        ("KNN_DUPLICATES", 16), ("HOST_POINTS", 64), ("HOST_ROWS", 128),
-                        ("FASTNSF_DT", DTConfig(voxel_size=(3.2, 3.2, 1.6)))):
-        monkeypatch.setattr(cs, name, value)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "Event", _Event)
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    # No device to trace or to queue launches on: one timed call stands in.
-    monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0))
-    monkeypatch.setattr(cs, "device_split",
-                        lambda fn, iters=20: {"kernel": cs.cuda_ms(fn, 1, 0)})
-    monkeypatch.setattr(cs, "host_us", lambda fn: cs.cuda_ms(fn, 1, 0) * 1e3)
-    make = pf.make_model
-    monkeypatch.setattr(pf, "make_model", lambda name, device=None, **kw: make(
-        name, device="cpu", **{**TOY, **kw}))
-    monkeypatch.setattr(pt, "TrainConfig", functools.partial(
-        pt.TrainConfig, batch_size=2, num_points=2048, loss_points=256))
-    monkeypatch.setattr(pv, "_run_max_kernel", lambda p, f, rows, flagged=None:
-                        pv._scatter_max_rows_plain(p, f, rows))
-    for (mod, name), plain in cs._wrappers().items():
-        def counted(*args, _plain=plain, _name=name, _mod=mod):
-            fn = getattr(_mod, _name)
-            fn.launches += 1
-            if _name == "sorted_segment_sum":  # K10 also counts by width
-                c = args[1].shape[-1]
-                fn.launches_by_c[c] = fn.launches_by_c.get(c, 0) + 1
-            return _plain(*args)
-
-        counted.launches = 0
-        counted.launches_by_c = {}
-        monkeypatch.setattr(mod, name, counted)
-    return torch.device("cpu")
+from torch_rehearsal import cpu_traced, cs, rehearsal  # noqa: F401 - a fixture
 
 
 def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
@@ -203,127 +121,6 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
 
 
-def test_prior_paths_on_the_cpu(rehearsal, monkeypatch, capsys):
-    """The host cluster prior's paths at a toy size: K7 at a toy ICP shape,
-    ``nsfp`` and ``fastnsf`` at their defaults, ``icpflow`` and
-    ``seflowpp_trust`` (forward and two train steps), on 4,096-point
-    pairs (16 object clusters of about 25 points each, so the clustering
-    finds objects)."""
-    dev = rehearsal
-    monkeypatch.setattr(cs, "ICP_SHAPE", (4, 64, 512))
-    monkeypatch.setattr(cs, "NSFP_POINTS", 4096)
-    icp = cs.phase_nn_icp(dev)
-    assert icp["bound_by"] == "operations" and icp["bound_ms"] > 0 and icp["device_ms"] > 0
-    pair = cs._nsfp_pair(dev)
-    none = dict.fromkeys(cs.read_counts(), 0)
-    prior = cs.phase_opt_prior(dev, pair, {"nsfp": 1.0, "fastnsf": 1.0})
-    assert prior == {**none, "nn_argmin_rows": 2 * cs.NSFP_ITERS,
-                     "segment_rows_sum": cs.NSFP_ITERS}
-    assert cs.phase_icpflow(dev, pair) == {**none, "nn_argmin_rows": cs.ICP_ITERS}
-    launches, train, run_frame, frame_ms = cs.phase_trust(dev)
-    assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
-                        "nn_min_rows": 1}
-    steps = cs.ROUTE_TRAIN_STEPS
-    assert train == {**none, "scatter_max_rows": 4 * steps, "scatter_sum_rows": steps,
-                     "segment_rows_sum": 3 * steps, "fused_nn_idx": steps,
-                     "sorted_gather_rows": 3 * steps}
-    run_frame()
-    assert frame_ms > 0
-    out = capsys.readouterr().out
-    assert "cluster_prior_flow (NSFPConfig defaults)" in out and "(cold start 1.0000 m)" in out
-    assert "icpflow registration, kernels vs plain: 1.000000 of filled slots" in out
-    assert "[inference_trust] host prior of 2 frames" in out
-    assert "[inference_trust] kernels vs plain on the card" in out
-    assert "[train_trust] step 2" in out and "nn icp B=4 64x512" in out
-
-
-def test_train_loop_phase_on_the_cpu(rehearsal, monkeypatch, capsys):
-    """``phase_train_loop`` at a toy size: 2 scenes x 5 frames of 2,000
-    points, batch 2, so 4 steps an epoch; the trace is the CPU's (the
-    epoch ranges, no device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from himo_tpu_torch.models import feedforward as pf
-    from himo_tpu_torch.training import trainer as pt
-
-    monkeypatch.setattr(pt, "make_model", pf.make_model)  # the rehearsal's toy model
-    for name, value in (("LOOP_SCENES", 2), ("LOOP_FRAMES", 5), ("LOOP_BACKGROUND", 1200),
-                        ("LOOP_ISOLATED_STEPS", 2)):
-        monkeypatch.setattr(cs, name, value)
-
-    def cpu_traced(fn):
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            out = fn()
-        return out, cs._trace_events(prof)
-
-    monkeypatch.setattr(cs, "traced", cpu_traced)
-    launches = cs.phase_train_loop(rehearsal, "Card, 700.00 W")
-    steps, val_steps = 2 * 4, 2 * 1
-    want = dict.fromkeys(launches, 0)
-    want.update(scatter_max_rows=4 * steps + 4 * val_steps, scatter_sum_rows=steps,
-                fused_nn_idx=steps, segment_rows_sum=3 * steps, sorted_gather_rows=3 * steps,
-                fused_nn=val_steps)
-    assert launches == want
-    assert pt.batch_iterator.__name__ == "batch_iterator"  # the wrappers are gone
-    assert pt.make_train_step.__name__ == "make_train_step"
-    out = capsys.readouterr().out
-    assert "[train_loop] 10 frames of 2,000 points in 2 scenes" in out
-    assert "[train_loop] Card, 700.00 W: host" in out and "ms per batch of 2 frames" in out
-    assert "vs the same step alone" in out and "busy share 0.0000" in out
-    assert "resumed from step 4 (epoch 1)" in out
-
-
-def test_inference_phases_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
-    """The native, fleet, save and eval phases at a toy size: the fleet on
-    1 scene x 3 frames of 2,000 points (batches of 2, the second partial),
-    ``cli.save`` on 1 scene x 4 frames padded to 2,048 points (``fastnsf``
-    at 5 steps of a small MLP with its host prior and the scene-start
-    repair, then ``seflowpp`` from a checkpoint), the evals in a temporary
-    directory; the trace is the CPU's."""
-    import functools
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from himo_tpu_torch.models import fastnsf, runner
-    from himo_tpu_torch.ops.dt import DTConfig
-
-    for name, value in (("NATIVE_FRAMES", (2000, 2100, 1900, 2048)), ("NATIVE_TREE", 4096),
-                        ("NATIVE_RUNS", 2), ("FLEET_SCENES", 1), ("FLEET_FRAMES", 3),
-                        ("FLEET_BACKGROUND", 1200), ("SAVE_SCENES", 1),
-                        ("SAVE_BACKGROUND", 1200)):
-        monkeypatch.setattr(cs, name, value)
-    monkeypatch.setattr(fastnsf, "FastNSFConfig", functools.partial(
-        fastnsf.FastNSFConfig, iterations=5, hidden=16, layers=2,
-        dt=DTConfig(voxel_size=(3.2, 3.2, 1.6))))
-    monkeypatch.setattr(runner, "bucket_size", lambda n: 2048)  # the toy table route
-
-    def cpu_traced(fn):
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            out = fn()
-        return out, cs._trace_events(prof)
-
-    monkeypatch.setattr(cs, "traced", cpu_traced)
-    smi = "Card, 700.00 W"
-    cs.phase_native(smi)
-    fleet = cs.phase_fleet(rehearsal, smi, tmp_path / "av2_fleet")
-    none = dict.fromkeys(fleet, 0)
-    assert fleet == {**none, "scatter_max_rows": 3 * 2, "nn_argmin_rows": 10 * 2,
-                     "nn_min_rows": 2}
-    save = cs.phase_save(rehearsal, smi, tmp_path / "av2_save")
-    assert save == {**none, "scatter_max_rows": 3 * 3, "nn_argmin_rows": 10 * 3,
-                    "nn_min_rows": 3}
-    monkeypatch.chdir(tmp_path)
-    cs.phase_eval(smi, tmp_path / "av2_save", tmp_path / "av2_fleet")
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["av2_fleet", "av2_save"]
-    out = capsys.readouterr().out
-    assert "[native] Card, 700.00 W: pack_frames 4 x <= 2048 x 3" in out
-    assert "[fleet] Card, 700.00 W: timed pass" in out and "busy share 0.0000" in out
-    assert "first batch vs plain versions: 1.000000 of points" in out
-    assert "cli.save model=fastnsf: 3 frame pairs of 1 scenes" in out
-    assert "cli.save model=seflowpp: 3 frame pairs of 1 scenes, 0 re-estimated" in out
-    assert "[eval] Card, 700.00 W: Total MPE / CDE: perfect 0.000000" in out
-
-
 def test_window_busy_clips_device_time_to_the_ranges():
     def ev(name, cat, ts, dur):
         return {"name": name, "cat": cat, "ts": ts, "dur": dur}
@@ -422,8 +219,6 @@ def test_downstream_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
     thresholds send down the table route as the 512x512 grid at 32,768
     points goes on the card; DetNet at voxel 0.8 (128x128, resident, as
     256x256 on the card); the trace is the CPU's."""
-    from torch.profiler import ProfilerActivity, profile
-
     from himo_tpu_torch.data.synthetic import make_dataset
     from himo_tpu_torch.ops.voxelize import PillarConfig
 
@@ -432,11 +227,6 @@ def test_downstream_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
                         ("SEG_OVERRIDES", {"pillar": PillarConfig(voxel_size=(0.4, 0.4)),
                                            "depths": (16, 32)})):
         monkeypatch.setattr(cs, name, value)
-
-    def cpu_traced(fn):
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            out = fn()
-        return out, cs._trace_events(prof)
 
     monkeypatch.setattr(cs, "traced", cpu_traced)
     root = tmp_path / "av2_down"

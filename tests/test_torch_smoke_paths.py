@@ -1,0 +1,140 @@
+"""``chip_smoke.py``'s later paths rehearsed on the CPU at a tiny size
+(``tests/torch_rehearsal.py`` sets the phases up): the host cluster
+prior's paths, the train loop, inference and evaluation, and the
+leaderboard submission. A file apart from ``tests/test_torch_smoke.py``, so
+that a second test worker takes them. It imports no JAX, like the script."""
+
+from torch_rehearsal import cpu_traced, cs, rehearsal  # noqa: F401 - a fixture
+
+
+def test_prior_paths_on_the_cpu(rehearsal, monkeypatch, capsys):
+    """The host cluster prior's paths at a toy size: K7 at a toy ICP shape,
+    ``nsfp`` and ``fastnsf`` at their defaults, ``icpflow`` and
+    ``seflowpp_trust`` (forward and two train steps), on 4,096-point
+    pairs (16 object clusters of about 25 points each, so the clustering
+    finds objects)."""
+    dev = rehearsal
+    monkeypatch.setattr(cs, "ICP_SHAPE", (4, 64, 512))
+    monkeypatch.setattr(cs, "NSFP_POINTS", 4096)
+    icp = cs.phase_nn_icp(dev)
+    assert icp["bound_by"] == "operations" and icp["bound_ms"] > 0 and icp["device_ms"] > 0
+    pair = cs._nsfp_pair(dev)
+    none = dict.fromkeys(cs.read_counts(), 0)
+    prior = cs.phase_opt_prior(dev, pair, {"nsfp": 1.0, "fastnsf": 1.0})
+    assert prior == {**none, "nn_argmin_rows": 2 * cs.NSFP_ITERS,
+                     "segment_rows_sum": cs.NSFP_ITERS}
+    assert cs.phase_icpflow(dev, pair) == {**none, "nn_argmin_rows": cs.ICP_ITERS}
+    launches, train, run_frame, frame_ms = cs.phase_trust(dev)
+    assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
+                        "nn_min_rows": 1}
+    steps = cs.ROUTE_TRAIN_STEPS
+    assert train == {**none, "scatter_max_rows": 4 * steps, "scatter_sum_rows": steps,
+                     "segment_rows_sum": 3 * steps, "fused_nn_idx": steps,
+                     "sorted_gather_rows": 3 * steps}
+    run_frame()
+    assert frame_ms > 0
+    out = capsys.readouterr().out
+    assert "cluster_prior_flow (NSFPConfig defaults)" in out and "(cold start 1.0000 m)" in out
+    assert "icpflow registration, kernels vs plain: 1.000000 of filled slots" in out
+    assert "[inference_trust] host prior of 2 frames" in out
+    assert "[inference_trust] kernels vs plain on the card" in out
+    assert "[train_trust] step 2" in out and "nn icp B=4 64x512" in out
+
+
+def test_train_loop_phase_on_the_cpu(rehearsal, monkeypatch, capsys):
+    """``phase_train_loop`` at a toy size: 2 scenes x 5 frames of 2,000
+    points, batch 2, so 4 steps an epoch; the trace is the CPU's (the
+    epoch ranges, no device events)."""
+    from himo_tpu_torch.models import feedforward as pf
+    from himo_tpu_torch.training import trainer as pt
+
+    monkeypatch.setattr(pt, "make_model", pf.make_model)  # the rehearsal's toy model
+    for name, value in (("LOOP_SCENES", 2), ("LOOP_FRAMES", 5), ("LOOP_BACKGROUND", 1200),
+                        ("LOOP_ISOLATED_STEPS", 2)):
+        monkeypatch.setattr(cs, name, value)
+
+    monkeypatch.setattr(cs, "traced", cpu_traced)
+    launches = cs.phase_train_loop(rehearsal, "Card, 700.00 W")
+    steps, val_steps = 2 * 4, 2 * 1
+    want = dict.fromkeys(launches, 0)
+    want.update(scatter_max_rows=4 * steps + 4 * val_steps, scatter_sum_rows=steps,
+                fused_nn_idx=steps, segment_rows_sum=3 * steps, sorted_gather_rows=3 * steps,
+                fused_nn=val_steps)
+    assert launches == want
+    assert pt.batch_iterator.__name__ == "batch_iterator"  # the wrappers are gone
+    assert pt.make_train_step.__name__ == "make_train_step"
+    out = capsys.readouterr().out
+    assert "[train_loop] 10 frames of 2,000 points in 2 scenes" in out
+    assert "[train_loop] Card, 700.00 W: host" in out and "ms per batch of 2 frames" in out
+    assert "vs the same step alone" in out and "busy share 0.0000" in out
+    assert "resumed from step 4 (epoch 1)" in out
+
+
+def test_inference_phases_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """The native, fleet, save and eval phases at a toy size: the fleet on
+    1 scene x 3 frames of 2,000 points (batches of 2, the second partial),
+    ``cli.save`` on 1 scene x 4 frames padded to 2,048 points (``fastnsf``
+    at 5 steps of a small MLP with its host prior and the scene-start
+    repair, then ``seflowpp`` from a checkpoint), the evals in a temporary
+    directory; the trace is the CPU's."""
+    import functools
+
+    from himo_tpu_torch.models import fastnsf, runner
+    from himo_tpu_torch.ops.dt import DTConfig
+
+    for name, value in (("NATIVE_FRAMES", (2000, 2100, 1900, 2048)), ("NATIVE_TREE", 4096),
+                        ("NATIVE_RUNS", 2), ("FLEET_SCENES", 1), ("FLEET_FRAMES", 3),
+                        ("FLEET_BACKGROUND", 1200), ("SAVE_SCENES", 1),
+                        ("SAVE_BACKGROUND", 1200)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(fastnsf, "FastNSFConfig", functools.partial(
+        fastnsf.FastNSFConfig, iterations=5, hidden=16, layers=2,
+        dt=DTConfig(voxel_size=(3.2, 3.2, 1.6))))
+    monkeypatch.setattr(runner, "bucket_size", lambda n: 2048)  # the toy table route
+
+    monkeypatch.setattr(cs, "traced", cpu_traced)
+    smi = "Card, 700.00 W"
+    cs.phase_native(smi)
+    fleet = cs.phase_fleet(rehearsal, smi, tmp_path / "av2_fleet")
+    none = dict.fromkeys(fleet, 0)
+    assert fleet == {**none, "scatter_max_rows": 3 * 2, "nn_argmin_rows": 10 * 2,
+                     "nn_min_rows": 2}
+    save = cs.phase_save(rehearsal, smi, tmp_path / "av2_save")
+    assert save == {**none, "scatter_max_rows": 3 * 3, "nn_argmin_rows": 10 * 3,
+                    "nn_min_rows": 3}
+    monkeypatch.chdir(tmp_path)
+    cs.phase_eval(smi, tmp_path / "av2_save", tmp_path / "av2_fleet")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["av2_fleet", "av2_save"]
+    out = capsys.readouterr().out
+    assert "[native] Card, 700.00 W: pack_frames 4 x <= 2048 x 3" in out
+    assert "[fleet] Card, 700.00 W: timed pass" in out and "busy share 0.0000" in out
+    assert "first batch vs plain versions: 1.000000 of points" in out
+    assert "cli.save model=fastnsf: 3 frame pairs of 1 scenes" in out
+    assert "cli.save model=seflowpp: 3 frame pairs of 1 scenes, 0 re-estimated" in out
+    assert "[eval] Card, 700.00 W: Total MPE / CDE: perfect 0.000000" in out
+
+
+def test_submit_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """``phase_submit`` on 1 scene x 4 frames of 2,000 points with a
+    ``perfect`` and a noisy ``seflowpp`` flow (3 eval frames): no kernel
+    launched, the scene directory and the working directory left as they
+    were."""
+    from pathlib import Path
+
+    from himo_tpu_torch.data.synthetic import make_dataset
+
+    root = tmp_path / "av2_save"
+    make_dataset(root, num_scenes=1, num_frames=4, seed=0, num_background=1200,
+                 method_flows={"perfect": 0.0, "seflowpp": 0.05})
+    before = sorted(p.name for p in root.iterdir())
+    monkeypatch.chdir(tmp_path)
+    cs.reset_counts()
+    cs.phase_submit("Card, 700.00 W", root, Path(cs.__file__).resolve().parent)
+    assert not any(cs.read_counts().values())
+    assert sorted(p.name for p in root.iterdir()) == before
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["av2_save"]
+    out = capsys.readouterr().out
+    assert "[submit] Card, 700.00 W: host ms per frame over 3 frames: save_zip perfect" in out
+    assert "zip-mode eval equals flow mode (totals and table) for perfect, seflowpp" in out
+    assert "score MPE / CDE: gt 0.000000 / 0.000000 m; perfect 0.000000 / 0.000000 m" in out
+    assert "byte for byte the same; columns equal the generator's" in out
