@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen main paths, at full width with random weights from seeded generators:
+Nineteen main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -70,7 +70,13 @@ Eighteen main paths, at full width with random weights from seeded generators:
   segments ``perfect`` from its checkpoint; ``cli.eval_seg`` scores both;
 - downstream detection on the same scenes: ``cli.det_h5`` with
   ``detector=learned`` (DetNet at voxel 0.4: 256x256, depths (64, 128),
-  one epoch) and with the geometric detector, on ``raw`` and ``perfect``.
+  one epoch) and with the geometric detector, on ``raw`` and ``perfect``;
+- ingestion from raw logs written on the card's host: ``cli.extract_av2``
+  on an AV2 log (12 sweeps x 100,000 points in AV2's dtypes, 80 tracks)
+  and ``cli.extract_scania`` in a spawn pool of 2 workers on 2 Scania
+  scenes (8 superframes x 131,072 points, 40 boxes a frame, an
+  extrinsics YAML), the box test and the ground mask on the card; then
+  the AV2 scenes through ``cli.save model=seflowpp`` and ``cli.eval``.
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -207,7 +213,19 @@ and prints no result):
    geometric detector with no launch; K1 max, K1 sum, K5 and K3 max at
    these shapes against their plain versions and timed beside their
    library calls; ms per train step and per frame (wall, traced device
-   busy, busy share), host ms a frame of the geometric detector.
+   busy, busy share), host ms a frame of the geometric detector;
+16. ingest (``phase_ingest``, after submit): every file the card's
+   extraction wrote against the same extraction with ``device="cpu"``
+   (every group and dataset bitwise, apart from box ids within 1e-4 m of
+   a face, at most 1e-4 of the points), the ground masks against the
+   generator's labels (>= 0.95 of road points ground, <= 0.05 of object
+   points), a second ``main`` of each printing the skip line and leaving
+   every file's bytes and ``index_total.pkl``, no kernel launched; the
+   AV2 scenes through ``cli.save model=seflowpp`` (the 512x512 forward's
+   launches a frame) and ``cli.eval`` (``perfect`` below 1e-5 m, ``raw``
+   worse); host ms a frame by stage, ``ground_mask`` and
+   ``points_in_boxes`` on the card (CUDA events, traced) and on the CPU,
+   the spawn workers' device memory.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -302,6 +320,34 @@ EVAL_PERFECT_MAX = 1e-5  # tests/test_eval_pipeline.py's bound on perfect's MPE 
 SUBMIT_METHODS = ("perfect", "seflowpp")
 LZ4_FIXTURE = Path("tests") / "data" / "lz4_fixture.py"
 LZ4_RUNS = 5
+# Ingestion (cli.extract_av2, cli.extract_scania) from raw logs written on
+# the card's host: one AV2 log of 12 sweeps x 100,000 points (about AV2's
+# two stacked 32-beam LiDARs) with 80 cuboid tracks, one of which leaves
+# before the last sweep, in AV2's own lidar dtypes; 2 Scania scenes x 8
+# superframes x BIG_POINTS with 5 sensors and 40 boxes a frame, one of
+# infinite speed, and the vehicle's extrinsics YAML.
+INGEST_AV2_LOG = "0c6e62d7-bdfa-3061-8d3d-03b13aa21f68"
+INGEST_AV2_SWEEPS, INGEST_AV2_POINTS, INGEST_AV2_TRACKS = 12, 100_000, 80
+INGEST_SCANIA_SCENES, INGEST_SCANIA_FRAMES, INGEST_SCANIA_BOXES = 2, 8, 40
+INGEST_SCANIA_SENSORS = 5
+INGEST_OBJECT_POINTS = 150  # points of each annotated object a sweep
+INGEST_STRUCTURE_SHARE = 0.15  # walls: neither ground nor an object
+INGEST_BOX_BOTTOM_M = 0.15  # objects' bottom faces above the road
+INGEST_NPROC = 2  # extract_scania's spawn pool on the card
+INGEST_FACE_TOL_M = 1e-4  # box ids compared exactly farther than this from a face
+INGEST_FACE_SHARE = 1e-4  # most points allowed that near a face
+INGEST_GROUND_MIN, INGEST_OBJECT_GROUND_MAX = 0.95, 0.05
+INGEST_RUNS = 3  # CPU calls of ground_mask / points_in_boxes timed
+# (category, (length, width, height) m, top speed m/s), AV2's names and
+# Scania's pseudo-label names.
+AV2_OBJECTS = (("REGULAR_VEHICLE", (4.6, 1.9, 1.6), 12.0), ("PEDESTRIAN", (0.6, 0.6, 1.75), 1.5),
+               ("BICYCLIST", (1.8, 0.6, 1.7), 6.0), ("BOX_TRUCK", (6.0, 2.3, 3.0), 10.0),
+               ("CONSTRUCTION_CONE", (0.4, 0.4, 0.7), 0.0))
+SCANIA_OBJECTS = (("car", (4.6, 1.9, 1.6), 12.0), ("pedestrian", (0.6, 0.6, 1.75), 1.5),
+                  ("bicycle", (1.8, 0.6, 1.7), 6.0), ("truck", (6.5, 2.5, 3.2), 10.0),
+                  ("bus", (6.8, 2.5, 3.2), 8.0))
+SCANIA_LIDARS = ("FrontLeft", "FrontRight", "RearLeft", "RearRight", "Roof")
+INGEST_BOX_DATASETS = ("flow", "flow_is_valid", "flow_category_indices", "flow_instance_id")
 # Downstream (cli.seg_h5, cli.eval_seg, cli.det_h5) on phase_save's scenes at
 # the reference's defaults: 32,768 points a frame, SegConfig() (512x512,
 # depths (64, 128, 256)), DetNetConfig() at det_h5's voxel 0.4 (256x256,
@@ -3264,6 +3310,558 @@ def phase_submit(smi: str, save_root: Path, root: Path) -> None:
     log(f"[submit] the phase took {time.perf_counter() - phase_start:.1f} s")
 
 
+def _yaw_quat(yaw: float):
+    return np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)
+
+
+def _ground_points(rng, n: int) -> np.ndarray:
+    """A flat road (2 cm of noise) over the ground mask's grid."""
+    return np.stack([rng.uniform(-50, 50, n), rng.uniform(-50, 50, n),
+                     rng.normal(0.0, 0.02, n)], 1)
+
+
+def _structure_points(rng, n: int) -> np.ndarray:
+    """Two walls along the road, 46-50 m to either side, 0.6-6 m high."""
+    side = rng.choice([-1.0, 1.0], n)
+    return np.stack([rng.uniform(-50, 50, n), side * rng.uniform(46, 50, n),
+                     rng.uniform(0.6, 6.0, n)], 1)
+
+
+def _object_points(rng, dims, yaw: float, center_xy, n: int) -> np.ndarray:
+    """``n`` points inside a box (ego frame): within 0.9 of its length and
+    width, from 0.3 m above its bottom face (or half its height) to its top."""
+    length, width, height = dims
+    lx = rng.uniform(-0.45, 0.45, n) * length
+    ly = rng.uniform(-0.45, 0.45, n) * width
+    z = INGEST_BOX_BOTTOM_M + rng.uniform(min(0.3, height / 2), height, n)
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.stack([center_xy[0] + c * lx - s * ly, center_xy[1] + s * lx + c * ly, z], 1)
+
+
+def _track_starts(rng, n: int) -> np.ndarray:
+    """Start positions in cells 7 m apart within +-35 m, one object a cell."""
+    cells = rng.choice(100, n, replace=False)
+    return np.stack([cells % 10, cells // 10], 1) * 7.0 - 31.5 + rng.uniform(-1, 1, (n, 2))
+
+
+def _labelled_cloud(rng, objects, n: int):
+    """Ground, ``objects`` (a list of point arrays) and walls, ``n`` points
+    in all; (points, ground mask, object mask)."""
+    obj = np.concatenate(objects) if objects else np.zeros((0, 3))
+    n_struct = int(n * INGEST_STRUCTURE_SHARE)
+    n_ground = n - len(obj) - n_struct
+    if n_ground <= 0:
+        raise ValueError(f"ingest: {len(obj)} object points leave no room for the road")
+    pts = np.concatenate([_ground_points(rng, n_ground), obj, _structure_points(rng, n_struct)])
+    index = np.arange(n)
+    return pts, index < n_ground, (index >= n_ground) & (index < n_ground + len(obj))
+
+
+def _write_av2_raw(root: Path, seed: int = 0) -> dict:
+    """One AV2 log under ``root`` in the sensor layout, in AV2's dtypes
+    (lidar x/y/z float16, intensity and laser_number uint8, offset_ns
+    uint32; poses and cuboids float64, uuids and categories large strings),
+    written by ``io/arrow``: the ego drives +x at 10 m/s turning 0.05 rad/s;
+    ``INGEST_AV2_TRACKS`` cuboid tracks move at constant velocity, the last
+    one leaving before the last sweep. Returns each sweep's generator labels,
+    ``{timestamp_ns: (ground mask, object mask)}``."""
+    from himo_tpu_torch.io.arrow import write_feather
+
+    rng = np.random.default_rng(seed)
+    log = root / INGEST_AV2_LOG
+    lidar = log / "sensors" / "lidar"
+    lidar.mkdir(parents=True)
+    n_tracks = INGEST_AV2_TRACKS
+    kinds = rng.integers(0, len(AV2_OBJECTS), n_tracks)
+    start = _track_starts(rng, n_tracks)
+    heading = rng.uniform(-np.pi, np.pi, n_tracks)
+    speed = np.array([AV2_OBJECTS[k][2] for k in kinds]) * rng.uniform(0, 1, n_tracks)
+    uuids = [f"{rng.integers(1 << 32):08x}-{k:04x}-4c1d-9e6a-{rng.integers(1 << 48):012x}"
+             for k in range(n_tracks)]
+    ts0, poses, annos, labels = 315_969_904_359_876_000, [], [], {}
+    for i in range(INGEST_AV2_SWEEPS):
+        t, ts = i * 0.1, ts0 + i * 100_000_000
+        ego_yaw, ego_xy = 0.05 * t, np.array([10.0 * t, 0.0])
+        poses.append((ts, *_yaw_quat(ego_yaw), ego_xy[0], ego_xy[1], 0.0))
+        c, s = np.cos(ego_yaw), np.sin(ego_yaw)
+        objects = []
+        for k in range(n_tracks - (i == INGEST_AV2_SWEEPS - 1)):
+            name, dims, _ = AV2_OBJECTS[kinds[k]]
+            d = start[k] + speed[k] * t * np.array([np.cos(heading[k]), np.sin(heading[k])]) \
+                - ego_xy
+            xy = np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1]])
+            yaw = heading[k] - ego_yaw
+            annos.append((ts, uuids[k], name, *dims, *_yaw_quat(yaw), xy[0], xy[1],
+                          INGEST_BOX_BOTTOM_M + dims[2] / 2))
+            objects.append(_object_points(rng, dims, yaw, xy, INGEST_OBJECT_POINTS))
+        pts, ground, obj = _labelled_cloud(rng, objects, INGEST_AV2_POINTS)
+        n = len(pts)
+        write_feather(dict(
+            x=pts[:, 0].astype(np.float16), y=pts[:, 1].astype(np.float16),
+            z=pts[:, 2].astype(np.float16),
+            intensity=rng.integers(0, 256, n, dtype=np.uint8),
+            laser_number=rng.integers(0, 64, n, dtype=np.uint8),
+            offset_ns=rng.integers(0, 100_000_000, n, dtype=np.uint32)), lidar / f"{ts}.feather")
+        labels[ts] = (ground, obj)
+    pose_cols = ("timestamp_ns", "qw", "qx", "qy", "qz", "tx_m", "ty_m", "tz_m")
+    write_feather({k: np.array([p[j] for p in poses], np.int64 if j == 0 else np.float64)
+                   for j, k in enumerate(pose_cols)}, log / "city_SE3_egovehicle.feather")
+    anno_cols = ("timestamp_ns", "track_uuid", "category", "length_m", "width_m", "height_m",
+                 "qw", "qx", "qy", "qz", "tx_m", "ty_m", "tz_m")
+    kinds_of = {0: np.int64, 1: object, 2: object}
+    columns = {k: np.array([a[j] for a in annos], kinds_of.get(j, np.float64))
+               for j, k in enumerate(anno_cols)}
+    columns["num_interior_pts"] = np.full(len(annos), INGEST_OBJECT_POINTS, np.int64)
+    write_feather(columns, log / "annotations.feather")
+    return labels
+
+
+def _extrinsics_text(rng) -> str:
+    """A vehicle's generated extrinsics YAML: each LiDAR's name and nominal
+    position, with comments, quoted names and flow lists."""
+    lines = ["# generated by the calibration pipeline", "---", "vehicle: 'truck07'",
+             "parameters:"]
+    for i, name in enumerate(SCANIA_LIDARS):
+        x, y, z = np.round(rng.uniform([-4, -1.3, 1.5], [4, 1.3, 3.2]), 4)
+        lines += [f"  lidarArray_arrayEl{i}:", f"    humanReadableReference: \"{name}\"",
+                  "    nominalPosition:", f"      x: {x}", f"      y: {y}", f"      z: {z}",
+                  f"    nominalOrientation: [0.0, 0.0, {np.round(rng.uniform(-3, 3), 6)}]"
+                  "  # roll, pitch, yaw", "    enabled: yes"]
+    return "\n".join(lines) + "\n"
+
+
+def _write_scania_raw(root: Path, seed: int = 1):
+    """``INGEST_SCANIA_SCENES`` raw Scania scenes under ``root``: superframe
+    attribute files (float32 X, Y, Z, W; int8 sensor ids 1-5; int32 deltaT
+    ns), each scene's sequence JSON, the pseudo-label pickle (boxes moving
+    with the ego at 10 m/s, the last of each scene at infinite speed) and
+    the vehicle's extrinsics YAML. Returns (pickle path, {(scene, group):
+    (ground mask, object mask)})."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    ext = root / "assets" / "private" / "lidar_ext"
+    ext.mkdir(parents=True)
+    (ext / "truck07-generated.yml").write_text(_extrinsics_text(rng))
+    n_boxes, metadata, labels = INGEST_SCANIA_BOXES, [], {}
+    for k in range(1, INGEST_SCANIA_SCENES + 1):
+        scene_id = f"batch_{k}"
+        kinds = rng.integers(0, len(SCANIA_OBJECTS), n_boxes)
+        start = _track_starts(rng, n_boxes)
+        heading = rng.uniform(-np.pi, np.pi, n_boxes)
+        speed = np.array([SCANIA_OBJECTS[j][2] for j in kinds]) * rng.uniform(0, 1, n_boxes)
+        velocity = speed[:, None] * np.stack([np.cos(heading), np.sin(heading)], 1)
+        speed[-1], velocity[-1] = np.inf, (np.inf, 0.0)  # a single-observation track
+        dims = np.array([SCANIA_OBJECTS[j][1] for j in kinds])
+        superframes = []
+        for i in range(INGEST_SCANIA_FRAMES):
+            name = f"superframe_{i + 1:05d}"
+            folder = root / scene_id / name
+            folder.mkdir(parents=True)
+            t = 0.1 * i
+            xy = start + np.nan_to_num(velocity, posinf=0.0) * t - [10.0 * t, 0.0]
+            objects = [_object_points(rng, dims[j], heading[j], xy[j], INGEST_OBJECT_POINTS)
+                       for j in range(n_boxes)]
+            pts, ground, obj = _labelled_cloud(rng, objects, BIG_POINTS)
+            n, prefix = len(pts), folder / name
+            for attr, values in (("X", pts[:, 0]), ("Y", pts[:, 1]), ("Z", pts[:, 2]),
+                                 ("W", rng.random(n))):
+                values.astype(np.float32).tofile(f"{prefix}_{attr}.bin")
+            rng.integers(1, INGEST_SCANIA_SENSORS + 1, n).astype(np.int8).tofile(
+                f"{prefix}_sensor.bin")
+            rng.integers(0, 100_000_000, n).astype(np.int32).tofile(f"{prefix}_deltaT.bin")
+            superframes.append({"timestamp_epoch_ns": 1_600_000_000_000_000_000 + i * 100_000_000,
+                                "smoothPosition": {"smothYaw_rad": 0.0, "smoothX_m": 10.0 * t,
+                                                   "smoothY_m": 0.0}})
+            loc = np.concatenate([xy, INGEST_BOX_BOTTOM_M + dims[:, 2:] / 2], 1)
+            metadata.append({"sample_idx": scene_id, "annos": {
+                "location": loc, "dimensions": dims, "heading": heading, "speed": speed,
+                "velocity": velocity, "name": [SCANIA_OBJECTS[j][0] for j in kinds]}})
+            labels[(scene_id, f"{i + 1:05d}")] = (ground, obj)
+        (root / scene_id / f"sequence_{k}.json").write_text(json.dumps({
+            "vehicle": "Truck07", "superframes": superframes,
+            "lidars": {f"lidar{j}": {"name": n} for j, n in enumerate(SCANIA_LIDARS)}}))
+    pkl = root / "pseudo_infos.pkl"
+    pkl.write_bytes(pickle.dumps(metadata))
+    return pkl, labels
+
+
+@contextlib.contextmanager
+def _stage_timer(module, stages: dict):
+    """``module``'s functions named in ``stages`` ({stage: name}) timed while
+    the block runs; yields the seconds by stage."""
+    totals = dict.fromkeys(stages, 0.0)
+    saved = {name: getattr(module, name) for name in stages.values()}
+    for stage, name in stages.items():
+        def timed(*args, _fn=saved[name], _stage=stage, **kwargs):
+            start = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                totals[_stage] += time.perf_counter() - start
+        setattr(module, name, timed)
+    try:
+        yield totals
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _card_memory_peak():
+    """The card's used memory, all processes, sampled every 5 ms on a
+    thread while the block runs; yields {"base": bytes, "peak": bytes}."""
+    import threading
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info(0)
+    out = {"base": total - free, "peak": total - free}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.005):
+            f, t = torch.cuda.mem_get_info(0)
+            out["peak"] = max(out["peak"], t - f)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join(timeout=5)
+
+
+def _dir_bytes(root: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(root.iterdir())}
+
+
+def _compare_extraction(name: str, got_root: Path, want_root: Path, boxes_of,
+                        device) -> tuple:
+    """The card's extraction against the CPU's: the same files, equal
+    pickles, every group and dataset bitwise, apart from the points within
+    ``INGEST_FACE_TOL_M`` of a face of the boxes they were tested against
+    (``boxes_of(scene, group)``; the margins computed on ``device``), where
+    the box datasets may differ. Returns (points near a face, of them
+    differing, points tested)."""
+    import pickle
+
+    from himo_tpu_torch.ops.points_in_boxes import face_margin
+
+    files = sorted(p.name for p in got_root.iterdir())
+    if files != sorted(p.name for p in want_root.iterdir()):
+        raise AssertionError(f"{name}: files {files} against "
+                             f"{sorted(p.name for p in want_root.iterdir())}")
+    near = differ = tested = 0
+    for fname in files:
+        if fname.endswith(".pkl"):
+            if pickle.loads((got_root / fname).read_bytes()) != \
+                    pickle.loads((want_root / fname).read_bytes()):
+                raise AssertionError(f"{name}: {fname} differs")
+            continue
+        got, want = _read_datasets(got_root / fname), _read_datasets(want_root / fname)
+        if list(got) != list(want):
+            raise AssertionError(f"{name}: {fname}'s groups differ")
+        for key, arrays in want.items():
+            if list(got[key]) != list(arrays):
+                raise AssertionError(f"{name}: {fname}/{key} holds {list(got[key])}")
+            n = len(arrays["lidar"])
+            at_face = np.zeros(n, bool)
+            if "flow" in arrays:
+                at_face = face_margin(arrays["lidar"], boxes_of(Path(fname).stem, key),
+                                      device=device) <= INGEST_FACE_TOL_M
+                near, tested = near + int(at_face.sum()), tested + n
+            moved = np.zeros(n, bool)
+            for ds, w in arrays.items():
+                g = got[key][ds]
+                if g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes():
+                    continue
+                if ds not in INGEST_BOX_DATASETS or g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"{name}: {fname}/{key}/{ds} differs")
+                d = (g != w).reshape(n, -1).any(axis=1)
+                if (d & ~at_face).any():
+                    raise AssertionError(f"{name}: {fname}/{key}/{ds} differs at "
+                                         f"{int((d & ~at_face).sum())} points away from faces")
+                moved |= d
+            differ += int(moved.sum())
+    return near, differ, tested
+
+
+def _check_ground(name: str, root: Path, labels: dict) -> tuple:
+    """The written ground masks against the generator's labels: at least
+    ``INGEST_GROUND_MIN`` of road points ground, at most
+    ``INGEST_OBJECT_GROUND_MAX`` of object points; returns both shares."""
+    hits, scenes = {"ground": [0, 0], "objects": [0, 0]}, {}
+    for (scene, key), (ground, objects) in labels.items():
+        if scene not in scenes:
+            scenes[scene] = _read_datasets(root / f"{scene}.h5")
+        gm = scenes[scene][key]["ground_mask"]
+        for kind, mask in (("ground", ground), ("objects", objects)):
+            hits[kind][0] += int(gm[mask].sum())
+            hits[kind][1] += int(mask.sum())
+    road, obj = (hits[k][0] / hits[k][1] for k in ("ground", "objects"))
+    if road < INGEST_GROUND_MIN or obj > INGEST_OBJECT_GROUND_MAX:
+        raise AssertionError(f"{name}: ground_mask marks {road:.4f} of road points and "
+                             f"{obj:.4f} of object points ground")
+    return road, obj
+
+
+def _op_times(device, name: str, pts: np.ndarray, boxes: np.ndarray) -> str:
+    """``ground_mask`` and ``points_in_boxes`` on one frame of the dataset
+    on the card (CUDA events and traced device time) beside the same calls
+    on the CPU tensors (host ms, median of ``INGEST_RUNS``); the card's mask
+    bitwise the CPU's, its ids equal away from faces."""
+    import torch
+
+    from himo_tpu_torch.ops.ground import ground_mask
+    from himo_tpu_torch.ops.points_in_boxes import face_margin, points_in_boxes
+
+    cpu_pts, cpu_boxes = torch.from_numpy(pts), torch.from_numpy(boxes)
+    dev_pts, dev_boxes = cpu_pts.to(device), cpu_boxes.to(device)
+    if not torch.equal(ground_mask(dev_pts).cpu(), ground_mask(cpu_pts)):
+        raise AssertionError(f"ingest {name}: ground_mask on the card differs from the CPU's")
+    far = face_margin(pts, boxes) > INGEST_FACE_TOL_M
+    got, want = points_in_boxes(dev_pts, dev_boxes).cpu().numpy(), \
+        points_in_boxes(cpu_pts, cpu_boxes).numpy()
+    if (got != want)[far].any():
+        raise AssertionError(f"ingest {name}: points_in_boxes on the card differs away from faces")
+    parts = []
+    for op, card, host in (
+            ("ground_mask", lambda: ground_mask(dev_pts), lambda: ground_mask(cpu_pts)),
+            ("points_in_boxes", lambda: points_in_boxes(dev_pts, dev_boxes),
+             lambda: points_in_boxes(cpu_pts, cpu_boxes))):
+        _, plain = _median_ms(host, INGEST_RUNS)
+        parts.append(f"{op} {cuda_ms(card):.4f} ms (CUDA events), {device_ms(card):.4f} ms "
+                     f"device, plain CPU {plain:.3f} ms")
+    return (f"{len(pts):,} points x {len(boxes)} boxes: " + "; ".join(parts))
+
+
+def _split_line(totals: dict, wall: float, frames: int) -> str:
+    per = {k: v / frames * 1e3 for k, v in totals.items()}
+    per["flow"] -= per["boxes"]  # compute_*_flow's own numpy, its box test apart
+    per["other"] = wall / frames * 1e3 - sum(per.values())
+    return ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+
+
+def phase_ingest(device, smi: str, root: Path) -> dict:
+    """Raw logs to evaluated, compensated scenes (``phase_ingest``): the
+    generators write an AV2 log and Scania scenes into ``root``;
+    ``cli.extract_av2.main(nproc=1)`` and ``cli.extract_scania.main(
+    nproc=INGEST_NPROC)`` (a spawn pool, one CUDA context per worker)
+    extract them on the card, and again with ``device="cpu"``. Checked:
+    every file the card wrote against the CPU's (bitwise but box ids at
+    faces, at most ``INGEST_FACE_SHARE`` of the points near one), the
+    ground masks against the generator's labels, a second ``main`` of each
+    printing the skip line and leaving every file's bytes and
+    ``index_total.pkl`` as they were, no kernel of the port launched. Then
+    the AV2 scenes through ``cli.save model=seflowpp`` (bf16, a fresh
+    checkpoint, ``max_estimation_points=NUM_POINTS``: the 512x512 forward's
+    launches a frame) and flow-mode ``cli.eval`` (``perfect``, the GT flow
+    written as a method, below ``EVAL_PERFECT_MAX``; ``raw`` worse;
+    ``seflowpp`` finite). Prints host ms a frame by stage, the card's and
+    the CPU's ms of ``ground_mask`` and ``points_in_boxes`` at these
+    shapes, the spawn workers' device memory and the phase's seconds.
+    Returns the launches of ``cli.save``."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from himo_tpu_torch.cli import extract_av2, extract_scania
+    from himo_tpu_torch.cli.eval import main as eval_main
+    from himo_tpu_torch.cli.save import main as save_main
+    from himo_tpu_torch.data import av2, scania
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.data.schema import scene_ids, write_method_flows
+    from himo_tpu_torch.models.feedforward import init_params, make_model
+    from himo_tpu_torch.ops.ground import ground_mask_host
+    from himo_tpu_torch.ops.points_in_boxes import points_in_boxes_host
+    from himo_tpu_torch.training.checkpoints import save_checkpoint
+
+    phase_start = time.perf_counter()
+    raw_av2, raw_scania = root / "av2_raw", root / "scania_raw"
+    start = time.perf_counter()
+    av2_labels = _write_av2_raw(raw_av2)
+    pkl, scania_labels = _write_scania_raw(raw_scania)
+    log(f"[ingest] raw logs written in {time.perf_counter() - start:.2f} s: AV2 "
+        f"{INGEST_AV2_SWEEPS} sweeps x {INGEST_AV2_POINTS:,} points, {INGEST_AV2_TRACKS} tracks; "
+        f"Scania {INGEST_SCANIA_SCENES} scenes x {INGEST_SCANIA_FRAMES} superframes x "
+        f"{BIG_POINTS:,} points, {INGEST_SCANIA_BOXES} boxes a frame")
+    outs = {(ds, where): root / f"{ds}_h5_{where}" for ds in ("av2", "scania")
+            for where in ("card", "cpu")}
+    av2_args = dict(origin_data=str(raw_av2))
+    scania_args = dict(origin_data=str(raw_scania), metadata_pkl=str(pkl))
+
+    # The ops' first calls in this process (CUDA's lazy module loads) are
+    # made here, so that the stage split is the steady state's.
+    ground_mask_host(np.zeros((1, 3), np.float32), device)
+    points_in_boxes_host(np.zeros((1, 3), np.float32), np.ones((1, 7), np.float32), device)
+    reset_counts()
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with _stage_timer(av2, dict(read="read_sweep", ground="ground_mask_host",
+                                boxes="points_in_boxes_host", flow="compute_av2_flow",
+                                write="write_frame")) as av2_split:
+        extract_av2.main(output_dir=str(outs["av2", "card"]), nproc=1, device=device,
+                         **av2_args)
+    torch.cuda.synchronize()
+    av2_wall, av2_mem = time.perf_counter() - start, torch.cuda.max_memory_allocated()
+    def cpu_extractions() -> float:
+        start = time.perf_counter()
+        extract_av2.main(output_dir=str(outs["av2", "cpu"]), nproc=1, device="cpu",
+                         **av2_args)
+        extract_scania.main(output_dir=str(outs["scania", "cpu"]), nproc=1, device="cpu",
+                            **scania_args)
+        return time.perf_counter() - start
+
+    # The reference extractions on the CPU run in a thread of this process
+    # while the spawn workers start and extract on the card.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(cpu_extractions)
+        start = time.perf_counter()
+        with _card_memory_peak() as memory:
+            extract_scania.main(output_dir=str(outs["scania", "card"]), nproc=INGEST_NPROC,
+                                device=device, **scania_args)
+        scania_wall = time.perf_counter() - start
+        cpu_wall = cpu_run.result()
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"ingest: the extraction launched kernels: {launches}")
+    steps = {"extract": time.perf_counter() - phase_start}
+
+    annos = av2.load_annotations(raw_av2 / INGEST_AV2_LOG)
+    metadata = pickle.loads(pkl.read_bytes())
+
+    def av2_boxes(scene, key):
+        frame = annos.get(int(key), {})
+        return av2.track_boxes(frame, list(frame))
+
+    def scania_boxes(scene, key):
+        meta = [m for m in metadata if m["sample_idx"] == scene][int(key) - 1]
+        return scania.grow_boxes(meta["annos"])[0].astype(np.float32)
+
+    faces = {}
+    for ds, boxes_of, labels in (("av2", av2_boxes, {(INGEST_AV2_LOG, str(ts)): v
+                                                     for ts, v in av2_labels.items()}),
+                                 ("scania", scania_boxes, scania_labels)):
+        near, differ, tested = _compare_extraction(f"ingest {ds}", outs[ds, "card"],
+                                                   outs[ds, "cpu"], boxes_of, device)
+        if near > INGEST_FACE_SHARE * tested:
+            raise AssertionError(f"ingest {ds}: {near} of {tested} points within "
+                                 f"{INGEST_FACE_TOL_M} m of a face")
+        road, obj = _check_ground(f"ingest {ds}", outs[ds, "card"], labels)
+        faces[ds] = (near, differ, tested, road, obj)
+
+    for ds, main_fn, args, n_scenes in (("av2", extract_av2.main, av2_args, 1),
+                                        ("scania", extract_scania.main, scania_args,
+                                         INGEST_SCANIA_SCENES)):
+        before = _dir_bytes(outs[ds, "card"])
+        _, text = _printed(main_fn, output_dir=str(outs[ds, "card"]), nproc=1, device=device,
+                           **args)
+        if text.count("already exists with all frames, skip.") != n_scenes:
+            raise AssertionError(f"ingest {ds}: the second run printed {text!r}")
+        if _dir_bytes(outs[ds, "card"]) != before:
+            raise AssertionError(f"ingest {ds}: the second run changed the files' bytes")
+    if any(read_counts().values()):
+        raise AssertionError(f"ingest: the extraction launched kernels: {read_counts()}")
+    steps["checks and second runs"] = time.perf_counter() - phase_start - sum(steps.values())
+
+    # The Scania stage split: one scene again, in this process.
+    with _stage_timer(scania, dict(read="read_superframe", ground="ground_mask_host",
+                                   boxes="points_in_boxes_host", flow="compute_gt_flow",
+                                   write="write_frame")) as scania_split:
+        start = time.perf_counter()
+        (root / "scania_h5_split").mkdir()
+        scania.process_scene(raw_scania, root / "scania_h5_split", "batch_1",
+                             [m for m in metadata if m["sample_idx"] == "batch_1"],
+                             device=device)
+        torch.cuda.synchronize()
+        split_wall = time.perf_counter() - start
+
+    first_ts = min(av2_labels)
+    av2_pc = av2.read_sweep(raw_av2 / INGEST_AV2_LOG / "sensors" / "lidar" /
+                            f"{first_ts}.feather")[0][:, :3].copy()
+    op_lines = {
+        "av2": _op_times(device, "av2", av2_pc, av2_boxes(None, first_ts)),
+        "scania": _op_times(device, "scania", scania.read_superframe(
+            str(raw_scania / "batch_1" / "superframe_00001" / "superframe_00001"))[0][:, :3]
+            .copy(), scania_boxes("batch_1", "00001")),
+    }
+
+    steps["split and op times"] = time.perf_counter() - phase_start - sum(steps.values())
+
+    # The chain: the card's AV2 scenes through cli.save and cli.eval.
+    av2_root = outs["av2", "card"]
+    for sid in scene_ids(av2_root):
+        frames = _read_datasets(av2_root / f"{sid}.h5")
+        write_method_flows(av2_root, sid, "perfect",
+                           {k: v["flow"] for k, v in frames.items() if "flow" in v})
+    pairs = SceneFlowDataset(av2_root, eval=True).eval_index
+    before = _scene_datasets(av2_root)
+    with tempfile.TemporaryDirectory(prefix="himo_ckpt_") as ckpt:
+        net, _ = make_model("seflowpp", device=device, dtype="bfloat16")
+        save_checkpoint(ckpt, {"params": init_params(net, torch.Generator().manual_seed(0))})
+        del net
+        reset_counts()
+        start = time.perf_counter()
+        stats = save_main(dataset_path=str(av2_root), model="seflowpp", device=device,
+                          dtype="bfloat16", checkpoint=ckpt, max_estimation_points=NUM_POINTS)
+        torch.cuda.synchronize()
+        save_wall = time.perf_counter() - start
+        launches = read_counts()
+    _check_written("ingest save", av2_root, before, "seflowpp", pairs)
+    want = dict.fromkeys(launches, 0)
+    want.update({k: len(pairs) * v for k, v in INFER_LAUNCHES.items()})
+    if stats["frames"] != len(pairs) or launches != want:
+        raise AssertionError(f"ingest save: {stats['frames']} frames of {len(pairs)}, "
+                             f"launches {launches} != {want}")
+    cwd, scores = os.getcwd(), {}
+    with tempfile.TemporaryDirectory(prefix="himo_eval_") as tmp:
+        os.chdir(tmp)
+        try:
+            for name in ("perfect", "raw", "seflowpp"):
+                metrics, _ = _printed(eval_main, data_dir=str(av2_root), res_name=name)
+                scores[name] = metrics.total_summary()
+        finally:
+            os.chdir(cwd)
+    perfect, raw = scores["perfect"], scores["raw"]
+    if not (perfect["mpe"] < EVAL_PERFECT_MAX and perfect["cd"] < EVAL_PERFECT_MAX):
+        raise AssertionError(f"ingest eval: perfect scores {perfect}")
+    if not (raw["mpe"] > perfect["mpe"] and raw["cd"] > perfect["cd"]):
+        raise AssertionError(f"ingest eval: raw {raw} is not worse than perfect {perfect}")
+    if not np.isfinite([scores["seflowpp"]["mpe"], scores["seflowpp"]["cd"]]).all():
+        raise AssertionError(f"ingest eval: seflowpp scores {scores['seflowpp']}")
+
+    n_av2, n_scania = INGEST_AV2_SWEEPS, INGEST_SCANIA_FRAMES
+    for ds, (near, differ, tested, road, obj) in faces.items():
+        log(f"[ingest] {smi}: {ds} card vs CPU: every file, group and dataset bitwise; "
+            f"{near} of {tested:,} points within {INGEST_FACE_TOL_M} m of a box face "
+            f"({differ} of them differ); ground_mask marks {road:.4f} of road points and "
+            f"{obj:.4f} of object points ground")
+    log(f"[ingest] {smi}: extract_av2 nproc=1 {av2_wall:.3f} s, host ms a sweep: "
+        + _split_line(av2_split, av2_wall, n_av2)
+        + f"; peak allocated {av2_mem / 2**20:.1f} MiB")
+    log(f"[ingest] {smi}: extract_scania nproc={INGEST_NPROC} {scania_wall:.3f} s for "
+        f"{INGEST_SCANIA_SCENES} scenes; the card's memory rose by "
+        f"{(memory['peak'] - memory['base']) / 2**20:.1f} MiB with {INGEST_NPROC} spawn "
+        f"workers ({(memory['peak'] - memory['base']) / INGEST_NPROC / 2**20:.1f} MiB a "
+        "worker: its CUDA context and allocations)")
+    log(f"[ingest] {smi}: scania one scene in this process {split_wall:.3f} s, host ms a "
+        "superframe: " + _split_line(scania_split, split_wall, n_scania))
+    log(f"[ingest] the CPU extractions took {cpu_wall:.3f} s, beside the spawn pool")
+    for ds, line in op_lines.items():
+        log(f"[ingest] {smi}: {ds} {line}")
+    log(f"[ingest] {smi}: second runs printed the skip line and left every file's bytes; "
+        f"cli.save model=seflowpp {stats['frames']} frame pairs, {save_wall:.3f} s, launches "
+        f"{({k: v for k, v in launches.items() if v})}; eval MPE / CDE: " + "; ".join(
+            f"{k} {v['mpe']:.6f} / {v['cd']:.6f} m" for k, v in scores.items()))
+    steps["save and eval"] = time.perf_counter() - phase_start - sum(steps.values())
+    log(f"[ingest] the phase took {time.perf_counter() - phase_start:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()))
+    return launches
+
+
 def _snapshot_counts():
     from himo_tpu_torch.ops import mxu_scatter as pms
 
@@ -3762,6 +4360,8 @@ def main(argv) -> int:
         paths.append(read_counts())
         if any(paths[-1].values()):
             raise AssertionError(f"submit: a host path launched kernels: {paths[-1]}")
+        torch.cuda.empty_cache()
+        paths.append(phase_ingest(device, smi, Path(tmp) / "ingest"))
         torch.cuda.empty_cache()
         paths.append(phase_downstream(device, smi, save_root))
     total = {k: sum(path[k] for path in paths) for k in read_counts()}

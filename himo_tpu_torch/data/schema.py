@@ -32,7 +32,9 @@ call :func:`write_frame` for each frame. The writer does not append (the
 reference adds datasets with h5py's ``"a"`` mode): :func:`rewrite_scene`
 rewrites a scene file with datasets added, replaced or removed, and
 :func:`write_method_flow` / :func:`write_method_flows` add a method's flow
-through it, once per frame or once per scene.
+through it, once per frame or once per scene. :class:`AppendScene` stands
+in for the ``"a"`` mode that the ingestion writers open a scene with:
+frames added to the groups already there.
 """
 
 from __future__ import annotations
@@ -147,6 +149,17 @@ def read_frame(f: h5.FileReader, timestamp, extra_keys=()) -> FrameData:
     )
 
 
+def _group_arrays(f: h5.FileReader, path: Path, key: str) -> Dict[str, np.ndarray]:
+    """Every dataset of the frame group ``key`` of an open scene file."""
+    out = {}
+    for name in f[key].keys():
+        member = f[key][name]
+        if not isinstance(member, h5.Dataset):
+            raise ValueError(f"{path}:{key}/{name}: nested groups are outside the scene format")
+        out[name] = member[()]
+    return out
+
+
 def rewrite_scene(path, updates: Mapping[str, Mapping[str, Optional[np.ndarray]]]) -> None:
     """Rewrite one scene file whole with datasets added, replaced or
     removed: ``updates`` maps a frame group's key to ``{name: array}``, a
@@ -155,17 +168,8 @@ def rewrite_scene(path, updates: Mapping[str, Mapping[str, Optional[np.ndarray]]
     (``<name>.tmp``), then moved over it, so a failed write leaves the old
     file as it was."""
     path = Path(path)
-    groups: Dict[str, Dict[str, np.ndarray]] = {}
     with h5.File(path) as f:
-        for key in f.keys():
-            group = f[key]
-            groups[key] = {}
-            for name in group.keys():
-                member = group[name]
-                if not isinstance(member, h5.Dataset):
-                    raise ValueError(f"{path}:{key}/{name}: nested groups are outside "
-                                     "the scene format")
-                groups[key][name] = member[()]
+        groups = {key: _group_arrays(f, path, key) for key in f.keys()}
     for key, arrays in updates.items():
         if key not in groups:
             raise KeyError(f"{path}: no frame group {key!r}")
@@ -184,6 +188,75 @@ def rewrite_scene(path, updates: Mapping[str, Mapping[str, Optional[np.ndarray]]
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)
+
+
+class AppendScene:
+    """A scene file opened to add frame groups, as h5py's ``"a"`` mode opens
+    it for the ingestion writers: ``keys()`` and ``in`` see the groups
+    already there and those added, :func:`write_frame` adds one.
+
+    The first group added starts ``<name>.tmp``, copies every existing
+    group into it (each dataset's bytes, dtype and shape as they were),
+    then takes the new groups; :meth:`close` moves it over the file, also
+    when the ``with`` block raises, as h5py keeps what was written before
+    an error. Nothing added: an existing file keeps its bytes, a missing
+    one is created empty (h5py's ``"a"`` creates it on opening)."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self._old: list = []
+        if self.path.exists():
+            with h5.File(self.path) as f:
+                self._old = f.keys()
+        self._tmp = self.path.with_name(self.path.name + ".tmp")
+        self._writer: Optional[h5.FileWriter] = None
+        self._new: list = []
+
+    def keys(self) -> list:
+        return self._old + self._new
+
+    def __contains__(self, key) -> bool:
+        return str(key) in self.keys()
+
+    def _open(self) -> h5.FileWriter:
+        writer = h5.File(self._tmp, "w")
+        try:
+            if self._old:
+                with h5.File(self.path) as f:
+                    for key in self._old:
+                        group = writer.create_group(key)
+                        for name, arr in _group_arrays(f, self.path, key).items():
+                            group.create_dataset(name, data=arr)
+        except BaseException:
+            writer.close()
+            self._tmp.unlink(missing_ok=True)
+            raise
+        return writer
+
+    def create_group(self, name: str) -> h5.WriteGroup:
+        if self._writer is None:
+            self._writer = self._open()
+        group = self._writer.create_group(name)
+        self._new.append(str(name))
+        return group
+
+    def close(self) -> None:
+        if self._writer is None:
+            if not self.path.exists():
+                h5.File(self.path, "w").close()
+            return
+        writer, self._writer = self._writer, None
+        try:
+            writer.close()
+            os.replace(self._tmp, self.path)
+        finally:
+            self._tmp.unlink(missing_ok=True)
+
+    def __enter__(self) -> "AppendScene":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def write_method_flows(data_dir, scene_id: str, method: str,

@@ -26,7 +26,8 @@ Custom metadata (pandas' ``pandas`` key) is ignored. Anything else — a
 codec other than LZ4_FRAME (ZSTD), another type, a dictionary-encoded or
 nested column, a big-endian schema — raises and names the field.
 
-:func:`write_feather` writes numeric and bool columns as one uncompressed
+:func:`write_feather` writes numeric, bool and string columns (object
+arrays of ``str`` as large utf8, pandas' own choice) as one uncompressed
 record batch that pandas reads back to the same columns, dtypes and
 values.
 
@@ -324,8 +325,23 @@ def _type_of(name: str, arr: np.ndarray) -> Tuple[int, list]:
         return TYPE_INT, [(0, "i", arr.dtype.itemsize * 8), (1, "?", kind == "i")]
     if kind == "f" and arr.dtype.itemsize in (2, 4, 8):
         return TYPE_FLOAT, [(0, "h", {2: 0, 4: 1, 8: 2}[arr.dtype.itemsize])]
+    if kind == "O" and all(isinstance(v, str) for v in arr):
+        return TYPE_LARGE_UTF8, []
     raise NotImplementedError(f"arrow: column {name!r} of dtype {arr.dtype}: the writer "
-                              "takes numeric and bool columns")
+                              "takes numeric, bool and str columns")
+
+
+def _values(arr: np.ndarray) -> List[bytes]:
+    """The data buffers of a column after its validity buffer: the values
+    (bools bit-packed), or a string column's int64 offsets and UTF-8 bytes."""
+    if arr.dtype.kind == "b":
+        return [np.packbits(arr, bitorder="little").tobytes()]
+    if arr.dtype.kind == "O":
+        encoded = [v.encode("utf-8") for v in arr]
+        offsets = np.zeros(len(encoded) + 1, dtype="<i8")
+        np.cumsum([len(e) for e in encoded], out=offsets[1:])
+        return [offsets.tobytes(), b"".join(encoded)]
+    return [arr.astype(arr.dtype.newbyteorder("<")).tobytes()]
 
 
 def _encapsulate(message) -> bytes:
@@ -334,8 +350,9 @@ def _encapsulate(message) -> bytes:
 
 
 def write_feather(columns: Mapping[str, np.ndarray], dest: Union[str, Path]) -> None:
-    """Write ``columns`` (equal-length 1-D numeric or bool arrays) to
-    ``dest`` as an uncompressed Arrow IPC file of one record batch."""
+    """Write ``columns`` (equal-length 1-D numeric or bool arrays, or
+    object arrays of ``str``, written as large utf8) to ``dest`` as an
+    uncompressed Arrow IPC file of one record batch."""
     arrays = {name: np.ascontiguousarray(arr) for name, arr in columns.items()}
     lengths = {len(a) for a in arrays.values()}
     if len(lengths) > 1 or any(a.ndim != 1 for a in arrays.values()):
@@ -346,11 +363,11 @@ def write_feather(columns: Mapping[str, np.ndarray], dest: Union[str, Path]) -> 
         type_id, spec = _type_of(name, arr)
         fields.append([(0, "o", name), (1, "?", True), (2, "B", type_id), (3, "o", spec),
                        (5, "o", _Vec())])
-        values = np.packbits(arr, bitorder="little") if arr.dtype.kind == "b" \
-            else arr.astype(arr.dtype.newbyteorder("<"))
-        buffers += [(len(body), 0), (len(body), values.nbytes)]
-        body += values.tobytes()
-        _pad_to(body, 8)
+        buffers.append((len(body), 0))
+        for raw in _values(arr):
+            buffers.append((len(body), len(raw)))
+            body += raw
+            _pad_to(body, 8)
         nodes.append((rows, 0))
     schema = [(1, "o", _Vec(tables=fields))]
 

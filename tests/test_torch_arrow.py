@@ -153,6 +153,28 @@ def test_writer_output_reads_back_in_pandas(tmp_path, rows):
     _assert_same(arrow.read_feather(path), back)
 
 
+@pytest.mark.parametrize("rows", [0, 1, 70_000])
+def test_writer_string_columns_read_back_in_pandas(tmp_path, rows):
+    """Object arrays of ``str`` go out as large utf8 (int64 offsets), as
+    pandas writes them: pandas reads the same strings back, and so does
+    ``read_feather``, as object arrays."""
+    strings = _strings(rows, seed=6).astype(object)
+    cols = {"uuid": strings, "n": np.arange(rows, dtype=np.int64),
+            "category": strings[::-1].copy()}
+    path = tmp_path / "w.feather"
+    arrow.write_feather(cols, path)
+    schema = ipc.open_file(path).schema
+    assert [schema.field(k).type for k in cols] == [pa.large_string(), pa.int64(),
+                                                    pa.large_string()]
+    back = pd.read_feather(path)
+    for name in ("uuid", "category"):
+        assert list(back[name]) == list(cols[name]), name
+    assert back["n"].to_numpy().tobytes() == cols["n"].tobytes()
+    got = arrow.read_feather(path)
+    for name in ("uuid", "category"):
+        assert got[name].dtype == object and list(got[name]) == list(cols[name]), name
+
+
 def test_writer_refuses_what_it_does_not_write(tmp_path):
     with pytest.raises(NotImplementedError, match="'s'"):
         arrow.write_feather({"s": np.array(["a"])}, tmp_path / "w.feather")

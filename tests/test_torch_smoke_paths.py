@@ -138,3 +138,33 @@ def test_submit_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
     assert "zip-mode eval equals flow mode (totals and table) for perfect, seflowpp" in out
     assert "score MPE / CDE: gt 0.000000 / 0.000000 m; perfect 0.000000 / 0.000000 m" in out
     assert "byte for byte the same; columns equal the generator's" in out
+
+
+def test_ingest_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """``phase_ingest`` at a toy size: an AV2 log of 4 sweeps x 20,000
+    points with 8 tracks, 2 Scania scenes x 3 superframes x 20,000 points
+    with 6 boxes, the Scania extraction in a spawn pool of 2 CPU workers,
+    ``cli.save`` at 2,048 points; the card's memory reading stubbed."""
+    import torch
+
+    from himo_tpu_torch.models import runner
+
+    for name, value in (("INGEST_AV2_SWEEPS", 4), ("INGEST_AV2_POINTS", 20000),
+                        ("INGEST_AV2_TRACKS", 8), ("INGEST_SCANIA_FRAMES", 3),
+                        ("INGEST_SCANIA_BOXES", 6), ("INGEST_OBJECT_POINTS", 60),
+                        ("BIG_POINTS", 20000)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(runner, "bucket_size", lambda n: 2048)  # the toy table route
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (0, 0))
+    launches = cs.phase_ingest(rehearsal, "Card, 700.00 W", tmp_path / "ingest")
+    none = dict.fromkeys(launches, 0)
+    assert launches == {**none, "scatter_max_rows": 3 * 3, "nn_argmin_rows": 10 * 3,
+                        "nn_min_rows": 3}
+    out = capsys.readouterr().out
+    for ds in ("av2", "scania"):
+        assert f"[ingest] Card, 700.00 W: {ds} card vs CPU: every file, group and " \
+            "dataset bitwise; 0 of" in out
+        assert f"[ingest] Card, 700.00 W: {ds} " in out and "points_in_boxes" in out
+    assert "extract_scania nproc=2" in out and "MiB a worker" in out
+    assert "host ms a sweep: read" in out and "host ms a superframe: read" in out
+    assert "second runs printed the skip line" in out and "perfect 0.000000 / 0.000000 m" in out
