@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen main paths, at full width with random weights from seeded generators:
+Twenty main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -76,7 +76,12 @@ Nineteen main paths, at full width with random weights from seeded generators:
   and ``cli.extract_scania`` in a spawn pool of 2 workers on 2 Scania
   scenes (8 superframes x 131,072 points, 40 boxes a frame, an
   extrinsics YAML), the box test and the ground mask on the card; then
-  the AV2 scenes through ``cli.save model=seflowpp`` and ``cli.eval``.
+  the AV2 scenes through ``cli.save model=seflowpp`` and ``cli.eval``;
+- data parallelism over ``torch.distributed``, in spawned ranks: the
+  ``TrainConfig()`` train step through ``make_train_step(..., mesh)`` at
+  one NCCL rank, then split over two gloo ranks sharing the card (NCCL
+  refuses two ranks on one GPU), then ``fleet_save`` across those two
+  ranks on a copy of the fleet's scenes.
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -225,7 +230,24 @@ and prints no result):
    launches a frame) and ``cli.eval`` (``perfect`` below 1e-5 m, ``raw``
    worse); host ms a frame by stage, ``ground_mask`` and
    ``points_in_boxes`` on the card (CUDA events, traced) and on the CPU,
-   the spawn workers' device memory.
+   the spawn workers' device memory;
+17. data parallel (``phase_data_parallel``, after fleet; each spawn of
+   ranks has a time limit, and a rank's failure or timeout fails the
+   phase): (a) one NCCL rank, 2 steps of the B8 step through the mesh
+   (the step's launches each), each all-reduce handing back the rank's
+   gradients bitwise and the parameters bitwise equal to a twin stepped
+   without a mesh on the same gradients (two plain backward passes of one
+   batch are compared too: float atomics may make them differ); (b) two
+   gloo ranks on the card, the B8 batch split in two, 2 steps (the step's
+   launches each, on each rank): the parameters bitwise equal across the
+   ranks after each step (digests; step 2 moves them), step 1's reduced
+   gradients against rank 0's one-process B8 step as in 5; (c)
+   ``fleet_save`` across the two ranks on a copy of the fleet's scenes:
+   each scene written once, ``mesh_shards`` 2, every frame counted, >=
+   0.99 of points within 1e-3 m of the one-rank fleet's flows, the
+   launches per batch as in 11; printed: each rank's step ms, the gradient
+   bucket's MB, the all-reduce's ms (gloo's "through the host"), the
+   fleet's points/s ("two ranks sharing one card").
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -310,6 +332,19 @@ NATIVE_RUNS = 5
 # 5 frames x 64,800 points, batches of 8 at 65,536 points.
 FLEET_SCENES, FLEET_FRAMES, FLEET_BACKGROUND = 12, 5, 64000
 FLEET_LABEL = "fleet pass"
+# Data parallelism (phase_data_parallel): the 512x512 train step at
+# TrainConfig() through make_train_step(..., mesh), NCCL at one rank, then
+# gloo at two ranks on the one card (NCCL refuses two ranks on one GPU), the
+# global batch of BATCH frames split over them; the fleet on a copy of
+# phase_fleet's scenes across the two gloo ranks.
+DP_STEPS = 2
+DP_WORLD = 2
+DP_TIMEOUT_S = 600.0  # each spawn of ranks, their start included
+DP_ALLREDUCE_ITERS = 20
+DP_FLEET_KEY = "fleet_dp"
+# A picklable function each spawned rank calls first (None on the card; the
+# CPU rehearsal's toy setting in tests/torch_rehearsal.py).
+DP_RANK_SETUP = None
 # cli.save: 2 scenes x 4 frames x 64,800 points with a perfect method flow
 # for the eval.
 SAVE_SCENES, SAVE_FRAMES, SAVE_BACKGROUND = 2, 4, 64000
@@ -3042,6 +3077,383 @@ def phase_fleet(device, smi: str, root: Path):
     return launches
 
 
+def _dp_join(rank: int, world: int, address: str, backend: str, kind: str, setup):
+    """Start a spawned rank of ``phase_data_parallel``: the setup hook, the
+    card for gloo ranks (both on device 0), the process group, the mesh."""
+    if setup is not None:
+        setup()
+    import torch
+
+    from himo_tpu_torch.parallel import multihost
+
+    if kind == "cuda" and backend == "gloo":
+        torch.cuda.set_device(0)
+    multihost.initialize(address, world, rank, backend=backend, device=kind,
+                         timeout=DP_TIMEOUT_S)
+    return multihost.global_mesh(device=kind)
+
+
+def _dp_model(mesh, config):
+    """``seflowpp`` bf16 from seed 0 on the rank's device, broadcast from
+    rank 0."""
+    import torch
+
+    from himo_tpu_torch.models.feedforward import init_params, make_model
+    from himo_tpu_torch.parallel.mesh import replicated
+
+    model, _ = make_model(config.model, device=mesh.device, dtype="bfloat16")
+    init_params(model, torch.Generator().manual_seed(0))
+    return replicated(mesh, model)
+
+
+@contextlib.contextmanager
+def _recorded_reductions(record: list):
+    """While the block runs, each call of ``trainer.reduce_gradients``
+    appends (the rank's own gradients, the reduced ones) to ``record``,
+    before the clip changes them."""
+    from himo_tpu_torch.training import trainer
+
+    reduce = trainer.reduce_gradients
+
+    def recording(params, mesh):
+        params = list(params)
+        local = [p.grad.detach().clone() for p in params]
+        bucket = reduce(params, mesh)
+        record.append((local, [p.grad.detach().clone() for p in params]))
+        return bucket
+
+    trainer.reduce_gradients = recording
+    try:
+        yield record
+    finally:
+        trainer.reduce_gradients = reduce
+
+
+def _allreduce_ms(mesh, numel: int) -> float:
+    """Host ms of one all-reduce of ``numel`` float32 on the rank's device,
+    synchronized, averaged over ``DP_ALLREDUCE_ITERS`` after 3 warm ones."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(numel, device=mesh.device)
+    for _ in range(3):
+        dist.all_reduce(x, group=mesh.group)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(DP_ALLREDUCE_ITERS):
+        dist.all_reduce(x, group=mesh.group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / DP_ALLREDUCE_ITERS * 1e3
+
+
+def _dp_steps(name, mesh, model, config, batch, lines, check=None) -> tuple:
+    """``DP_STEPS`` steps of ``make_train_step(..., mesh)`` on this rank's
+    ``batch``, each launching ``TRAIN_LAUNCHES``; ``check(step, metrics,
+    local, reduced)`` runs after each; the step times go to ``lines``.
+    Returns (summed launches, the gradient bucket's numel)."""
+    import torch
+
+    from himo_tpu_torch.training import trainer
+
+    optimizer, _ = trainer.make_optimizer(model.parameters(), config, STEPS_PER_EPOCH)
+    step = trainer.make_train_step(model, config, optimizer, mesh)
+    want = dict.fromkeys(read_counts(), 0)
+    want.update(TRAIN_LAUNCHES)
+    totals = dict.fromkeys(want, 0)
+    times, record = [], []
+    with _recorded_reductions(record):
+        for i in range(DP_STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            counts = read_counts()
+            if counts != want:
+                raise AssertionError(f"{name} rank {mesh.rank} step {i + 1} launches {counts} "
+                                     f"!= {want}")
+            for k, v in counts.items():
+                totals[k] += v
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{name} step {i + 1}: non-finite metrics {metrics}")
+            if check is not None:
+                check(i, metrics, *record[-1])
+            record.clear()
+    numel = sum(p.numel() for p in model.parameters()) + len(list(model.parameters()))
+    lines.append(f"[{name}] rank {mesh.rank}: B={len(batch['pc0'])} step ms "
+                 f"{', '.join(f'{t:.3f}' for t in times)}")
+    return totals, numel
+
+
+def _producer_ms(root: str, rows) -> tuple:
+    """Host ms per batch of one epoch of the trainer's producer
+    (``batch_iterator`` at ``TrainConfig()``, keeping ``rows``) over the
+    scenes at ``root``, and the batches."""
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.training import trainer
+
+    config = trainer.TrainConfig()
+    dataset = SceneFlowDataset(root, with_pc1=True, with_history=True,
+                               extra_keys=tuple(SSL_DTYPES), next_keys=("ssl_dynamic",))
+    start, n = time.perf_counter(), 0
+    for _ in trainer.batch_iterator(dataset, config, 3, np.random.default_rng(0), rows=rows):
+        n += 1
+    return (time.perf_counter() - start) / n * 1e3, n
+
+
+def _dp_nccl_rank(rank: int, address: str, setup) -> dict:
+    """(a) One NCCL rank: ``DP_STEPS`` steps of the B8 step through the
+    mesh. Each step's all-reduce must hand back the rank's own gradients
+    bitwise (the sum over one rank, divided by 1), and the parameters must
+    equal bitwise those of a twin model stepped without a mesh on the same
+    gradients. (Two plain backward passes of one batch are not bitwise
+    alike: K1 sum and K3 sum add with float atomics; the rank measures how
+    far apart.)"""
+    import copy
+
+    import torch
+
+    from himo_tpu_torch.training import trainer
+
+    mesh = _dp_join(rank, 1, address, "nccl", "cuda", setup)
+    config = trainer.TrainConfig()
+    model = _dp_model(mesh, config)
+    twin = copy.deepcopy(model)
+    twin_opt, _ = trainer.make_optimizer(twin.parameters(), config, STEPS_PER_EPOCH)
+    batch = _train_batch(mesh.device, config)
+    lines = []
+    runs = []
+    for _ in range(2):
+        twin.zero_grad(set_to_none=True)
+        trainer.mean_losses(twin, config, batch)["total"].backward()
+        runs.append(_grads(twin))
+    twin.zero_grad(set_to_none=True)
+    spread = float((runs[0] - runs[1]).abs().max())
+    lines.append(f"[data_parallel] (a) two plain backward passes of one batch: bitwise equal "
+                 f"{bool(torch.equal(runs[0], runs[1]))}, max |grad diff| {spread:.3e} (norm "
+                 f"{float(runs[0].norm()):.6f})")
+    del runs
+
+    def check(i, metrics, local, reduced):
+        if not all(torch.equal(a, b) for a, b in zip(local, reduced)):
+            raise AssertionError(f"(a) step {i + 1}: NCCL's all-reduce over one rank changed "
+                                 "the gradients")
+        for p, g in zip(twin.parameters(), local):
+            p.grad = g
+        twin_opt.step()
+        if not all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters())):
+            raise AssertionError(f"(a) step {i + 1}: the parameters differ from the twin "
+                                 "stepped without a mesh")
+
+    counts, numel = _dp_steps("data_parallel (a) nccl", mesh, model, config, batch, lines,
+                              check)
+    return {"counts": counts, "lines": lines, "numel": numel,
+            "allreduce_ms": _allreduce_ms(mesh, numel), "shape": mesh.shape}
+
+
+def _dp_gloo_rank(rank: int, address: str, setup, kind: str, fleet_root: str) -> dict:
+    """(b) and (c) in one of two gloo ranks on the one card: the global B8
+    batch split in two for ``DP_STEPS`` steps (the parameters compared
+    across the ranks by digest after each; step 1's reduced gradients held
+    against rank 0's single-process step on the whole batch), then the
+    fleet on ``fleet_root`` across the ranks."""
+    import copy
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from himo_tpu_torch.data import schema
+    from himo_tpu_torch.parallel import fleet
+    from himo_tpu_torch.parallel.mesh import batch_rows, shard_batch
+    from himo_tpu_torch.training import trainer
+
+    mesh = _dp_join(rank, DP_WORLD, address, "gloo", kind, setup)
+    config = trainer.TrainConfig()
+    model = _dp_model(mesh, config)
+    # phase_fleet's weights, for (c): the steps below move the model's.
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    full = _train_batch(mesh.device, config)
+    lines, ref = [], {}
+    if rank == 0:  # one process's step on the whole batch, through the kernels
+        one = copy.deepcopy(model)
+        terms = trainer.mean_losses(one, config, full)
+        terms["total"].backward()
+        ref = {"terms": {k: float(v.detach()) for k, v in terms.items()}, "grads": _grads(one)}
+        del one, terms
+    batch = shard_batch(mesh, full)
+    digests = []
+
+    def check(i, metrics, local, reduced):
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        got = [None] * DP_WORLD
+        dist.all_gather_object(got, h.hexdigest(), group=mesh.group)
+        if len(set(got)) != 1:
+            raise AssertionError(f"(b) step {i + 1}: the ranks' parameters differ")
+        digests.append(got[0])
+        if i == 0 and rank == 0:
+            grads = torch.cat([g.reshape(-1).float() for g in reduced])
+            worst = max(abs(metrics[k] - v) / max(abs(v), 1e-12)
+                        for k, v in ref["terms"].items())
+            norm, want = float(grads.norm()), float(ref["grads"].norm())
+            norm_rel = abs(norm - want) / want
+            cosine = float(torch.nn.functional.cosine_similarity(grads, ref["grads"], dim=0))
+            lines.append(f"[data_parallel] (b) step 1, two B{len(batch['pc0'])} ranks vs one "
+                         f"B{len(full['pc0'])} process: worst term rel diff {worst:.3e}, grad "
+                         f"norm {norm:.6f} vs {want:.6f} (rel {norm_rel:.3e}), cosine "
+                         f"{cosine:.6f}")
+            if worst > TERM_RTOL or norm_rel > NORM_RTOL or cosine < MIN_COSINE:
+                raise AssertionError(
+                    f"(b) step 1's reduced gradients disagree with one process (limits: terms "
+                    f"{TERM_RTOL}, norm {NORM_RTOL}, cosine {MIN_COSINE})")
+
+    counts, numel = _dp_steps("data_parallel (b) gloo", mesh, model, config, batch, lines,
+                              check)
+    out = {"counts": counts, "lines": lines, "numel": numel,
+           "allreduce_ms": _allreduce_ms(mesh, numel), "digests": digests,
+           "producer": _producer_ms(fleet_root, batch_rows(mesh, config.batch_size))}
+    del batch, full, ref
+    torch.cuda.empty_cache()
+
+    # (c) the fleet: a warm pass, then the timed pass with its writes counted.
+    kw = dict(model="seflowpp", params=state, output_key=DP_FLEET_KEY, mesh=mesh,
+              config=fleet.FleetConfig(num_points=NUM_POINTS, batch_per_device=BATCH),
+              model_overrides={"dtype": "bfloat16"}, verbose=False)
+    fleet.fleet_save(fleet_root, **kw)
+    written = []
+    write = schema.write_method_flows
+
+    def counted(data_dir, scene_id, key, flows):
+        written.append(scene_id)
+        write(data_dir, scene_id, key, flows)
+
+    schema.write_method_flows = counted
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        stats = fleet.fleet_save(fleet_root, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    finally:
+        schema.write_method_flows = write
+    out.update(fleet_counts=read_counts(), fleet_stats=stats, fleet_wall=wall,
+               written=written)
+    return out
+
+
+def phase_data_parallel(device, smi: str, fleet_root: Path, tmp: Path) -> list:
+    """Data parallelism on the card: (a) NCCL at one rank
+    (:func:`phase_dp_nccl`), then (b) and (c) over two gloo ranks sharing
+    it (:func:`phase_dp_gloo`). Returns each part's launches."""
+    import torch
+
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    parts = [phase_dp_nccl(smi, tmp)]
+    parts += phase_dp_gloo(device, smi, fleet_root, tmp)
+    log(f"[data_parallel] {smi}: the phase {time.perf_counter() - start:.1f} s")
+    return parts
+
+
+def phase_dp_nccl(smi: str, tmp: Path) -> dict:
+    """(a): one spawned NCCL rank, ``DP_STEPS`` B8 steps through the mesh
+    (checks in :func:`_dp_nccl_rank`); prints the all-reduce's ms and the
+    bucket's MB. Returns the steps' launches."""
+    from himo_tpu_torch.parallel.multihost import run_ranks
+
+    start = time.perf_counter()
+    (out,) = run_ranks(_dp_nccl_rank, 1, ((tmp / "rendezvous_nccl").as_uri(), DP_RANK_SETUP),
+                       timeout=DP_TIMEOUT_S)
+    for line in out["lines"]:
+        log(line)
+    log(f"[data_parallel] (a) {smi}: NCCL, world size 1, mesh {out['shape']}: {DP_STEPS} "
+        f"steps' parameters bitwise equal to a twin stepped without a mesh on the same "
+        f"gradients; all-reduce of the gradient bucket ({out['numel'] * 4 / 1e6:.3f} MB) "
+        f"{out['allreduce_ms']:.4f} ms; the spawn {time.perf_counter() - start:.1f} s")
+    return out["counts"]
+
+
+def phase_dp_gloo(device, smi: str, fleet_root: Path, tmp: Path) -> list:
+    """(b) and (c) over ``DP_WORLD`` spawned gloo ranks on ``device`` (both
+    on the one card; gloo's CUDA all-reduce goes through the host):
+    the split B8 step (checks in :func:`_dp_gloo_rank`) and the fleet on a
+    copy of ``fleet_root``, whose ``fleet`` flows (``phase_fleet``'s, one
+    rank) the ranks' flows are held against. Returns the launches of the
+    steps and of the fleet's timed pass."""
+    import shutil
+
+    from himo_tpu_torch.parallel.multihost import run_ranks
+
+    root = tmp / "av2_fleet_dp"
+    shutil.copytree(fleet_root, root)
+    before = _scene_datasets(root)
+    one_ms, n_batches = _producer_ms(str(root), None)
+    start = time.perf_counter()
+    outs = run_ranks(_dp_gloo_rank, DP_WORLD,
+                     ((tmp / "rendezvous_gloo").as_uri(), DP_RANK_SETUP, device.type,
+                      str(root)),
+                     timeout=DP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - start
+    for out in outs:
+        for line in out["lines"]:
+            log(line)
+    # Step 1 (lr 0) keeps the parameters, step 2 moves them.
+    if len({tuple(o["digests"]) for o in outs}) != 1 or len(set(outs[0]["digests"])) != DP_STEPS:
+        raise AssertionError(f"(b) parameter digests {[o['digests'] for o in outs]}: not "
+                             "equal across the ranks, or step 2 did not move them")
+    log(f"[data_parallel] (b) {smi}: the trainer's producer, host ms per global batch of "
+        f"{BATCH} over {n_batches} batches of the fleet's scenes: one process {one_ms:.1f}; "
+        f"each of {DP_WORLD} ranks at once (every frame built, its rows kept) "
+        + ", ".join(f"{o['producer'][0]:.1f}" for o in outs))
+    log(f"[data_parallel] (b) {smi}: gloo, {DP_WORLD} ranks on one card: parameters bitwise "
+        f"equal across the ranks after each of {DP_STEPS} steps; all-reduce of the gradient "
+        f"bucket ({outs[0]['numel'] * 4 / 1e6:.3f} MB) through the host "
+        + ", ".join(f"rank {r} {o['allreduce_ms']:.3f} ms" for r, o in enumerate(outs)))
+
+    stats = outs[0]["fleet_stats"]
+    written = sorted(s for o in outs for s in o["written"])
+    if written != sorted(before):
+        raise AssertionError(f"(c) scenes written {written}, want each of {sorted(before)} once")
+    frames = sum(len(g) for g in before.values())
+    if stats["mesh_shards"] != DP_WORLD or stats["frames"] != frames:
+        raise AssertionError(f"(c) stats {stats}: want mesh_shards {DP_WORLD}, frames {frames}")
+    after = _scene_datasets(root)
+    dist = []
+    for scene, groups in after.items():
+        for group, arrays in groups.items():
+            if DP_FLEET_KEY in arrays:
+                dist.append(np.linalg.norm(arrays[DP_FLEET_KEY] - arrays["fleet"], axis=1))
+    dist = np.concatenate(dist)
+    agree = float((dist <= SLICE_TOL_M).mean())
+    if agree < SLICE_MIN_AGREE:
+        raise AssertionError(f"(c) only {agree:.4f} of points within {SLICE_TOL_M} m of the "
+                             "one-rank fleet's flows")
+    counts = [o["fleet_counts"] for o in outs]
+    for r, (o, c) in enumerate(zip(outs, counts)):
+        n_batches = -(-sum(len(before[s]) for s in o["written"]) // BATCH)
+        want = dict.fromkeys(c, 0)
+        want.update({k: n_batches * v for k, v in FLEET_LAUNCHES.items()})
+        if c != want:
+            raise AssertionError(f"(c) rank {r}: launches {c} != {want} ({n_batches} batches)")
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    walls = [o["fleet_wall"] for o in outs]
+    log(f"[data_parallel] (c) {smi}: fleet_save across {DP_WORLD} gloo ranks, two ranks "
+        f"sharing one card: {stats['frames']} frames, {stats['points']:,} points, "
+        f"{stats['points'] / max(walls) / 1e6:.4f} M points/s with the write-back (walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s; run_fleet {stats['seconds']:.3f} s = "
+        f"{stats['points_per_sec'] / 1e6:.4f} M points/s, write-back {stats['write_s']:.3f} s); "
+        f"scenes written once each, by rank: {[len(o['written']) for o in outs]}; "
+        f"{agree:.6f} of points within {SLICE_TOL_M} m of the one-rank fleet (max "
+        f"{float(dist.max()):.6f} m); launches {({k: v for k, v in total.items() if v})}; "
+        f"the spawn {spawn_s:.1f} s")
+    return [o["counts"] for o in outs] + [total]
+
+
 def phase_save(device, smi: str, root: Path):
     """``cli.save.main`` (the per-frame runner) on ``SAVE_SCENES`` x
     ``SAVE_FRAMES`` x 64,800 points written into ``root`` with a perfect
@@ -4352,6 +4764,8 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(prefix="himo_inference_") as tmp:
         fleet_root, save_root = Path(tmp) / "av2_fleet", Path(tmp) / "av2_save"
         paths.append(phase_fleet(device, smi, fleet_root))
+        torch.cuda.empty_cache()
+        paths += phase_data_parallel(device, smi, fleet_root, Path(tmp))
         torch.cuda.empty_cache()
         paths.append(phase_save(device, smi, save_root))
         phase_eval(smi, save_root, fleet_root)

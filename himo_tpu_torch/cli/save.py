@@ -15,6 +15,10 @@ Drop-in surface for the reference's OpenSceneFlow ``save.py`` (README.md:46-53):
     python -m himo_tpu_torch.cli.save fleet=true checkpoint=... dataset_path=... \\
         model=seflowpp batch_per_device=8
 
+    # the fleet over N GPUs, whole scenes to each rank (NCCL)
+    python -m torch.distributed.run --nproc-per-node=N -m himo_tpu_torch.cli.save \\
+        fleet=true checkpoint=... dataset_path=... model=seflowpp batch_per_device=8
+
 Runs on the GPU; ``device=cpu`` runs on the CPU instead (without CUDA and
 without ``device=cpu`` it raises). Hydra-style ``key=value`` overrides are
 accepted; extra keys are forwarded to the estimator config (e.g.
@@ -24,7 +28,10 @@ accepted; extra keys are forwarded to the estimator config (e.g.
 
 from __future__ import annotations
 
+import os
+
 from himo_tpu_torch.models.runner import estimate_scene_flow
+from himo_tpu_torch.parallel import multihost
 from himo_tpu_torch.utils.cli import run_cli
 
 
@@ -41,6 +48,11 @@ def main(
     device=None,
     **overrides,
 ):
+    if multihost.under_torchrun():
+        if not fleet and int(os.environ["WORLD_SIZE"]) > 1:
+            raise ValueError("several ranks split the fleet only (fleet=true); the "
+                             "per-frame runner runs in one process")
+        multihost.initialize(device=device)
     if fleet:
         # Batched inference (feed-forward models): frames stack into
         # batches on one GPU, flow lands back in the .h5 scenes.

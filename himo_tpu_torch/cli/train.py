@@ -10,10 +10,19 @@ overrides (``pooling=mean_sorted``, ``pillar.voxel_size=(0.4,0.4)``) pass
 as further ``key=value`` pairs. The ``ssl_*`` pseudo-labels are read when
 the scene files hold them (``python -m himo_tpu_torch.cli.ssl_label``
 writes them).
+
+Data parallel over N GPUs (NCCL; ``batch_size`` is the global batch, which
+N must divide; only rank 0 logs and writes checkpoints):
+
+    python -m torch.distributed.run --nproc-per-node=N -m himo_tpu_torch.cli.train \\
+        dataset_path=/path/to/av2 batch_size=8
+
+With ``device=cpu`` the ranks run on the CPU over gloo.
 """
 
 from __future__ import annotations
 
+from himo_tpu_torch.parallel import multihost
 from himo_tpu_torch.training.trainer import TrainConfig, train
 from himo_tpu_torch.utils.cli import run_cli
 from himo_tpu_torch.utils.config import apply_overrides, split_known_overrides
@@ -44,6 +53,8 @@ def main(
     known, model_overrides = split_known_overrides(TrainConfig, overrides)
     config = apply_overrides(config, known)
     model_overrides.setdefault("dtype", dtype)
+    if multihost.under_torchrun():
+        multihost.initialize(device=device)
     result = train(
         dataset_path,
         config,

@@ -1,1 +1,1 @@
-"""Batched fleet inference on one GPU (port of :mod:`himo_tpu.parallel`'s fleet)."""
+"""Data parallelism over ``torch.distributed`` (``mesh``, ``multihost``) and batched fleet inference (port of :mod:`himo_tpu.parallel`)."""

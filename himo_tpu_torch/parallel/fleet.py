@@ -1,6 +1,5 @@
-"""Fleet-scale de-distortion: many scenes, batched on one GPU, overlapped IO
-(port of ``himo_tpu/parallel/fleet.py``, on one device; sharding over
-several GPUs is not ported).
+"""Fleet-scale de-distortion: many scenes, batched on each GPU, overlapped
+IO (port of ``himo_tpu/parallel/fleet.py``).
 
 Replaces the reference's sequential per-frame loops (eval.py:281,
 save_zip.py:112) with a batch pipeline:
@@ -21,6 +20,12 @@ the host wait on step k's event and consume its outputs. Inputs go up from
 pinned memory the same way, so queuing a step never waits for the one
 before it.
 
+Across ranks (a ``mesh``, :mod:`himo_tpu_torch.parallel.mesh`) the dataset
+splits by whole scenes, balanced by frame count (:func:`split_scenes`),
+and each rank runs its scenes on its own device: every scene file is then
+rewritten once, by one rank. (JAX splits each step's frames over the
+devices instead; split that way, two ranks would rewrite one file.)
+
 Used by the batched ``save`` path (``cli.save fleet=true``).
 """
 
@@ -38,6 +43,7 @@ import torch
 
 from himo_tpu_torch import native
 from himo_tpu_torch.core.transforms import relative_pose, rigid_flow, transform_points
+from himo_tpu_torch.parallel.mesh import make_mesh, process_count, rank_device, replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,27 +301,81 @@ def _readback(out: Dict[str, torch.Tensor]):
     return host, event
 
 
+def scene_runs(dataset) -> List[List[int]]:
+    """The dataset's frame indices as contiguous per-scene runs, in dataset
+    order."""
+    ix = dataset.eval_index if dataset.eval_index is not None else dataset.data_index
+    scenes: List[List[int]] = []
+    for i in range(len(dataset)):
+        if scenes and ix[scenes[-1][-1]][0] == ix[i][0]:
+            scenes[-1].append(i)
+        else:
+            scenes.append([i])
+    return scenes
+
+
+def split_scenes(scenes: List[List[int]], n: int, index: int) -> List[List[int]]:
+    """Shard ``index`` of ``n`` of whole scenes, balanced by frame count:
+    the largest scenes first (ties in dataset order), each to the shard
+    with the fewest frames so far (ties to the lower shard). The shard's
+    scenes keep dataset order."""
+    load = [0] * n
+    owner = {}
+    for s in sorted(range(len(scenes)), key=lambda s: (-len(scenes[s]), s)):
+        k = min(range(n), key=lambda k: (load[k], k))
+        owner[s] = k
+        load[k] += len(scenes[s])
+    return [scene for s, scene in enumerate(scenes) if owner[s] == index]
+
+
+def _reduce_stats(mesh, stats: Dict[str, float], sums, maxes) -> Dict[str, float]:
+    """``stats`` with ``sums`` summed and ``maxes`` maximized over the data
+    axis (this rank's alone without a group)."""
+    if mesh.group is None:
+        return stats
+    import torch.distributed as dist
+
+    out = dict(stats)
+    for keys, op in ((sums, dist.ReduceOp.SUM), (maxes, dist.ReduceOp.MAX)):
+        t = torch.tensor([float(stats[k]) for k in keys], dtype=torch.float64,
+                         device=mesh.device)
+        dist.all_reduce(t, op=op, group=mesh.group)
+        if op == dist.ReduceOp.SUM and mesh.model > 1:
+            t /= mesh.model
+        out.update(zip(keys, t.tolist()))
+    return out
+
+
 def run_fleet(
     dataset,
     model,
     config: FleetConfig = FleetConfig(),
     consumer: Optional[Callable[[int, Dict, Dict], None]] = None,
     outputs=None,
+    mesh=None,
 ) -> Dict[str, float]:
     """De-distort every frame of ``dataset`` on the model's device.
 
     ``consumer(frame_index, host_arrays, outputs)`` receives per-frame
     results (already trimmed to real points, numpy) for writing; ``None``
     measures throughput only. ``outputs`` restricts which arrays come back
-    from the device (see :func:`make_fleet_step`).
+    from the device (see :func:`make_fleet_step`). With ``mesh`` (default:
+    every rank of the process group, 1 x 1 without one) this rank runs
+    only its whole scenes (:func:`split_scenes` over the data axis) on the
+    model's device, which must be the mesh's.
 
     Returns the reference's stats (``frames``, ``points``, ``seconds``,
-    ``points_per_sec``, ``mesh_shards``, which is 1) and the host's share:
-    ``prep_s`` (the producer's frame preparation, summed over its worker
-    threads), ``stack_s`` (batch stacking and the upload's queuing on the
-    main thread), ``wait_s`` (the main thread waiting for a batch) and
-    ``drain_s`` (waiting for a step's readback, and the consumer)."""
+    ``points_per_sec``, ``mesh_shards``: the data axis) and the host's
+    share: ``prep_s`` (the producer's frame preparation, summed over its
+    worker threads), ``stack_s`` (batch stacking and the upload's queuing
+    on the main thread), ``wait_s`` (the main thread waiting for a batch)
+    and ``drain_s`` (waiting for a step's readback, and the consumer).
+    Across ranks ``frames`` and ``points`` are summed, the seconds are the
+    slowest rank's, and ``points_per_sec`` comes from those."""
     device = next(model.parameters()).device
+    mesh = mesh or make_mesh(devices=[device] * process_count())
+    if mesh.device != device:
+        raise ValueError(f"the model is on {device}, the mesh's device is {mesh.device}")
     per_step = config.batch_per_device
     with_history = model.config.num_frames >= 3
     step = make_fleet_step(model, config, outputs=outputs)
@@ -327,6 +387,7 @@ def run_fleet(
     with_prior = bool(getattr(model.config, "prior_feat", False))
     with_dts = bool(getattr(model.config, "refine_head", False))
     ix = dataset.eval_index if dataset.eval_index is not None else dataset.data_index
+    scenes = split_scenes(scene_runs(dataset), mesh.data, mesh.data_index)
     prep_s = [0.0]
     prep_lock = threading.Lock()
 
@@ -372,13 +433,6 @@ def run_fleet(
 
     def producer():
         try:
-            # Contiguous per-scene index runs, in dataset order.
-            scenes: List[List[int]] = []
-            for i in range(len(dataset)):
-                if scenes and ix[scenes[-1][-1]][0] == ix[i][0]:
-                    scenes[-1].append(i)
-                else:
-                    scenes.append([i])
             n_workers = max(1, int(config.prep_threads))
             window = n_workers + 2  # bounded lookahead (memory cap)
             buf: List[Tuple[int, Dict]] = []
@@ -462,17 +516,19 @@ def run_fleet(
         done.set()
         thread.join()
     elapsed = time.perf_counter() - start
-    return {
+    stats = _reduce_stats(mesh, {
         "frames": frames,
         "points": points,
         "seconds": elapsed,
-        "points_per_sec": points / max(elapsed, 1e-9),
-        "mesh_shards": 1,
         "prep_s": prep_s[0],
         "stack_s": stack_s,
         "wait_s": wait_s,
         "drain_s": drain_s,
-    }
+    }, sums=("frames", "points"), maxes=("seconds", "prep_s", "stack_s", "wait_s", "drain_s"))
+    stats["frames"], stats["points"] = int(stats["frames"]), int(stats["points"])
+    stats["points_per_sec"] = stats["points"] / max(stats["seconds"], 1e-9)
+    stats["mesh_shards"] = mesh.data
+    return stats
 
 
 def fleet_save(
@@ -481,29 +537,39 @@ def fleet_save(
     checkpoint: Optional[str] = None,
     params=None,
     output_key: Optional[str] = None,
+    mesh=None,
     config: FleetConfig = FleetConfig(),
     model_overrides: Optional[Dict] = None,
     verbose: bool = True,
     device: torch.device | str | None = None,
 ) -> Dict[str, float]:
-    """Batched ``save.py``: feed-forward inference on one device with the
-    total flow written back under ``output_key`` (CLI: ``python -m
+    """Batched ``save.py``: feed-forward inference with the total flow
+    written back under ``output_key`` (CLI: ``python -m
     himo_tpu_torch.cli.save fleet=true``). ``params`` is a state dict;
     ``checkpoint`` a trainer checkpoint directory or a state-dict file
     (``models/feedforward.load_params``). The model runs on ``device``
-    (default: the GPU; raises without CUDA). Each scene file is rewritten
-    once, after the run, with every frame's flow zero-padded to the
-    frame's points. The stats add ``write_s``, the write-back's seconds."""
+    (default: the GPU; raises without CUDA), or on the ``mesh``'s device
+    (default: every rank of the process group, each on ``device``), its
+    parameters broadcast from rank 0; each rank runs its whole scenes
+    (:func:`run_fleet`). Each scene file is rewritten once, after the run,
+    by the rank that ran it, with every frame's flow zero-padded to the
+    frame's points. The stats add ``write_s``, the write-back's seconds
+    (the slowest rank's)."""
     from himo_tpu_torch.data.dataset import SceneFlowDataset
     from himo_tpu_torch.data.schema import write_method_flows
-    from himo_tpu_torch.models.feedforward import load_params, make_model
+    from himo_tpu_torch.models.feedforward import load_params, make_model, resolve_device
 
-    net, net_cfg = make_model(model, device=device, **(model_overrides or {}))
+    if mesh is None:
+        mesh = make_mesh(devices=[resolve_device(device)] * process_count())
+    elif device is not None and rank_device(device) != mesh.device:
+        raise ValueError(f"device={device} but the mesh's device is {mesh.device}")
+    net, net_cfg = make_model(model, device=mesh.device, **(model_overrides or {}))
     if params is None:
         if checkpoint is None:
             raise ValueError("fleet_save needs checkpoint= or params=")
-        params = load_params(checkpoint, next(net.parameters()).device)
+        params = load_params(checkpoint, mesh.device)
     net.load_state_dict(params)
+    replicated(mesh, net)
     net.eval()
     output_key = output_key or model
     dataset = SceneFlowDataset(
@@ -533,15 +599,17 @@ def fleet_save(
     stats = run_fleet(
         dataset, net, config=config, consumer=consumer,
         outputs=("flow",),  # the write-back needs nothing else off-device
+        mesh=mesh,
     )
     start = time.perf_counter()
     for scene_id, flows in pending.items():
         write_method_flows(data_dir, scene_id, output_key, flows)
-    stats["write_s"] = time.perf_counter() - start
-    if verbose:
+    stats = _reduce_stats(mesh, {**stats, "write_s": time.perf_counter() - start},
+                          sums=(), maxes=("write_s",))
+    if verbose and mesh.rank == 0:
         print(
             f"{output_key}: {stats['frames']} frames, {stats['points']} points "
-            f"in {stats['seconds']:.2f}s ({stats['points_per_sec'] / 1e6:.2f} M pts/s), "
-            f"write-back {stats['write_s']:.2f}s"
+            f"across {stats['mesh_shards']} shards in {stats['seconds']:.2f}s "
+            f"({stats['points_per_sec'] / 1e6:.2f} M pts/s), write-back {stats['write_s']:.2f}s"
         )
     return stats

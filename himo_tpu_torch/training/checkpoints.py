@@ -15,6 +15,10 @@ place, so a background write of the live tensors would mix two steps), then
 writes it on a background thread. At most one save is in flight; the next
 save, :meth:`~CheckpointManager.restore_latest` and
 :meth:`~CheckpointManager.close` wait for it, and re-raise its error.
+
+Under a process group only rank 0 writes: a manager on another rank saves
+nothing (its :meth:`~CheckpointManager.save` returns at once) and reads
+what rank 0 wrote; the trainer's barriers order the two.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from himo_tpu_torch.parallel.mesh import process_index
 
 CHECKPOINT_FILE = "checkpoint.pt"
 METRICS_FILE = "metrics.json"
@@ -111,11 +117,14 @@ class CheckpointManager:
         async_save: bool = True,
     ):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = process_index() == 0
+        if self.writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.best_metric = best_metric
         self.async_save = async_save
-        self._executor = concurrent.futures.ThreadPoolExecutor(1) if async_save else None
+        self._executor = (concurrent.futures.ThreadPoolExecutor(1)
+                          if async_save and self.writer else None)
         self._pending: Optional[concurrent.futures.Future] = None
 
     def all_steps(self) -> List[int]:
@@ -142,7 +151,10 @@ class CheckpointManager:
         Returns ``{"drain_s", "dispatch_s"}``: the time spent draining the
         PREVIOUS in-flight save and the time this save call held the caller
         (the copy to the host included). ``drain_s > 0`` at save N+1 shows
-        that save N was still writing while the steps between ran."""
+        that save N was still writing while the steps between ran. On a
+        rank other than 0 nothing is saved and both are 0."""
+        if not self.writer:
+            return {"drain_s": 0.0, "dispatch_s": 0.0}
         t0 = time.perf_counter()
         self.wait_until_finished()
         t1 = time.perf_counter()

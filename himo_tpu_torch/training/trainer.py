@@ -13,6 +13,13 @@
   unless the caller asks for the CPU, with torch-format checkpoints
   (:mod:`himo_tpu_torch.training.checkpoints`).
 
+Data parallelism, as JAX's ``mesh`` argument gives it
+(:mod:`himo_tpu_torch.parallel.mesh`): every rank builds the same model
+from the seed (broadcast from rank 0), takes its rows of each global
+batch, and the step all-reduces the gradients before the clip and the Adam
+step (:func:`reduce_gradients`, where XLA inserts a psum), so every rank
+takes the same step. Only rank 0 writes the log and the checkpoints.
+
 The generator's order, which keeps the batches equal to JAX's: ``train``
 makes one ``np.random.default_rng(config.seed)``; each epoch's
 ``batch_iterator`` draws its permutation at its first batch, then its
@@ -55,6 +62,16 @@ from himo_tpu_torch import native
 from himo_tpu_torch.core.transforms import relative_pose, rigid_flow, transform_points
 from himo_tpu_torch.data.dataset import SceneFlowDataset
 from himo_tpu_torch.models.feedforward import init_params, make_model, resolve_device
+from himo_tpu_torch.parallel.mesh import (
+    barrier,
+    batch_rows,
+    data_mean_,
+    data_sum_,
+    make_mesh,
+    process_count,
+    rank_device,
+    replicated,
+)
 from himo_tpu_torch.training.checkpoints import CheckpointManager
 from himo_tpu_torch.training.losses import (
     SSLLossWeights,
@@ -218,8 +235,16 @@ def batch_iterator(
     prefetch: int = 2,
     indices: Optional[np.ndarray] = None,
     extra_keys: tuple = (),
+    rows: Optional[slice] = None,
 ) -> Iterator[Dict]:
     """Shuffled, threaded batch producer of stacked numpy frame arrays.
+
+    ``rows`` keeps only those rows of every batch (a rank's share of a
+    global batch, :func:`himo_tpu_torch.parallel.mesh.batch_rows`). Every
+    frame of the batch is still read and built: each frame's loss samples
+    come from ``rng`` in frame order, drawn from that frame's valid pool,
+    so a rank cannot skip another rank's frames and draw as one process
+    does. Joined over the ranks, the rows are the batches of one process.
 
     The permutation is drawn at the first batch; one producer thread reads
     and builds the batches in order, ``prefetch`` ahead, and draws each
@@ -279,6 +304,8 @@ def batch_iterator(
                     )
                     for i in idxs
                 ]
+                if rows is not None:
+                    frames = frames[rows]
                 if not put({k: np.stack([f[k] for f in frames]) for k in frames[0]}):
                     return
         except BaseException as exc:  # noqa: BLE001 - re-raised by the consumer
@@ -440,16 +467,62 @@ def make_optimizer(params, config: TrainConfig, steps_per_epoch: int):
     return ClippedAdam(params, schedule, config.grad_clip), schedule
 
 
-def make_train_step(model, config: TrainConfig, optimizer: ClippedAdam):
+def reduce_gradients(params, mesh) -> torch.Tensor:
+    """Average ``params``' gradients over the mesh's data axis with one
+    all-reduce: every gradient is flattened into one float32 bucket (a
+    parameter without a gradient adds zeros, and a flag), the bucket is
+    summed over the ranks and divided by their number, and each ``.grad``
+    becomes its view of the bucket. A parameter keeps ``grad=None`` only
+    when no rank had a gradient for it, as ``torch.optim.Adam`` skips
+    those. The host reads the flags (and waits for the device) only when
+    this rank lacks a gradient: otherwise every one is there. Returns the
+    bucket."""
+    params = list(params)
+    grads = [p.grad for p in params]
+    missing = [i for i, g in enumerate(grads) if g is None]
+    has = torch.ones(len(params), device=params[0].device)
+    if missing:
+        has[missing] = 0.0
+    bucket = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1).float()
+                        for p, g in zip(params, grads)] + [has])
+    data_mean_(mesh, bucket)
+    flags = bucket[-len(params):].tolist() if missing else [1.0] * len(params)
+    offset = 0
+    for p, flag in zip(params, flags):
+        chunk = bucket[offset:offset + p.numel()]
+        offset += p.numel()
+        p.grad = chunk.view_as(p).to(p.dtype) if flag > 0 else None
+    return bucket
+
+
+def make_train_step(model, config: TrainConfig, optimizer: ClippedAdam, mesh=None):
     """``train_step(batch) -> metrics``: one optimizer step on the batch;
-    metrics are the frame-mean loss terms (detached 0-d tensors)."""
+    metrics are the frame-mean loss terms (detached 0-d tensors).
+
+    With a ``mesh`` over a process group, ``batch`` is this rank's rows of
+    the global batch: after ``backward``, :func:`reduce_gradients` averages
+    the gradients over the data axis before the clip and the step (the psum
+    XLA inserts into JAX's step); a mesh without a group (one process)
+    changes nothing. The loss is a mean over frames, so with equal rows a rank the
+    mean of the ranks' means is the global batch's; the metrics are
+    averaged the same way, so every rank reports the global batch's. The
+    parameters must start equal on every rank
+    (:func:`himo_tpu_torch.parallel.mesh.replicated`)."""
+
+    distributed = mesh is not None and mesh.group is not None
 
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
         mean = mean_losses(model, config, batch)
         mean["total"].backward()
+        if distributed:
+            reduce_gradients(optimizer.params, mesh)
         optimizer.step()
-        return {k: v.detach() for k, v in mean.items()}
+        metrics = {k: v.detach() for k, v in mean.items()}
+        if distributed:
+            values = data_mean_(mesh, torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, values.unbind()))
+        return metrics
 
     return train_step
 
@@ -477,11 +550,12 @@ def make_val_step(model, config: TrainConfig):
 
 
 def run_validation(val_step, dataset, val_indices, config: TrainConfig, num_frames: int,
-                   device: torch.device) -> Dict:
+                   device: torch.device, mesh=None) -> Dict:
     """Mean SSL loss + EPE over the val split (a fixed rng, so comparable
-    across epochs). The JAX function also takes the parameters and the
-    mesh; the port's ``val_step`` holds its model, and ``device`` is where
-    the batches go."""
+    across epochs). The JAX function also takes the parameters; the port's
+    ``val_step`` holds its model, and ``device`` is where the batches go.
+    With ``mesh`` each rank takes its rows of every batch and the sums are
+    all-reduced, so every rank returns the whole split's metrics."""
     sums = {"total_sum": 0.0, "frames": 0.0, "epe_sum": 0.0, "epe_count": 0.0}
     for batch in batch_iterator(
         dataset,
@@ -490,10 +564,15 @@ def run_validation(val_step, dataset, val_indices, config: TrainConfig, num_fram
         rng=np.random.default_rng(1234),
         indices=val_indices,
         extra_keys=("gt",),
+        rows=None if mesh is None else batch_rows(mesh, config.batch_size),
     ):
         out = val_step(to_device(batch, device))
         for k in sums:
             sums[k] += float(out[k])
+    if mesh is not None:
+        total = data_sum_(mesh, torch.tensor(list(sums.values()), dtype=torch.float64,
+                                             device=device))
+        sums = dict(zip(sums, total.tolist()))
     return {
         "val_total": sums["total_sum"] / max(sums["frames"], 1.0),
         "val_epe": sums["epe_sum"] / max(sums["epe_count"], 1.0),
@@ -507,6 +586,7 @@ def train(
     data_dir: str,
     config: TrainConfig = TrainConfig(),
     run_dir: str = "runs/seflowpp",
+    mesh=None,
     wandb_mode: str = "disabled",
     model_overrides: Optional[dict] = None,
     resume: bool = True,
@@ -522,9 +602,23 @@ def train(
     and continues from its step and epoch. Validation and a checkpoint come
     every ``val_every`` epochs and at the end; with a val split the ``keep``
     best checkpoints by ``val_total`` stay in ``ckpts`` and the latest in
-    ``ckpts_latest``. Multi-GPU data parallelism (the JAX ``mesh``) is not
-    ported."""
-    device = resolve_device(device)
+    ``ckpts_latest``.
+
+    ``mesh`` (:mod:`himo_tpu_torch.parallel.mesh`; default: every rank of
+    the process group, each on ``device``, 1 x 1 without a group) spreads
+    each global batch of ``config.batch_size`` frames over the data axis,
+    which must divide it. Every rank reads the same epochs and keeps its
+    rows (see :func:`batch_iterator`); only rank 0 writes the log and the
+    checkpoints, and the ranks meet at a barrier after every save and at
+    the end, so a checkpoint is whole before any rank returns or resumes
+    from it."""
+    if mesh is None:
+        device = resolve_device(device)
+        mesh = make_mesh(devices=[device] * process_count())
+    elif device is not None and rank_device(device) != mesh.device:
+        raise ValueError(f"device={device} but the mesh's device is {mesh.device}")
+    device = mesh.device
+    rows = batch_rows(mesh, config.batch_size)
     model, model_config = make_model(config.model, device=device, **(model_overrides or {}))
     num_frames = model_config.num_frames
     dataset = SceneFlowDataset(
@@ -545,13 +639,15 @@ def train(
     )
     steps_per_epoch = len(train_idx) // config.batch_size
     init_params(model, torch.Generator().manual_seed(config.seed))
+    replicated(mesh, model)
     optimizer, schedule = make_optimizer(model.parameters(), config, steps_per_epoch)
-    train_step = make_train_step(model, config, optimizer)
+    train_step = make_train_step(model, config, optimizer, mesh)
 
     logger = MetricsLogger(
         run_dir,
         wandb_mode=wandb_mode,
-        config={**dataclasses.asdict(config), "device": str(device)},
+        config={**dataclasses.asdict(config), "device": str(device),
+                "mesh": str(mesh.shape)},
     )
     has_val = len(val_idx) >= config.batch_size
     ckpts = CheckpointManager(
@@ -592,7 +688,7 @@ def train(
                 "step": step}
         if val_step is not None:
             val_metrics = run_validation(
-                val_step, dataset, val_idx, config, num_frames, device
+                val_step, dataset, val_idx, config, num_frames, device, mesh
             )
             logger.log(val_metrics, step, prefix="val/")
             logger.print(val_metrics, step, prefix="val ")
@@ -603,9 +699,11 @@ def train(
         else:
             timing = ckpts.save(step, tree)
         logger.log(timing, step, prefix="ckpt/")
+        barrier(mesh)
 
     for epoch in range(start_epoch, config.epochs):
-        for batch in batch_iterator(dataset, config, num_frames, rng, indices=train_idx):
+        for batch in batch_iterator(dataset, config, num_frames, rng, indices=train_idx,
+                                    rows=rows):
             metrics = train_step(to_device(batch, device))
             step += 1
             if step % config.log_every == 0 or step == 1:
@@ -620,6 +718,7 @@ def train(
     if ckpts_latest is not ckpts:
         ckpts_latest.close()
     logger.close()
+    barrier(mesh)  # rank 0's saves are durable before any rank goes on
     return {
         "params": model.state_dict(),
         "steps": step,

@@ -4,7 +4,8 @@ service).
 
 ``MetricsLogger`` appends JSON lines to ``{run_dir}/metrics.jsonl``, prints
 compact console summaries, and forwards to wandb when available AND
-``wandb_mode != 'disabled'`` — fully offline by default.
+``wandb_mode != 'disabled'`` — fully offline by default. Under a process
+group only rank 0 logs: on the other ranks every method does nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import json
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+from himo_tpu_torch.parallel.mesh import process_index
 
 
 class MetricsLogger:
@@ -23,12 +26,15 @@ class MetricsLogger:
         wandb_mode: str = "disabled",
         config: Optional[dict] = None,
     ):
+        self.writer = process_index() == 0
         self.run_dir = Path(run_dir)
+        self._wandb = None
+        if not self.writer:
+            return
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.path = self.run_dir / "metrics.jsonl"
         self._file = open(self.path, "a")
         self._start = time.time()
-        self._wandb = None
         if wandb_mode != "disabled":
             try:
                 import wandb
@@ -42,6 +48,8 @@ class MetricsLogger:
             (self.run_dir / "config.json").write_text(json.dumps(config, indent=2, default=str))
 
     def log(self, metrics: Dict[str, float], step: int, prefix: str = "") -> None:
+        if not self.writer:
+            return
         record = {
             "step": step,
             "time": round(time.time() - self._start, 3),
@@ -53,10 +61,14 @@ class MetricsLogger:
             self._wandb.log(record, step=step)
 
     def print(self, metrics: Dict[str, float], step: int, prefix: str = "") -> None:
+        if not self.writer:
+            return
         parts = " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
         print(f"[{prefix}step {step}] {parts}")
 
     def close(self) -> None:
+        if not self.writer:
+            return
         self._file.close()
         if self._wandb is not None:
             self._wandb.finish()

@@ -183,7 +183,8 @@ def test_port_imports_no_jax():
         "             'io.submission', 'eval.score', 'cli.save_zip', 'cli.save_zip_gt',\n"
         "             'cli.score', 'cli.pkl_extract', 'cli.repack_h5',\n"
         "             'ops.points_in_boxes', 'ops.ground', 'io.yaml_lite', 'data.av2',\n"
-        "             'data.scania', 'cli.extract_av2', 'cli.extract_scania'):\n"
+        "             'data.scania', 'cli.extract_av2', 'cli.extract_scania',\n"
+        "             'parallel.mesh', 'parallel.multihost', 'entry'):\n"
         "    assert 'himo_tpu_torch.' + name in names, names\n"
         "print(len(names))\n"
     )

@@ -1,9 +1,11 @@
 """``chip_smoke.py``'s later paths rehearsed on the CPU at a tiny size
 (``tests/torch_rehearsal.py`` sets the phases up): the host cluster
 prior's paths, the train loop, inference and evaluation, and the
-leaderboard submission. A file apart from ``tests/test_torch_smoke.py``, so
-that a second test worker takes them. It imports no JAX, like the script."""
+leaderboard submission, data parallelism. A file apart from
+``tests/test_torch_smoke.py``, so that a second test worker takes them. It
+imports no JAX, like the script."""
 
+import torch
 from torch_rehearsal import cpu_traced, cs, rehearsal  # noqa: F401 - a fixture
 
 
@@ -168,3 +170,38 @@ def test_ingest_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
     assert "extract_scania nproc=2" in out and "MiB a worker" in out
     assert "host ms a sweep: read" in out and "host ms a superframe: read" in out
     assert "second runs printed the skip line" in out and "perfect 0.000000 / 0.000000 m" in out
+
+
+def test_data_parallel_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """``phase_dp_gloo`` ((b) and (c); (a) needs NCCL) over two gloo CPU
+    ranks at the toy size, each rank taking the toy setting
+    (``rank_toy_setup``): the global batch of 2 split in two for 2 steps,
+    then the fleet on 2 scenes x 3 frames of 2,000 points, whose one-rank
+    flows this process writes first."""
+    from torch_rehearsal import rank_toy_setup
+
+    from himo_tpu_torch.data.synthetic import make_dataset
+    from himo_tpu_torch.models.feedforward import init_params, make_model
+    from himo_tpu_torch.parallel import fleet
+
+    monkeypatch.setattr(cs, "DP_RANK_SETUP", rank_toy_setup)
+    monkeypatch.setattr(cs, "DP_TIMEOUT_S", 120.0)
+    root = tmp_path / "av2_fleet"
+    make_dataset(root, num_scenes=2, num_frames=3, seed=0, num_background=1200)
+    model, _ = make_model("seflowpp", dtype="bfloat16")
+    fleet.fleet_save(str(root), model="seflowpp", output_key="fleet", verbose=False,
+                     params=init_params(model, torch.Generator().manual_seed(0)),
+                     config=fleet.FleetConfig(num_points=cs.NUM_POINTS, batch_per_device=cs.BATCH),
+                     model_overrides={"dtype": "bfloat16"}, device="cpu")
+    parts = cs.phase_dp_gloo(rehearsal, "Card, 700.00 W", root, tmp_path)
+    none = dict.fromkeys(parts[0], 0)
+    for steps in parts[:2]:
+        assert steps == {**none, **{k: cs.DP_STEPS * v for k, v in cs.TRAIN_LAUNCHES.items()}}
+    assert parts[2] == {**none, **{k: 2 * 2 * v for k, v in cs.FLEET_LAUNCHES.items()}}
+    out = capsys.readouterr().out
+    assert "[data_parallel] (b) step 1, two B1 ranks vs one B2 process" in out
+    assert "parameters bitwise equal across the ranks after each of 2 steps" in out
+    assert "through the host rank 0" in out
+    assert "producer, host ms per global batch of 2 over 3 batches" in out
+    assert "two ranks sharing one card: 6 frames, " in out
+    assert "scenes written once each, by rank: [1, 1]" in out

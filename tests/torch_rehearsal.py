@@ -64,10 +64,11 @@ class _Event:
         return (other.t - self.t) * 1e3
 
 
-@pytest.fixture()
-def rehearsal(monkeypatch):
-    """The phases' toy setting on the CPU; yields the device. The torch
-    thread count is restored afterwards."""
+def toy_patches() -> list:
+    """``(object, attribute, value)`` of the phases' toy setting on the CPU:
+    the CUDA-only calls stubbed (synchronize, events, memory statistics), a
+    toy grid and batch, and every kernel wrapper replaced by a counting call
+    of its plain version."""
     from himo_tpu_torch.models import feedforward as pf
     from himo_tpu_torch.ops import voxelize as pv
     from himo_tpu_torch.ops.dt import DTConfig
@@ -77,8 +78,7 @@ def rehearsal(monkeypatch):
     # grid at 2,048 points takes the table route (as 512x512 at 65,536),
     # path A's 128x128 grid the resident route, path B's 4,096 points the
     # stream route; 3 x 2,048 points do not fuse.
-    monkeypatch.setattr(pv, "_RESIDENT_BYTES", 16 * 1024 * 1024)
-    monkeypatch.setattr(pv, "_TABLE_BYTES", 1536 * 1024)
+    patches = [(pv, "_RESIDENT_BYTES", 16 * 1024 * 1024), (pv, "_TABLE_BYTES", 1536 * 1024)]
     for name, value in (("BATCH", 2), ("NUM_POINTS", 2048), ("FUSED_POINTS", 256),
                         ("GRID_256", {"pillar.voxel_size": (0.8, 0.8)}),
                         ("BIG_POINTS", 4096),
@@ -88,24 +88,25 @@ def rehearsal(monkeypatch):
                         ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
                         ("KNN_DUPLICATES", 16), ("HOST_POINTS", 64), ("HOST_ROWS", 128),
                         ("FASTNSF_DT", DTConfig(voxel_size=(3.2, 3.2, 1.6)))):
-        monkeypatch.setattr(cs, name, value)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "Event", _Event)
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+        patches.append((cs, name, value))
+    patches += [(torch.cuda, "synchronize", lambda *a, **k: None),
+                (torch.cuda, "Event", _Event),
+                (torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None),
+                (torch.cuda, "max_memory_allocated", lambda *a, **k: 0),
+                (torch.cuda, "empty_cache", lambda: None)]
     # No device to trace or to queue launches on: one timed call stands in.
-    monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0))
-    monkeypatch.setattr(cs, "device_split",
-                        lambda fn, iters=20: {"kernel": cs.cuda_ms(fn, 1, 0)})
-    monkeypatch.setattr(cs, "host_us", lambda fn: cs.cuda_ms(fn, 1, 0) * 1e3)
+    patches += [(cs, "device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0)),
+                (cs, "device_split", lambda fn, iters=20: {"kernel": cs.cuda_ms(fn, 1, 0)}),
+                (cs, "host_us", lambda fn: cs.cuda_ms(fn, 1, 0) * 1e3)]
     make = pf.make_model
-    monkeypatch.setattr(pf, "make_model", lambda name, device=None, **kw: make(
-        name, device="cpu", **{**TOY, **kw}))
-    monkeypatch.setattr(pt, "TrainConfig", functools.partial(
-        pt.TrainConfig, batch_size=2, num_points=2048, loss_points=256))
-    monkeypatch.setattr(pv, "_run_max_kernel", lambda p, f, rows, flagged=None:
-                        pv._scatter_max_rows_plain(p, f, rows))
+    patches += [
+        (pf, "make_model", lambda name, device=None, **kw: make(
+            name, device="cpu", **{**TOY, **kw})),
+        (pt, "TrainConfig", functools.partial(
+            pt.TrainConfig, batch_size=2, num_points=2048, loss_points=256)),
+        (pv, "_run_max_kernel", lambda p, f, rows, flagged=None:
+         pv._scatter_max_rows_plain(p, f, rows)),
+    ]
     for (mod, name), plain in cs._wrappers().items():
         def counted(*args, _plain=plain, _name=name, _mod=mod):
             fn = getattr(_mod, _name)
@@ -117,7 +118,25 @@ def rehearsal(monkeypatch):
 
         counted.launches = 0
         counted.launches_by_c = {}
-        monkeypatch.setattr(mod, name, counted)
+        patches.append((mod, name, counted))
+    return patches
+
+
+def rank_toy_setup() -> None:
+    """The toy setting in a rank that ``chip_smoke.phase_data_parallel``
+    spawns (``chip_smoke.DP_RANK_SETUP``): a fresh process, so the patches
+    stay for its life; one torch thread."""
+    for obj, name, value in toy_patches():
+        setattr(obj, name, value)
+    torch.set_num_threads(REHEARSAL_THREADS)
+
+
+@pytest.fixture()
+def rehearsal(monkeypatch):
+    """The phases' toy setting on the CPU (:func:`toy_patches`); yields the
+    device. The torch thread count is restored afterwards."""
+    for obj, name, value in toy_patches():
+        monkeypatch.setattr(obj, name, value)
     threads = torch.get_num_threads()
     torch.set_num_threads(REHEARSAL_THREADS)
     libc = _libc()
