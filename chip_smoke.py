@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty main paths, at full width with random weights from seeded generators:
+Twenty-one main paths, at full width with random weights from seeded generators:
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -64,6 +64,12 @@ Twenty main paths, at full width with random weights from seeded generators:
   ``perfect`` and ``seflowpp`` flows, ``cli.save_zip_gt``, zip-mode
   ``cli.eval`` and ``cli.score`` (host only; feather files read and written
   by ``io/arrow``, no pandas);
+- the viz layer on those scenes (host only, no cv2, matplotlib or open3d):
+  ``visualize.main`` of every frame at 960x960 coloured by lidar and by
+  flow, an 8-frame APNG fly-through (``save_animation``), both de-skewed
+  by the ``perfect`` flow; ``print_refine_ins`` and ``vis_refine_ins`` on
+  two objects with the ``seflowpp`` flow; ``schematic.main``; every file
+  written by ``viz/png`` and read back;
 - downstream segmentation on those scenes: ``cli.seg_h5`` trains SegNet
   (``SegConfig()``: 512x512, depths (64, 128, 256), fp32) one epoch at
   32,768 points a frame, one frame a step, and segments ``raw``, then
@@ -247,7 +253,15 @@ and prints no result):
    0.99 of points within 1e-3 m of the one-rank fleet's flows, the
    launches per batch as in 11; printed: each rank's step ms, the gradient
    bucket's MB, the all-reduce's ms (gloo's "through the host"), the
-   fleet's points/s ("two ranks sharing one card").
+   fleet's points/s ("two ranks sharing one card");
+18. viz (``phase_viz``, after submit, on ``phase_save``'s scenes, in a
+   temporary directory): the files above, each PNG and the APNG's frames
+   read back by ``viz/png``'s readers equal to the images in memory, the
+   file names ``{scene_id}_{timestamp}_perfect.png``, ``perfect``'s
+   instance MPE below 1e-5 m, the APNG's delays 1/10 s, no kernel
+   launched, none of cv2, matplotlib, open3d and PIL in ``sys.modules``;
+   host ms per frame by stage (read, ``prepare_frame``, render, encode),
+   the files' sizes, the phase's seconds.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -355,6 +369,19 @@ EVAL_PERFECT_MAX = 1e-5  # tests/test_eval_pipeline.py's bound on perfect's MPE 
 SUBMIT_METHODS = ("perfect", "seflowpp")
 LZ4_FIXTURE = Path("tests") / "data" / "lz4_fixture.py"
 LZ4_RUNS = 5
+# The viz layer (host only) on phase_save's scenes: every frame rendered at
+# 960x960 by visualize.main, coloured by lidar and by flow, instance panels
+# of two objects, an 8-frame APNG fly-through, the schematic. The frames
+# are de-skewed by the generator's perfect flow, which every frame holds
+# (cli.save writes no flow on a scene's last frame); the instances are
+# scored and drawn with the flow cli.save wrote on the card.
+VIZ_FLOW = "perfect"
+VIZ_INSTANCE_FLOW = "seflowpp"
+VIZ_RESOLUTION = 960
+VIZ_COLORS = ("lidar", "flow")
+VIZ_INSTANCES = [1, 2]
+VIZ_ANIMATION_FRAMES = 8
+VIZ_ABSENT = ("cv2", "matplotlib", "open3d", "PIL")  # the port writes images without them
 # Ingestion (cli.extract_av2, cli.extract_scania) from raw logs written on
 # the card's host: one AV2 log of 12 sweeps x 100,000 points (about AV2's
 # two stacked 32-beam LiDARs) with 80 cuboid tracks, one of which leaves
@@ -3722,6 +3749,129 @@ def phase_submit(smi: str, save_root: Path, root: Path) -> None:
     log(f"[submit] the phase took {time.perf_counter() - phase_start:.1f} s")
 
 
+@contextlib.contextmanager
+def _recorded_images():
+    """Every image written through ``viz/png`` while the block runs: yields
+    ({path: still}, {path: [APNG frame, ...]})."""
+    from himo_tpu_torch.viz import png
+
+    stills, animations = {}, {}
+    write, frame = png.write, png.APNGWriter.write
+
+    def recording_write(path, image):
+        stills[str(path)] = np.array(image)
+        return write(path, image)
+
+    def recording_frame(self, image):
+        animations.setdefault(self.path, []).append(np.array(image))
+        return frame(self, image)
+
+    png.write, png.APNGWriter.write = recording_write, recording_frame
+    try:
+        yield stills, animations
+    finally:
+        png.write, png.APNGWriter.write = write, frame
+
+
+def phase_viz(smi: str, save_root: Path) -> dict:
+    """The viz layer on ``phase_save``'s scenes, in a temporary directory,
+    all on the host: ``visualize.main`` of every frame at ``VIZ_RESOLUTION``
+    coloured by each of ``VIZ_COLORS``, de-skewed by the ``perfect`` flow;
+    ``print_refine_ins`` of ``perfect`` (MPE below ``EVAL_PERFECT_MAX``) and
+    of the ``seflowpp`` flow that ``cli.save`` wrote (finite) on
+    ``VIZ_INSTANCES``; ``vis_refine_ins`` of those instances with that
+    flow; ``save_animation`` of ``VIZ_ANIMATION_FRAMES`` frames (an APNG,
+    ``perfect``); ``schematic.main``. Every file is read back with
+    ``viz/png``'s readers and must equal the image in memory; no kernel may
+    launch, and none of ``VIZ_ABSENT`` may be imported. Prints host ms per frame by stage (read, ``prepare_frame``,
+    render, encode), the files' sizes and the phase's seconds. Returns the
+    launches (all zero)."""
+    phase_start = time.perf_counter()
+    import tempfile
+
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.viz import animation, png, schematic, view_instance, visualize
+
+    save_root = save_root.resolve()
+    reset_counts()
+    index = SceneFlowDataset(save_root, vis_name=VIZ_FLOW).data_index
+    want_names = sorted(f"{scene}_{ts}_{VIZ_FLOW}.png" for scene, ts in index)
+    times, sizes, scores = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="himo_viz_") as tmp, \
+            _recorded_images() as (stills, animations):
+        out = Path(tmp)
+        fly = str(out / "animation.png")
+        runs = {
+            "visualize.main": (visualize, lambda: [visualize.main(
+                data_dir=str(save_root), flow_mode=VIZ_FLOW, color=color,
+                out_dir=str(out / color), num_frames=len(index), resolution=VIZ_RESOLUTION)
+                for color in VIZ_COLORS]),
+            "save_animation": (animation, lambda: animation.save_animation(
+                data_dir=str(save_root), flow_mode=VIZ_FLOW, output=fly,
+                resolution=VIZ_RESOLUTION, max_frames=VIZ_ANIMATION_FRAMES)),
+        }
+        for name, (module, run) in runs.items():
+            with _stage_timer(SceneFlowDataset, {"read": "__getitem__"}) as read, \
+                    _stage_timer(module, {"prepare_frame": "prepare_frame",
+                                          "render": "render_bev"}) as host, \
+                    _stage_timer(png, {"encode": "image_data"}) as encode:
+                _printed(run)
+            times[name] = {**read, **host, **encode}
+        frames = {"visualize.main": len(VIZ_COLORS) * len(index),
+                  "save_animation": len(animations.get(fly, []))}
+        bev = [p for color in VIZ_COLORS for p in sorted((out / color).iterdir())]
+        for color in VIZ_COLORS:
+            got_names = sorted(p.name for p in (out / color).iterdir())
+            if got_names != want_names:
+                raise AssertionError(f"viz: visualize.main color={color} wrote {got_names}")
+        if frames["save_animation"] != min(VIZ_ANIMATION_FRAMES, len(index)):
+            raise AssertionError(f"viz: the APNG holds {frames['save_animation']} frames")
+        for flow in ("perfect", VIZ_INSTANCE_FLOW):
+            (chams, mpes), text = _printed(view_instance.print_refine_ins,
+                                           data_dir=str(save_root), flow_mode=flow,
+                                           ins_id=VIZ_INSTANCES)
+            if len(mpes) != len(VIZ_INSTANCES) or not np.isfinite([*chams, *mpes]).all():
+                raise AssertionError(f"viz: print_refine_ins {flow}: {chams} {mpes}\n{text}")
+            scores[flow] = (max(chams), max(mpes))
+        if not scores["perfect"][1] < EVAL_PERFECT_MAX:
+            raise AssertionError(f"viz: perfect's instance MPE {scores['perfect'][1]}")
+        panels, _ = _printed(view_instance.vis_refine_ins, data_dir=str(save_root),
+                             flow_mode=VIZ_INSTANCE_FLOW, ins_id=VIZ_INSTANCES,
+                             out_dir=str(out / "instances"))
+        if len(panels) != len(VIZ_INSTANCES):
+            raise AssertionError(f"viz: vis_refine_ins wrote {panels}")
+        figure, _ = _printed(schematic.main, out_dir=str(out / "figures"))
+        for path, want in [*((p, [im]) for p, im in stills.items()), *animations.items()]:
+            got = png.read_apng(path)[0] if path in animations else [png.read(path)]
+            if len(got) != len(want) or any(
+                    g.shape != w.shape or not np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"viz: {path} reads back other than its image")
+        if set(png.read_apng(fly)[1]) != {(1, 10)}:
+            raise AssertionError("viz: the APNG's frame delays are not 1/10 s")
+        for label, paths in (("BEV PNGs", bev), ("instance panels", panels),
+                             ("APNG", [fly]), ("schematic", [figure])):
+            sizes[label] = (len(paths), sum(Path(p).stat().st_size for p in paths))
+        n_files = len(stills) + len(animations)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"viz: a host path launched kernels: {launches}")
+    present = [m for m in VIZ_ABSENT if m in sys.modules]
+    if present:
+        raise AssertionError(f"viz: {present} imported")
+    for name, t in times.items():
+        log(f"[viz] {smi}: {name} at {VIZ_RESOLUTION}x{VIZ_RESOLUTION}, host ms per frame "
+            f"over {frames[name]} frames: " + ", ".join(
+                f"{k} {v / frames[name] * 1e3:.3f}" for k, v in t.items()))
+    log(f"[viz] {smi}: print_refine_ins instances {VIZ_INSTANCES}, largest chamfer / MPE: "
+        + "; ".join(f"{k} {c:.6f} / {m:.6f} m" for k, (c, m) in scores.items()))
+    log(f"[viz] {smi}: files: " + ", ".join(
+        f"{n} {label} {b:,} bytes" for label, (n, b) in sizes.items())
+        + f"; all {n_files} read back equal to their images; no kernel launched; "
+        f"none of {', '.join(VIZ_ABSENT)} imported")
+    log(f"[viz] the phase took {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 def _yaw_quat(yaw: float):
     return np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)
 
@@ -4774,6 +4924,7 @@ def main(argv) -> int:
         paths.append(read_counts())
         if any(paths[-1].values()):
             raise AssertionError(f"submit: a host path launched kernels: {paths[-1]}")
+        paths.append(phase_viz(smi, save_root))
         torch.cuda.empty_cache()
         paths.append(phase_ingest(device, smi, Path(tmp) / "ingest"))
         torch.cuda.empty_cache()

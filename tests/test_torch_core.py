@@ -145,13 +145,20 @@ def test_lidar_like_cloud_identical_to_bench():
 
 
 BANNED_ROOTS = ("jax", "jaxlib", "flax", "optax", "himo_tpu", "h5py", "orbax", "sklearn",
-                "pandas", "pyarrow", "tqdm", "tabulate", "yaml")
+                "pandas", "pyarrow", "tqdm", "tabulate", "yaml", "cv2", "matplotlib",
+                "open3d", "PIL", "imageio")
+
+
+# Imports allowed inside a function of one module only: the interactive
+# open3d window (it needs a display; no path on the card opens it).
+LAZY_OPTIONAL = {"himo_tpu_torch/viz/o3d_view.py": ("open3d",)}
 
 
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in jax, flax,
     optax, himo_tpu, or the host libraries the GPU host lacks (h5py,
-    orbax, sklearn, pandas, pyarrow, tqdm, tabulate, PyYAML). ``import torch`` itself may
+    orbax, sklearn, pandas, pyarrow, tqdm, tabulate, PyYAML, cv2,
+    matplotlib, open3d, PIL, imageio). ``import torch`` itself may
     load some of the latter (some builds load tqdm), so at run
     time only modules beyond torch's own count, and every import statement
     of the port's sources is checked as well."""
@@ -184,7 +191,9 @@ def test_port_imports_no_jax():
         "             'cli.score', 'cli.pkl_extract', 'cli.repack_h5',\n"
         "             'ops.points_in_boxes', 'ops.ground', 'io.yaml_lite', 'data.av2',\n"
         "             'data.scania', 'cli.extract_av2', 'cli.extract_scania',\n"
-        "             'parallel.mesh', 'parallel.multihost', 'entry'):\n"
+        "             'parallel.mesh', 'parallel.multihost', 'entry', 'viz', 'viz.png',\n"
+        "             'viz.font', 'viz.plasma', 'viz.render', 'viz.view_instance',\n"
+        "             'viz.visualize', 'viz.animation', 'viz.schematic', 'viz.o3d_view'):\n"
         "    assert 'himo_tpu_torch.' + name in names, names\n"
         "print(len(names))\n"
     )
@@ -193,18 +202,25 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 83
+    assert int(proc.stdout.strip()) >= 93
     import ast
 
     for path in [*sorted((REPO / "himo_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]:
-        for node in ast.walk(ast.parse(path.read_text())):
+        tree = ast.parse(path.read_text())
+        in_functions = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+                        for n in ast.walk(f)}
+        optional = LAZY_OPTIONAL.get(path.relative_to(REPO).as_posix(), ())
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 roots = [alias.name.split(".")[0] for alias in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 roots = [node.module.split(".")[0]]
             else:
                 continue
-            assert not set(roots) & set(BANNED_ROOTS), (path, node.lineno, roots)
+            banned = set(roots) & set(BANNED_ROOTS)
+            if id(node) in in_functions:
+                banned -= set(optional)
+            assert not banned, (path, node.lineno, roots)
 
 
 def test_build_library_name_tracks_source_content(tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s later paths rehearsed on the CPU at a tiny size
 (``tests/torch_rehearsal.py`` sets the phases up): the host cluster
-prior's paths, the train loop, inference and evaluation, and the
-leaderboard submission, data parallelism. A file apart from
+prior's paths, the train loop, inference and evaluation, the
+leaderboard submission, the viz layer, data parallelism. A file apart from
 ``tests/test_torch_smoke.py``, so that a second test worker takes them. It
 imports no JAX, like the script."""
 
@@ -140,6 +140,44 @@ def test_submit_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
     assert "zip-mode eval equals flow mode (totals and table) for perfect, seflowpp" in out
     assert "score MPE / CDE: gt 0.000000 / 0.000000 m; perfect 0.000000 / 0.000000 m" in out
     assert "byte for byte the same; columns equal the generator's" in out
+
+
+def test_viz_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
+    """``phase_viz`` on 1 scene x 4 frames of 2,000 points with a
+    ``perfect`` and a noisy ``seflowpp`` flow (none on the last frame, as
+    ``cli.save`` writes it), at 96x96 and a 3-frame APNG:
+    no kernel launched, every file read back equal, the scene directory
+    left as it was. The test process may hold cv2, PIL or matplotlib from
+    other tests; they are taken out of ``sys.modules`` for the phase."""
+    import sys
+
+    from himo_tpu_torch.data.synthetic import make_dataset
+
+    from himo_tpu_torch.data.dataset import SceneFlowDataset
+    from himo_tpu_torch.data.schema import rewrite_scene
+
+    root = tmp_path / "av2_save"
+    make_dataset(root, num_scenes=1, num_frames=4, seed=0, num_background=1200,
+                 method_flows={"perfect": 0.0, "seflowpp": 0.05})
+    scene, last = SceneFlowDataset(root).data_index[-1]  # as cli.save leaves it:
+    rewrite_scene(root / f"{scene}.h5", {str(last): {"seflowpp": None}})  # no last flow
+    before = sorted(p.name for p in root.iterdir())
+    monkeypatch.setattr(cs, "VIZ_RESOLUTION", 96)
+    monkeypatch.setattr(cs, "VIZ_ANIMATION_FRAMES", 3)
+    for name in cs.VIZ_ABSENT:
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    launches = cs.phase_viz("Card, 700.00 W", root)
+    assert launches == dict.fromkeys(launches, 0)
+    assert sorted(p.name for p in root.iterdir()) == before
+    out = capsys.readouterr().out
+    assert "[viz] Card, 700.00 W: visualize.main at 96x96, host ms per frame over 8 frames: " \
+        "read " in out and ", encode " in out
+    assert "[viz] Card, 700.00 W: save_animation at 96x96, host ms per frame over 3 frames" in out
+    assert "largest chamfer / MPE: perfect 0.000000 / 0.000000 m; seflowpp " in out
+    assert "files: 8 BEV PNGs " in out and "2 instance panels" in out and "1 APNG" in out
+    assert "all 12 read back equal to their images; no kernel launched; none of cv2, " \
+        "matplotlib, open3d, PIL imported" in out
+    assert "[viz] the phase took" in out
 
 
 def test_ingest_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
