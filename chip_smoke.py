@@ -324,6 +324,7 @@ MIN_COSINE = 0.999  # step-1 gradients
 PROFILE_CALLS = 3  # traced calls of each main path
 HOST_CALLS, HOST_RUNS = 100, 10  # host cost: 1,000 calls per wrapper or part
 HOST_POINTS, HOST_ROWS = 256, 1024  # the host-cost phase's tiny shapes
+L2_FLUSH_FLOATS = 32 << 20  # 128 MiB written before each cold call: over twice the L2
 PROFILE_TOP = 12  # kernels listed by device time
 NSFP_POINTS = 65536  # one frame pair of the optimisation estimators
 NSFP_ITERS = 500  # NSFPConfig().iterations, FastNSFConfig().iterations
@@ -566,6 +567,25 @@ def device_ms(fn, iters: int = 20) -> float:
     where the host takes longer per call than the device it measures the
     host; this leaves out the gaps in which the device waits."""
     return sum(device_split(fn, iters).values())
+
+
+def cold_device_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` (:func:`device_ms`) with a
+    cold L2: a buffer of ``L2_FLUSH_FLOATS`` floats, larger than the card's
+    L2, is written before each call, so that what ``fn`` reads comes from
+    memory and the L2 holds another buffer's lines, as within a step; the
+    passes of that write (those a trace of the write alone holds) are left
+    out of the sum."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_FLOATS, device="cuda")
+
+    def write():
+        flush.fill_(1.0)
+
+    own = set(device_split(write, iters))
+    split = device_split(lambda: (write(), fn()), iters)
+    return sum(ms for name, ms in split.items() if name not in own)
 
 
 def device_times(fn, library=None, iters: int = 20) -> dict:
@@ -1104,11 +1124,13 @@ def phase_sorted_sum(device, clouds):
     return out[MEAN_CHANNELS, True], out[GATHER_CHANNELS, True]
 
 
-def _check_gather(name, fn, plain, args, ids, library):
+def _check_gather(name, fn, plain, args, ids, library, cold=False):
     """Hold a row gather ``fn(image, ids, ...)`` bitwise against its plain
     version; time both and the ``library`` call. Bound: the (B, N) id
     tensors among ``args`` read once, the image rows the ids reach read
-    once, the output written once."""
+    once, the output written once; the kernel's share of it (bound over
+    device ms) is printed. With ``cold``, the kernel's device ms with a
+    cold L2 (:func:`cold_device_ms`) and its share of the bound too."""
     import torch
 
     image = args[0]
@@ -1129,7 +1151,12 @@ def _check_gather(name, fn, plain, args, ids, library):
         f"{float((ids >= rows).float().mean()):.3f}, reached rows {reached / (b * rows):.3f}: "
         f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{library_ms:.4f} ms; device {dev['device_ms']:.4f} / "
-        f"{dev['library_device_ms']:.4f} ms; bound {lower['bound_ms']:.4f} ms")
+        f"{dev['library_device_ms']:.4f} ms; bound {lower['bound_ms']:.4f} ms, "
+        f"device time at {lower['bound_ms'] / dev['device_ms']:.3f} of its bound")
+    if cold:
+        cold_ms = cold_device_ms(lambda: fn(*args))
+        log(f"{name}: cold L2, device {cold_ms:.4f} ms, at "
+            f"{lower['bound_ms'] / cold_ms:.3f} of its bound")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, **dev, **lower)
 
@@ -1147,7 +1174,8 @@ def phase_sorted_gathers(device, clouds, big):
     ids, read in sorted order and written back through the stable sort's
     order, beside ``index_select`` of the flat rows at the unsorted ids (the
     plain take it replaces) and the stable argsort the table route runs for
-    it; then K5 at path B's 131,072 points."""
+    it; then K5 at path B's 131,072 points. K5 is also timed with a cold
+    L2 at both."""
     import torch
 
     from himo_tpu_torch.ops import mxu_scatter as pms
@@ -1180,14 +1208,15 @@ def phase_sorted_gathers(device, clouds, big):
     flat = _flat_rows(pids, rows)
     k5 = _check_gather("sorted_gather_rows", pvox.sorted_gather_rows,
                        pvox._sorted_gather_rows_plain, (image, spids, order), pids,
-                       lambda: torch.index_select(table, 0, flat))
+                       lambda: torch.index_select(table, 0, flat), cold=True)
     sort_ms = cuda_ms(lambda: pvox._stable_sort(pids))
     bpids, _ = _pillar_ids(big)
     bsorted, border = pvox._stable_sort(bpids)
     bflat = _flat_rows(bpids, rows)
     _check_gather(f"sorted_gather_rows (path B, {bpids.shape[1]} points)",
                   pvox.sorted_gather_rows, pvox._sorted_gather_rows_plain,
-                  (image, bsorted, border), bpids, lambda: torch.index_select(table, 0, bflat))
+                  (image, bsorted, border), bpids, lambda: torch.index_select(table, 0, bflat),
+                  cold=True)
     big_sort_ms = cuda_ms(lambda: pvox._stable_sort(bpids))
     log(f"sorted_gather_rows: the table route's stable argsort of the ids "
         f"{sort_ms:.4f} ms ({NUM_POINTS} points), {big_sort_ms:.4f} ms "
@@ -1305,8 +1334,9 @@ def _parent_rows_checks(name, ids, vals):
 def phase_host_cost(device):
     """The kernel wrappers' host work per call. First every wrapper whole
     (:func:`wrapper_host_us`). Then K3 sum's wrapper at the fused NN
-    backward's shape split by part (checks, allocation, binding, stream,
-    the ctypes call), as it runs now and as its parent ran it, replayed
+    backward's shape split by part (checks, allocation, binding, the launch
+    helper's device guard when the device is current, stream, the ctypes
+    call), as it runs now and as its parent ran it, replayed
     step by step: the earlier checks, ``torch.zeros``, a signature dict
     built and walked per call as the parent's ``_build.load`` did, and a
     ``torch.cuda.Stream`` object per call. The replay's ctypes call goes to
@@ -1334,6 +1364,7 @@ def phase_host_cost(device):
     entry = pvox._SCATTER_SUM
     fn = entry.bind()
     raw = torch._C._cuda_getCurrentRawStream
+    current_device = torch._C._cuda_getDevice
     index = vals.get_device()
     out = torch.empty((b, rows, c), device=device)
     stream = raw(index)
@@ -1367,6 +1398,7 @@ def phase_host_cost(device):
             "checks": lambda: pvox._check_rows_args(name, ids, vals),
             "allocation": lambda: vals.new_empty((b, rows, c)),
             "binding": lambda: entry._fn or entry.bind(),
+            "device guard": lambda: current_device() == index,
             "stream": lambda: raw(index),
             "ctypes call": lambda: fn(ids.data_ptr(), vals.data_ptr(), out.data_ptr(), b, n,
                                       c, rows, stream),
@@ -4613,7 +4645,7 @@ def _downstream_kernels(device, root: Path):
     frame's 32,768 points (``seg_inputs``, raw) on SegNet's grid and on
     DetNet's, features at the networks' widths; each against its plain
     version (bitwise; the sum within 1e-5 * sum|x| + 1e-6) and timed beside
-    its library call, its bound printed."""
+    its library call, its bound printed; K5 also with a cold L2."""
     import torch
 
     from himo_tpu_torch.data.dataset import SceneFlowDataset
@@ -4646,7 +4678,7 @@ def _downstream_kernels(device, root: Path):
     out["sorted_gather_rows"] = _check_gather(
         "[downstream] sorted_gather_rows (SegNet)", pvox.sorted_gather_rows,
         pvox._sorted_gather_rows_plain, (image, spids, order), pids,
-        lambda: torch.index_select(table, 0, flat))
+        lambda: torch.index_select(table, 0, flat), cold=True)
     dpids = pvox.voxelize_pillars(pts, valid, det_cfg.pillar).pillar_ids.contiguous()
     out["scatter_max_resident_rows"] = _check_max(
         "[downstream] scatter_max_resident_rows (DetNet)", pvox.scatter_max_resident_rows,

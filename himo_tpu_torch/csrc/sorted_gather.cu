@@ -60,16 +60,41 @@
 // that are not 16-byte aligned; it ran at 1.2x (K4) and 1.35x (K11)
 // `index_select` (PERF.md).
 //
-// K5 (`gather_runs`): its output rows are scattered through `order`, so
-// the span trick does not apply. One warp per 32 sorted positions of a
-// frame, one id per lane: the warp takes the chunk's runs of equal ids in
-// turn (the run's first id by a shuffle, its end by a ballot), reads each
-// run's image row once, 32 channels at a time into registers, and writes
-// them to every point of the run at `order`. Each point's row is a 32-lane
-// contiguous write. Each warp writes at most 32 rows, so a long run (the
-// ids past the grid, 8 % of a padded frame, or a near-sensor pillar)
-// spreads over many warps: a first version with one warp per whole run
-// left those to one warp and ran 2-4x slower (PERF.md).
+// K5 (`gather_scattered`): its output rows are scattered through `order`,
+// so the span trick does not apply, but each row is still one contiguous
+// run of C floats in the image and in the output. A block takes a tile of
+// kRunTile consecutive positions of the flattened (B * N) stream (a tile may
+// straddle two frames), stages each position's image row offset (-1 for ids
+// outside [0, rows)) and its output row offset (frame * N + order) in
+// shared memory with coalesced loads, then walks the tile's rows as words:
+// 16-byte words (`ld.global.nc.v4` / `st.global.v4`) when C % 4 == 0 and
+// both the image and the output are 16-byte aligned, else single floats.
+// Consecutive threads take consecutive words of one row, so every row read
+// and every row write (256 B at C = 64) is a full, coalesced access. Each
+// thread loads kRunUnroll independent words before it stores any of them:
+// no per-run loop, no ballot, no reload of `order` per channel pass. The
+// rows of a run are read again by its next position, and that read hits
+// L1/L2, so runs are not deduplicated. With 32 positions and 256 threads a
+// block, C = 64 is one pass of 2 loads then 2 stores a thread, and SegNet's
+// 1 x 32,768 is 1,024 blocks: one wave that fills the card's thread slots,
+// every row in flight at once. Tiles of 64 positions with 4 loads a thread,
+// 128 with 8 and 16 with 1 took 0.5 %, 0.5 % and 8 % longer at B8 x 65,536
+// x 64, and 10 %, 20 % and 0 % longer at 1 x 32,768 x 64; streaming stores
+// (`st.global.cs`) changed nothing beyond the spread (PERF.md). What bounds
+// it is bytes: at B8 x 65,536 x 64 it moves them at 0.86 of the card's
+// memory rate. Index arithmetic is 64-bit at every size: a 32-bit instance
+// below 2^31 floats took the same time at B8 x 65,536 and B8 x 131,072 x
+// 64, and 2-7 % less only at 1 x 32,768 x 64 and at C = 1 (PERF.md).
+// The earlier design (`gather_runs`) gave one warp to 32 sorted
+// positions of a frame and walked their runs of equal ids one after another
+// (the run's id by a shuffle, its end by a ballot, 4-byte loads of the row
+// 32 channels a pass, a store loop reloading `order` per point and pass):
+// about one point per run at these densities, so some 32 dependent trips
+// to memory a warp, 1,024 warps at B1 x 32,768, 12 % of the card's warp
+// slots. On an H100 80GB HBM3 at 700 W it took 0.1382 ms of device time at
+// B8 x 65,536 x 64 (bound 0.0730), against 0.0854 now, and 0.0187 ms at
+// 1 x 32,768 x 64 (0.0357 with a cold L2; bound 0.0044), against 0.0041
+// (0.0081) now (PERF.md).
 //
 // What bounds all three: bytes (the ids, and `order` for K5, read once; the
 // image rows the ids reach read once; the (B, N, C) output written once).
@@ -79,6 +104,8 @@
 // (B * rows, C) fp32 (K4: rows >= 1), out (B, N, C) fp32, all contiguous on
 // one device. The Python wrappers check them (not the order, nor that
 // `order` is a permutation).
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,38 +179,53 @@ __global__ void gather_tile(const int* __restrict__ ids,
   }
 }
 
-// K5: one warp per 32 sorted positions of a frame, rows written at `order`.
-__global__ void gather_runs(const int* __restrict__ spids,
-                            const int* __restrict__ order,
-                            const float* __restrict__ image,
-                            float* __restrict__ out, long long chunks, int n,
-                            int c, int rows) {
-  const long long warp =
-      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= chunks) return;  // the whole warp: blockDim is a multiple of 32
-  const int per_frame = (n + 31) / 32;
-  const long long b = warp / per_frame;
-  const int first = static_cast<int>(warp - b * per_frame) * 32;
-  const int count = min(32, n - first);
-  const int* ids = spids + b * n + first;
-  const int mine = lane < count ? ids[lane] : 0;
-  const int* dst = order + b * n + first;
-  float* frame = out + b * n * static_cast<long long>(c);
-  for (int start = 0; start < count;) {
-    const int id = __shfl_sync(0xffffffffu, mine, start);
-    const unsigned int same = __ballot_sync(0xffffffffu, lane < count && mine == id);
-    const unsigned int rest = ~same & (0xffffffffu << start);
-    const int end = rest ? min(__ffs(rest) - 1, count) : count;
+constexpr int kRunTile = 32;    // K5: positions per block
+constexpr int kRunUnroll = 2;   // K5: words each thread loads before it stores
+
+// K5: one block per tile of kRunTile consecutive sorted positions; each
+// position's row (`words` Words) read from its pillar's image row and
+// written to its point's output row, `order`. Word is float4 (C % 4 == 0,
+// aligned) or float.
+template <typename Word>
+__global__ void gather_scattered(const int* __restrict__ spids,
+                                 const int* __restrict__ order,
+                                 const Word* __restrict__ image,
+                                 Word* __restrict__ out, long long positions, int n,
+                                 int words, int rows) {
+  __shared__ long long src[kRunTile];  // image word offset of each row, or -1
+  __shared__ long long dst[kRunTile];  // output word offset of each row
+  const long long p0 = static_cast<long long>(blockIdx.x) * kRunTile;
+  const int count = static_cast<int>(min(static_cast<long long>(kRunTile), positions - p0));
+  for (int k = threadIdx.x; k < count; k += blockDim.x) {
+    const long long p = p0 + k;
+    const int id = spids[p];
+    const long long frame = p / n;
     const bool live = static_cast<unsigned int>(id) < static_cast<unsigned int>(rows);
-    const float* src = image + (b * rows + (live ? id : 0)) * static_cast<long long>(c);
-    for (int ch = lane; ch < c; ch += 32) {
-      const float v = live ? src[ch] : 0.0f;
-      for (int p = start; p < end; ++p) {
-        frame[static_cast<long long>(dst[p]) * c + ch] = v;
+    src[k] = live ? (frame * rows + id) * words : -1;
+    dst[k] = (frame * n + order[p]) * words;
+  }
+  __syncthreads();
+  const int total = count * words;
+  for (int base = threadIdx.x; base < total; base += kRunUnroll * blockDim.x) {
+    Word v[kRunUnroll];
+    long long at[kRunUnroll];
+#pragma unroll
+    for (int u = 0; u < kRunUnroll; ++u) {
+      const int i = base + u * static_cast<int>(blockDim.x);
+      at[u] = -1;
+      v[u] = Word{};  // +0.0 in every float: the row of an id outside [0, rows)
+      if (i < total) {
+        const int k = i / words;
+        const int w = i - k * words;
+        const long long s = src[k];
+        if (s >= 0) v[u] = image[s + w];
+        at[u] = dst[k] + w;
       }
     }
-    start = end;
+#pragma unroll
+    for (int u = 0; u < kRunUnroll; ++u) {
+      if (at[u] >= 0) out[at[u]] = v[u];
+    }
   }
 }
 
@@ -234,11 +276,21 @@ extern "C" int himo_sorted_gather_rows_f32(const void* spids, const void* order,
                                            const void* image, void* out, int batch,
                                            int n, int c, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long chunks = static_cast<long long>(batch) * ((n + 31) / 32);
-  if (chunks == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const long long blocks = (chunks * 32 + kThreads - 1) / kThreads;
-  gather_runs<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-      static_cast<const int*>(spids), static_cast<const int*>(order),
-      static_cast<const float*>(image), static_cast<float*>(out), chunks, n, c, rows);
+  const long long positions = static_cast<long long>(batch) * n;
+  if (positions == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned int blocks = static_cast<unsigned int>((positions + kRunTile - 1) / kRunTile);
+  const int* i = static_cast<const int*>(spids);
+  const int* o = static_cast<const int*>(order);
+  // 16-byte words when C % 4 == 0 and both pointers are 16-byte aligned.
+  if (c % 4 == 0 && reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    gather_scattered<float4><<<blocks, kThreads, 0, s>>>(
+        i, o, static_cast<const float4*>(image), static_cast<float4*>(out), positions, n,
+        c / 4, rows);
+  } else {
+    gather_scattered<float><<<blocks, kThreads, 0, s>>>(
+        i, o, static_cast<const float*>(image), static_cast<float*>(out), positions, n, c,
+        rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }

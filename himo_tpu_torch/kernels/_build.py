@@ -25,7 +25,10 @@ about 5 us of device time, so the wrapper's host time is what a caller
 waits for): the entry point is built, loaded and given its ``argtypes`` on
 its first launch and called as a cached ctypes function afterwards, and
 PyTorch's current stream is read as a raw handle, with no
-``torch.cuda.Stream`` object made per call. :func:`check_args` is the
+``torch.cuda.Stream`` object made per call. The launch runs with the
+tensors' device current (a ``<<<>>>`` launch goes to the calling thread's
+current device, whatever device its stream and pointers belong to); when
+that device is already current, the guard is one comparison. :func:`check_args` is the
 wrappers' shared argument check, one pass over the tensors when they are
 what the kernels take.
 """
@@ -131,13 +134,14 @@ class Entry:
     32-bit ints); later launches reuse that ctypes function. Two entries of
     one library share its one load."""
 
-    __slots__ = ("source", "name", "argtypes", "_fn", "_stream")
+    __slots__ = ("source", "name", "argtypes", "_fn", "_stream", "_get_device",
+                 "_set_device")
 
     def __init__(self, source: str, name: str, argtypes):
         self.source, self.name = source, name
         self.argtypes = (*argtypes, PTR)
         self._fn = None
-        self._stream = None
+        self._stream = self._get_device = self._set_device = None
 
     def bind(self):
         """Bind the entry point (once) and return its ctypes function."""
@@ -150,15 +154,36 @@ class Entry:
             # the Stream object (torch._inductor launches its kernels the
             # same way).
             self._stream = torch._C._cuda_getCurrentRawStream
+            # The calling thread's current device, and its setter: what
+            # ``torch.cuda.device(i)`` exchanges, without the context
+            # manager.
+            self._get_device = torch._C._cuda_getDevice
+            self._set_device = torch._C._cuda_setDevice
             self._fn = fn
         return self._fn
 
     def launch(self, device_index: int, *args) -> None:
         """Call the entry point with ``args`` and PyTorch's current stream
         on CUDA device ``device_index`` (a ``torch.cuda.stream(...)``
-        context is honoured); raise on a CUDA error."""
+        context is honoured), with that device current for the call; raise
+        on a CUDA error.
+
+        A ``<<<>>>`` launch runs on the calling thread's current device, so
+        when ``device_index`` is not current it is made current for the
+        call and the previous device restored afterwards, also when the
+        call raises, as PyTorch's device guard does; when it is current
+        (the usual case) the guard costs one comparison."""
         fn = self._fn or self.bind()
-        check(fn(*args, self._stream(device_index)), self.name)
+        current = self._get_device()
+        switch = current != device_index
+        if switch:
+            self._set_device(device_index)
+        try:
+            code = fn(*args, self._stream(device_index))
+        finally:
+            if switch:
+                self._set_device(current)
+        check(code, self.name)
 
 
 def check_args(what: str, f32=(), i32=()) -> None:

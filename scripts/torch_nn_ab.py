@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Hold the port's streaming-NN, k-NN and sorted-scatter kernels against
-another checkout's, on one NVIDIA GPU.
+"""Hold the port's streaming-NN, k-NN, sorted-scatter and sorted-take
+kernels against another checkout's, on one NVIDIA GPU.
 
-    python3 scripts/torch_nn_ab.py [--only K6,K7,K8,K9,K2] ROOT [ROOT ...]
+    python3 scripts/torch_nn_ab.py [--only K6,K7,K8,K9,K2,K5] ROOT [ROOT ...]
 
 K6 (``nn_min_rows``) and K7 (``nn_argmin_rows``, both ``csrc/nn.cu``), K8
 (``fused_nn_idx`` and ``fused_nn``, ``csrc/fused_nn.cu``), K9
 (``knn_rows``, ``csrc/knn.cu``) and K2 (``sorted_scatter_max_rows`` and
 ``sorted_scatter_sum_rows``, with K10's ``sorted_segment_sum``,
-``csrc/sorted_scatter.cu``) of this checkout run through their wrappers;
+``csrc/sorted_scatter.cu``) and K5 (``sorted_gather_rows``,
+``csrc/sorted_gather.cu``) of this checkout run through their wrappers;
 each ROOT's sources that the chosen kernels need are built with nvcc
 (sm_90a) into a temporary directory and called through ctypes at their own
 C signatures (the fused entry points took no scratch pointer before the
@@ -19,8 +20,8 @@ and indices, and on quarter-metre grid coordinates (every squared distance
 exact in both forms) this checkout's K6, K7, K8 and K9 must equal the plain
 versions' bit for bit; K6 must also equal K7's d2 on every input; K2 max
 must equal its plain version on every input, and the sums must equal
-themselves from launch to launch. ``--only`` runs the named kernels' cases
-alone.
+themselves from launch to launch; K5 must equal its plain version on every
+input. ``--only`` runs the named kernels' cases alone.
 
 Inputs, all made on the card from fixed seeds:
 
@@ -56,7 +57,14 @@ Inputs, all made on the card from fixed seeds:
   the ``mean_sorted`` train step's gather backward (B8 x 65,536 x 65
   cotangents at the same sorted ids, rounding off and on), and both on the
   50,000-point run beside a frame of ids >= rows (K2 sum at C = 65, K10 at
-  C = 33 rounding on); this checkout's device time split by pass.
+  C = 33 rounding on); this checkout's device time split by pass;
+- K5 on the 512² train step's take (a B8 x 65,536 x 64 (cotangent, max)
+  image at the stable sort of the main path's first-sweep pillar ids), on
+  path B's (B8 x 131,072), on SegNet's shape (1 x 32,768 x 64, the first
+  frame of 32,768-point clouds), on a 50,000-id run beside a frame whose
+  ids are all >= rows (B2 x 60,000 x 64), and on the 512² ids at C = 65
+  and C = 1 (rows of single-float words); SegNet's shape also with a cold
+  L2.
 
 Each case is timed by traced device time (``chip_smoke.device_ms``:
 kernels and memsets) in turns, this checkout then each ROOT, then back,
@@ -83,13 +91,14 @@ import chip_smoke as cs  # noqa: E402
 PTR, INT = ctypes.c_void_p, ctypes.c_int
 ROUNDS = 4  # (A, B..., B..., A) twice: each side timed four times
 CLOCK_SECONDS = 2.0  # K6: this checkout's calls looped while nvidia-smi samples
-SOURCE_OF = {"K6": "nn", "K7": "nn", "K8": "fused_nn", "K9": "knn", "K2": "sorted_scatter"}
+SOURCE_OF = {"K6": "nn", "K7": "nn", "K8": "fused_nn", "K9": "knn", "K2": "sorted_scatter",
+             "K5": "sorted_gather"}
 KERNELS = tuple(SOURCE_OF)
 
 
 class Library:
-    """A checkout's nn.cu, fused_nn.cu, knn.cu and sorted_scatter.cu (those
-    of ``sources``), built and bound at their ABI."""
+    """A checkout's nn.cu, fused_nn.cu, knn.cu, sorted_scatter.cu and
+    sorted_gather.cu (those of ``sources``), built and bound at their ABI."""
 
     def __init__(self, root: Path, out: Path, sources):
         from himo_tpu_torch.kernels import _build
@@ -123,6 +132,8 @@ class Library:
             self.knn = self._bind("knn", "himo_knn_f32", 3, ints=4)
         if "sorted_scatter" in self.libs:
             self._bind_sorted(src)
+        if "sorted_gather" in self.libs:
+            self.take = self._bind("sorted_gather", "himo_sorted_gather_rows_f32", 4, ints=4)
 
     def _bind_sorted(self, src):
         # The run-based max takes (spids, sfeats, out, B, N, C, rows); the
@@ -176,6 +187,17 @@ class Library:
 
     def segment_sum(self, spids, svals, rows, bf16):
         return self._sorted(self.segsum, spids, svals, rows, int(bf16), first=self.first_sum)
+
+    def sorted_gather(self, image, spids, order):
+        import torch
+
+        b, rows, c = image.shape
+        n = spids.shape[1]
+        out = torch.empty((b, n, c), dtype=torch.float32, device=image.device)
+        code = self.take(spids.data_ptr(), order.data_ptr(), image.data_ptr(), out.data_ptr(),
+                         b, n, c, rows, torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return out
 
     def nn_min_rows(self, q, r):
         import torch
@@ -481,6 +503,39 @@ def k2_cases(device):
     return maxes, sums
 
 
+def k5_cases(device):
+    """(name, [(image, spids, order)]) for K5: sorted ids and the stable
+    sort's order, images of normal values."""
+    import torch
+
+    from himo_tpu_torch.ops import voxelize as pvox
+
+    gen = torch.Generator(device=device).manual_seed(31)
+
+    def case(pids, rows, c):
+        spids, order = pvox._stable_sort(pids)
+        image = torch.randn(pids.shape[0], rows, c, device=device, generator=gen)
+        return [(image, spids, order)]
+
+    pids, rows = cs._pillar_ids(cs._clouds(device))
+    bpids, _ = cs._pillar_ids(cs._clouds(device, cs.BIG_POINTS))
+    seg, _ = cs._pillar_ids(cs._clouds(device, cs.DOWNSTREAM_POINTS))
+    lrng = cs.np.random.default_rng(32)
+    lids = lrng.integers(0, rows, size=(2, 60000)).astype(cs.np.int32)
+    lids[0, :50000] = 7
+    lids[1] = rows + lrng.integers(0, 3, size=60000)
+    width = 2 * cs.SCATTER_CHANNELS
+    return [
+        (f"512² step's take B{cs.BATCH}x{pids.shape[1]}x{width}", case(pids, rows, width)),
+        (f"path B's take B{cs.BATCH}x{bpids.shape[1]}x{width}", case(bpids, rows, width)),
+        (f"SegNet's shape 1x{seg.shape[1]}x{width}", case(seg[:1].contiguous(), rows, width)),
+        (f"long run + all past rows B2x60000x{width}",
+         case(torch.from_numpy(lids).to(device), rows, width)),
+        (f"512² ids C=65 B{cs.BATCH}x{pids.shape[1]}x65", case(pids, rows, 65)),
+        (f"512² ids C=1 B{cs.BATCH}x{pids.shape[1]}x1", case(pids, rows, 1)),
+    ]
+
+
 def main(argv) -> int:
     import torch
 
@@ -488,7 +543,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) > 1:
         only, argv = set(argv[1].split(",")), argv[2:]
     if not argv or not only <= set(KERNELS) or not torch.cuda.is_available():
-        print("usage: torch_nn_ab.py [--only K6,K7,K8,K9,K2] ROOT [ROOT ...] "
+        print("usage: torch_nn_ab.py [--only K6,K7,K8,K9,K2,K5] ROOT [ROOT ...] "
               "(needs a CUDA device)", file=sys.stderr)
         return 2
     from himo_tpu_torch.ops import knn as pknn
@@ -508,13 +563,14 @@ def main(argv) -> int:
     results = []
 
     def run(name, calls, here, there, plain=None, split=False, twice=False,
-            ref="plain", clocks=False):
+            ref="plain", clocks=False, cold=False):
         """``here`` is this checkout's wrapper, ``there(lib)`` a ROOT's, and
         ``plain`` what this checkout must equal bit for bit (named ``ref``).
         With ``split``, this checkout's device time is also split by pass;
         with ``twice``, this checkout must give the same bits on a second
         launch; with ``clocks``, the card's SM clock and power are sampled
-        while this checkout's calls run back to back."""
+        while this checkout's calls run back to back; with ``cold``, every
+        side is also timed with a cold L2 (``chip_smoke.cold_device_ms``)."""
         got = [here(*a) for a in calls]
         if twice:
             again = [here(*a) for a in calls]
@@ -538,12 +594,17 @@ def main(argv) -> int:
         sides += [(str(lib.root), (lambda fn=there(lib): [fn(*a) for a in calls]))
                   for lib in roots]
         times = {label: [] for label, _ in sides}
+        cold_times = {label: [] for label, _ in sides}
         for order in (sides, sides[::-1]) * (ROUNDS // 2):
             for label, call in order:
                 times[label].append(_device_ms(call))
+                if cold:
+                    cold_times[label].append(cs.cold_device_ms(call, iters=10))
         row = dict(case=name, bitwise_vs_roots=True,
                    bitwise_vs=ref if plain is not None else None,
                    bitwise_launch_to_launch=twice, device_ms=times, card=smi)
+        if cold:
+            row["cold_device_ms"] = cold_times
         if split:
             row["split"] = cs.device_split(sides[0][1], iters=10)
         if clocks:
@@ -599,6 +660,11 @@ def main(argv) -> int:
                     lambda i, v, r, _b=bf16: pms.sorted_segment_sum(i, v, r, _b),
                     lambda lib, _b=bf16: (lambda i, v, r: lib.segment_sum(i, v, r, _b)),
                     split=True, twice=True)
+    if "K5" in only:
+        for name, calls in k5_cases(device):
+            run(f"K5 {name}", calls, pvox.sorted_gather_rows, lambda lib: lib.sorted_gather,
+                pvox._sorted_gather_rows_plain, cold=name.startswith("SegNet"))
+            del calls
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "nn_ab.json").write_text(json.dumps(results, indent=1))

@@ -267,6 +267,10 @@ def test_build_load_binds_every_callers_signatures(tmp_path, monkeypatch):
     monkeypatch.setattr(ctypes, "CDLL", FakeLib)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
                         raising=False)
+    current = [0]
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current[0], raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_setDevice", lambda i: current.__setitem__(0, i),
+                        raising=False)
     a = _build.Entry("k", "a", (_build.PTR, _build.INT))
     b = _build.Entry("k", "b", (_build.PTR, _build.PTR, _build.INT))
     a.launch(0, 5, 6)
@@ -280,6 +284,53 @@ def test_build_load_binds_every_callers_signatures(tmp_path, monkeypatch):
     assert calls == [(5, 6, 1000), (7, 8, 9, 1002), (1, 2, 1000)]
     with pytest.raises(RuntimeError, match="a: CUDA error 9"):
         a.launch(0, 99, 0)
+
+
+@pytest.mark.parametrize("case", ["other device", "other device, call raises",
+                                  "other device, CUDA error", "current device"])
+def test_entry_launch_runs_on_the_tensors_device(monkeypatch, case):
+    """A ``<<<>>>`` launch goes to the calling thread's current device, so
+    ``Entry.launch(i, ...)`` makes device ``i`` current for the C call when
+    it is not, and restores the previous device afterwards: after a normal
+    return, when the call raises, and when it returns a CUDA error. When
+    ``i`` is already current, no device is set. The device getter and
+    setter, the stream and the bound function are stubs."""
+    import ctypes
+    import types
+
+    from himo_tpu_torch.kernels import _build
+
+    current = [1 if case == "current device" else 0]
+    sets, seen = [], []
+
+    def set_device(i):
+        sets.append(i)
+        current[0] = i
+
+    class FakeFn:
+        def __call__(self, *args):
+            seen.append((current[0], args))
+            if case == "other device, call raises":
+                raise ctypes.ArgumentError("bad argument")
+            return 2 if case == "other device, CUDA error" else 0
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current[0], raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_setDevice", set_device, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 700 + i,
+                        raising=False)
+    monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(k=FakeFn()))
+    entry = _build.Entry("src", "k", (_build.PTR, _build.INT))
+    if case == "other device, call raises":
+        with pytest.raises(ctypes.ArgumentError):
+            entry.launch(1, 5, 6)
+    elif case == "other device, CUDA error":
+        with pytest.raises(RuntimeError, match="k: CUDA error 2"):
+            entry.launch(1, 5, 6)
+    else:
+        entry.launch(1, 5, 6)
+    assert seen == [(1, (5, 6, 701))]  # device 1 current in the call, its stream
+    assert current[0] == (1 if case == "current device" else 0)
+    assert sets == ([] if case == "current device" else [1, 0])
 
 
 def _port_entries():

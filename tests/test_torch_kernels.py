@@ -1155,18 +1155,38 @@ def test_sorted_segment_gather_kernel_edge_cases(cuda_device, c, bf16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,rows,long_run", [(64, 512 * 64, 0), (2, 4096, 0),
-                                             (64, 4096, 50000)])
-def test_sorted_gather_rows_kernel_bitwise_equals_plain(cuda_device, c, rows, long_run):
+@pytest.mark.parametrize("c,rows,long_run,b,n,trash,offset", [
+    pytest.param(64, 512 * 64, 0, 2, None, False, 0, id="64-32768-0"),
+    pytest.param(2, 4096, 0, 2, None, False, 0, id="2-4096-0"),
+    pytest.param(64, 4096, 50000, 2, None, False, 0, id="64-4096-50000"),
+    pytest.param(65, 4096, 0, 2, None, False, 0, id="C=65"),  # scalar words
+    pytest.param(1, 4096, 0, 2, None, False, 0, id="C=1"),
+    pytest.param(64, 512 * 64, 0, 1, 32768, False, 0, id="B=1 N=32768"),  # SegNet's
+    pytest.param(64, 4096, 0, 3, 7, False, 0, id="N=7"),  # tiles across frames
+    pytest.param(65, 300, 0, 3, 7, False, 0, id="N=7 C=65"),
+    pytest.param(64, 4096, 0, 2, None, True, 0, id="all past rows"),
+    pytest.param(65, 4096, 0, 2, None, True, 0, id="all past rows C=65"),
+    pytest.param(64, 4096, 0, 2, None, False, 1, id="unaligned image"),
+])
+def test_sorted_gather_rows_kernel_bitwise_equals_plain(cuda_device, c, rows, long_run, b, n,
+                                                        trash, offset):
     """K5 bitwise against its plain version: sorted ids with empty rows,
     ids >= rows and a 50,000-id run, and a random permutation as ``order``;
-    and the scatter-max backward's take (the stable sort's order) against
-    plain indexing."""
+    at C = 65 and 1 (scalar words), B = 1, N = 7 (shorter than one tile, so
+    a tile spans frames), a last frame whose ids are all >= rows (all
+    zeros), and an image whose storage starts 4 bytes past a 16-byte
+    boundary (scalar words at C = 64); and the scatter-max backward's take
+    (the stable sort's order) against plain indexing."""
     rng = np.random.default_rng(50 + c + rows + long_run)
-    n = max(60000, long_run + 5000)
-    ids, _ = _sorted_case(rng, 2, n, 1, rows, long_run)
-    order = np.stack([rng.permutation(n) for _ in range(2)]).astype(np.int32)
-    image = _t(rng.normal(size=(2, rows, c)).astype(np.float32)).to(cuda_device)
+    n = n or max(60000, long_run + 5000)
+    ids, _ = _sorted_case(rng, b, n, 1, rows, long_run)
+    if trash:
+        ids[-1] = np.sort(rows + rng.integers(0, 3, size=n))
+    order = np.stack([rng.permutation(n) for _ in range(b)]).astype(np.int32)
+    flat = torch.zeros(offset + b * rows * c, device=cuda_device)
+    flat[offset:] = _t(rng.normal(size=b * rows * c).astype(np.float32)).to(cuda_device)
+    image = flat[offset:].view(b, rows, c)
+    assert image.is_contiguous() and image.data_ptr() % 16 == 4 * offset % 16
     i, o = _t(ids).to(cuda_device), _t(order).to(cuda_device)
     before = PV.sorted_gather_rows.launches
     got = PV.sorted_gather_rows(image, i, o)
@@ -1174,7 +1194,9 @@ def test_sorted_gather_rows_kernel_bitwise_equals_plain(cuda_device, c, rows, lo
     want = PV._sorted_gather_rows_plain(image, i, o)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    pids = _t(rng.integers(0, rows + 1, size=(2, n)).astype(np.int32)).to(cuda_device)
+    if trash:
+        assert not got[-1].view(torch.int32).any()
+    pids = _t(rng.integers(0, rows + 1, size=(b, n)).astype(np.int32)).to(cuda_device)
     spids, sorder = PV._stable_sort(pids)
     got = PV.sorted_gather_rows(image, spids, sorder)
     want = PV._take_live_rows(image, pids)

@@ -147,7 +147,8 @@ def test_profile_picks_the_port_kernels_out_of_a_trace():
                  "(anonymous namespace)::nn_argmin_kernel(float const*, int)",
                  "void (anonymous namespace)::scatter_sum_elem<int>(int const*, float const*)",
                  "void (anonymous namespace)::gather_tile<int, true>(int const*, float const*)",
-                 "(anonymous namespace)::gather_runs(int const*, int const*)",
+                 "void (anonymous namespace)::gather_scattered<float4>(int const*, "
+                 "int const*, float4 const*, float4*, long long, int, int, int)",
                  "(anonymous namespace)::scatter_sum_warp(int const*)",
                  "(anonymous namespace)::scatter_max_rows(int const*)",
                  "void (anonymous namespace)::decode_reached<uint4>(unsigned char const*, "

@@ -97,6 +97,7 @@ def toy_patches() -> list:
     # No device to trace or to queue launches on: one timed call stands in.
     patches += [(cs, "device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0)),
                 (cs, "device_split", lambda fn, iters=20: {"kernel": cs.cuda_ms(fn, 1, 0)}),
+                (cs, "cold_device_ms", lambda fn, iters=20: cs.cuda_ms(fn, 1, 0)),
                 (cs, "host_us", lambda fn: cs.cuda_ms(fn, 1, 0) * 1e3)]
     make = pf.make_model
     patches += [
