@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Twenty-one main paths, at full width with random weights from seeded generators:
+Twenty-two main paths, at full width with random weights from seeded generators
+(the last one trains its own):
 
 - ``seflowpp`` inference + de-skew (what ``bench.py`` times for the JAX
   package): the network in bf16 on the 512x512 grid at 0.2 m, 8 frames x
@@ -87,7 +88,15 @@ Twenty-one main paths, at full width with random weights from seeded generators:
   ``TrainConfig()`` train step through ``make_train_step(..., mesh)`` at
   one NCCL rank, then split over two gloo ranks sharing the card (NCCL
   refuses two ranks on one GPU), then ``fleet_save`` across those two
-  ranks on a copy of the fleet's scenes.
+  ranks on a copy of the fleet's scenes;
+- the quality run, ``scripts/torch_quality_evidence.py``'s ``run_one`` on
+  three scenes of ``make_benchmark_dataset`` (two ordinary, one
+  adversarial; 4 frames of 16,000 + 6 x 400 points): DUFO labels,
+  ``train()`` of ``seflowpp`` (fp32, B8, 20,480 points, one epoch), its
+  ``fleet_save`` flow, ``nsfp``, ``fastnsf10`` and ``icpflow`` through
+  ``estimate_scene_flow``, ``cli.eval`` and ``cli.eval_flow`` on the suite
+  and its ``scene_adv`` tranche; then ``scripts/torch_prior_diagnostic.py``
+  and ``scripts/torch_flagship_diagnostic.py`` on the trained checkpoint.
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -262,6 +271,20 @@ and prints no result):
    launched, none of cv2, matplotlib, open3d and PIL in ``sys.modules``;
    host ms per frame by stage (read, ``prepare_frame``, render, encode),
    the files' sizes, the phase's seconds.
+19. fleet stages (``phase_fleet_stages``, after eval, the last phase on the
+   fleet's scenes): the stage table of
+   ``scripts/torch_profile_fleet.py`` over the fleet's scenes (decode,
+   rigid flow, ``frame_to_arrays``, the native pack, the pinned upload with
+   the step's launch, the synchronize with the readback, the write-back)
+   and the device's busy ms a batch from a traced pass;
+20. quality (``phase_quality``, last, in a temporary working directory):
+   the table (CDE, MPE, EPE 3-way / FD / BS, AccS, AccR of ``raw``,
+   ``seflowpp``, ``nsfp``, ``fastnsf10``, ``icpflow``, the suite and its
+   ``[adv]`` tranche) with every cell finite, ``nsfp``'s and ``fastnsf10``'s
+   MPE below ``raw``'s on the suite (``seflowpp``'s is printed, not gated:
+   one epoch on 9 frames), each step's seconds and launches, each step
+   launching its kernels (``QUALITY_STEP_KERNELS``), the four ``res-*.json``
+   files and nothing else written there, the two diagnostics' lines.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The second-to-last line is a JSON object with one entry per
@@ -429,6 +452,30 @@ SEG_FRAME_LAUNCHES = dict(scatter_max_rows=1)
 DET_STEP_LAUNCHES = dict(scatter_max_resident_rows=1)
 DET_FRAME_LAUNCHES = dict(scatter_max_resident_rows=1)
 DOWNSTREAM_LABEL = "downstream call"
+# The quality run (scripts/torch_quality_evidence.py's run_one) on a small
+# suite: make_benchmark_dataset's first QUALITY_SCENES ordinary scenes and
+# QUALITY_ADV_SCENES adversarial one, 4 frames each, at the script's default
+# density (16,000 background + 6 x 400 object points a frame); DUFO labels,
+# seflowpp trained QUALITY_EPOCHS epoch at 20,480 points, its fleet flow,
+# nsfp, fastnsf10 and icpflow; then the evaluations and the two diagnostics
+# (the flagship's on QUALITY_DIAG_FRAMES frames).
+QUALITY_SCENES, QUALITY_ADV_SCENES = 2, 1
+QUALITY_EPOCHS = 1
+QUALITY_POINTS = 20480
+QUALITY_BACKGROUND, QUALITY_OBJECT_POINTS = 16000, 400
+QUALITY_DIAG_FRAMES = 2
+QUALITY_GATED = ("nsfp", "fastnsf10")  # MPE below raw's on the full suite
+# Kernels each step must launch (none routed to its plain version): the
+# train step's K1 max, K1 sum, K5, K3 sum and K8; the fleet forward's K1
+# max, K7 and K6; K7 in the optimisation estimators' chamfer and ICP.
+QUALITY_STEP_KERNELS = {
+    "train seflowpp": ("scatter_max_rows", "scatter_sum_rows", "sorted_gather_rows",
+                       "segment_rows_sum", "fused_nn_idx"),
+    "fleet seflowpp": ("scatter_max_rows", "nn_argmin_rows", "nn_min_rows"),
+    "opt nsfp": ("nn_argmin_rows", "segment_rows_sum"),
+    "opt icpflow": ("nn_argmin_rows",),
+    "flagship_diagnostic": ("scatter_max_rows", "nn_argmin_rows", "nn_min_rows"),
+}
 # Roofline of one H100 SXM (NVIDIA's data sheet; at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -923,7 +970,7 @@ def phase_scatter_resident(device, clouds):
     return out
 
 
-def _check_sum(name, got, want, mag):
+def check_sum(name, got, want, mag):
     import torch
 
     torch.cuda.synchronize()
@@ -945,7 +992,7 @@ def _check_sum_kernel(name, fn, plain, ids, vals, rows, stream=False):
     got = fn(ids, vals, rows)
     want = plain(ids, vals, rows)
     mag = plain(ids, vals.abs(), rows)
-    err = _check_sum(name, got, want, mag)
+    err = check_sum(name, got, want, mag)
     del got, want, mag
     ms = cuda_ms(lambda: fn(ids, vals, rows))
     plain_ms = cuda_ms(lambda: plain(ids, vals, rows))
@@ -1245,7 +1292,7 @@ def phase_segment_sum(device):
         got = pnn.segment_rows_sum(vals, ids, rows)
         want = pnn._segment_rows_sum_plain(vals, ids, rows)
         mag = pnn._segment_rows_sum_plain(vals.abs(), ids, rows)
-        err = _check_sum(f"segment_rows_sum {n}->{rows}", got, want, mag)
+        err = check_sum(f"segment_rows_sum {n}->{rows}", got, want, mag)
         ms = cuda_ms(lambda: pnn.segment_rows_sum(vals, ids, rows), iters=50)
         plain_ms = cuda_ms(lambda: pnn._segment_rows_sum_plain(vals, ids, rows), iters=50)
         flat = _flat_rows(ids, rows)
@@ -1429,9 +1476,9 @@ def phase_host_cost(device):
             raise AssertionError("raw stream handle ignores torch.cuda.stream(...)")
         got = pnn.segment_rows_sum(vals, ids, rows)
     side.synchronize()
-    _check_sum("segment_rows_sum on a side stream", got,
-               pnn._segment_rows_sum_plain(vals, ids, rows),
-               pnn._segment_rows_sum_plain(vals.abs(), ids, rows))
+    check_sum("segment_rows_sum on a side stream", got,
+              pnn._segment_rows_sum_plain(vals, ids, rows),
+              pnn._segment_rows_sum_plain(vals.abs(), ids, rows))
     log("raw stream handle equals torch.cuda.current_stream's, inside a side stream too; "
         "a launch there matches the plain version")
     return whole, split
@@ -3643,6 +3690,117 @@ def phase_eval(smi: str, save_root: Path, fleet_root: Path) -> None:
         + f" m ({flow_ms:.3f} host ms per method)")
 
 
+def _script(root: Path, name: str):
+    """The module ``scripts/{name}.py`` of the checkout at ``root``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, root / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_fleet_stages(device, smi: str, root: Path, fleet_root: Path) -> None:
+    """``scripts/torch_profile_fleet.py``'s stage table over the fleet's
+    scenes: each stage of the fleet path timed on its own, the upload and
+    the step's launch apart from the synchronize and the readback, and
+    the device's busy ms a batch from a traced pass."""
+    start = time.perf_counter()
+    log(f"[fleet_stages] {smi}: scripts/torch_profile_fleet.py over {fleet_root.name}")
+    stages = _script(root, "torch_profile_fleet")
+
+    def busy(run):
+        return window_busy(traced(run)[1], stages.BATCH_LABEL)[0]
+
+    out = stages.profile(fleet_root, device, busy=busy)
+    if not out["busy_ms"] > 0:
+        raise AssertionError(f"fleet_stages: device busy {out['busy_ms']} ms a batch")
+    log(f"[fleet_stages] {out['frames']} frames, {out['batches']} batches in "
+        f"{time.perf_counter() - start:.1f} s")
+
+
+def phase_quality(device, smi: str, root: Path, tmp: Path) -> dict:
+    """The quality path end to end, through ``scripts/torch_quality_evidence.py``'s
+    ``run_one`` (working directory ``tmp``, where the evaluations write their
+    ``res-*.json``): the suite (``QUALITY_SCENES`` + ``QUALITY_ADV_SCENES``
+    scenes of ``make_benchmark_dataset``, seed 0), DUFO labels, ``train()``
+    of ``seflowpp`` for ``QUALITY_EPOCHS`` epoch, its fleet flow, ``nsfp``,
+    ``fastnsf10`` and ``icpflow``, ``cli.eval`` and ``cli.eval_flow`` on the
+    suite and on its ``scene_adv`` tranche; then ``torch_prior_diagnostic``
+    and ``torch_flagship_diagnostic`` on the same suite. Prints the table,
+    each step's seconds and launches. Fails if a cell is not finite, if
+    ``nsfp``'s or ``fastnsf10``'s MPE is not below ``raw``'s on the full
+    suite, or if a step did not launch each of its kernels
+    (``QUALITY_STEP_KERNELS``). Returns the launches of the whole phase."""
+    from himo_tpu_torch.data.synthetic import make_benchmark_dataset
+
+    qe = _script(root, "torch_quality_evidence")
+    data = tmp / "av2_quality"
+    args = qe.parse_args([
+        "--root", str(data), "--epochs", str(QUALITY_EPOCHS), "--seeds", "0",
+        "--num-points", str(QUALITY_POINTS), "--bg-points", str(QUALITY_BACKGROUND),
+        "--obj-points", str(QUALITY_OBJECT_POINTS), "--device", str(device)])
+    steps = []
+
+    def record(label, seconds):
+        steps.append((label, seconds, read_counts()))
+        reset_counts()
+
+    args.on_step = record
+    phase_start = time.perf_counter()
+    cwd = os.getcwd()
+    tmp.mkdir(parents=True, exist_ok=True)
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        start = time.perf_counter()
+        make_benchmark_dataset(data, seed=0, num_scenes=QUALITY_SCENES,
+                               adversarial_scenes=QUALITY_ADV_SCENES,
+                               num_background=args.bg_points,
+                               points_per_object=args.obj_points)
+        record("dataset", time.perf_counter() - start)
+        table = qe.run_one(args, data, 0)
+        qe.print_table([table])
+        files = sorted(p.name for p in tmp.iterdir() if p.suffix == ".json")
+        for name, argv in (
+                ("prior_diagnostic", ["--root", str(data)]),
+                ("flagship_diagnostic", ["--root", str(data), "--limit",
+                                         str(QUALITY_DIAG_FRAMES), "--device", str(device),
+                                         "--num-points", str(QUALITY_POINTS)])):
+            start = time.perf_counter()
+            found = _script(root, f"torch_{name}").main(argv)
+            record(name, time.perf_counter() - start)
+            log(f"[quality] {name}: {len(found)} fast frame-instances")
+    finally:
+        os.chdir(cwd)
+    phase_s = time.perf_counter() - phase_start
+    bad = {m: row for m, row in table.items() if not all(np.isfinite(list(row.values())))}
+    if bad:
+        raise AssertionError(f"quality: cells not finite: {bad}")
+    for m in QUALITY_GATED:
+        if not table[m]["MPE"] < table["raw"]["MPE"]:
+            raise AssertionError(f"quality: {m} MPE {table[m]['MPE']} is not below raw's "
+                                 f"{table['raw']['MPE']}")
+    if files != ["res-av2-scene_adv.json", "res-av2.json", "res-flow-av2-scene_adv.json",
+                 "res-flow-av2.json"]:
+        raise AssertionError(f"quality: the evaluations wrote {files}")
+    total = dict.fromkeys(read_counts(), 0)
+    for label, seconds, launches in steps:
+        missing = [k for k in QUALITY_STEP_KERNELS.get(label, ()) if not launches[k]]
+        if missing:
+            raise AssertionError(f"quality: {label} launched none of {missing}: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        log(f"[quality] {smi}: {label} {seconds:.2f} s, launches "
+            f"{({k: v for k, v in launches.items() if v})}")
+    log(f"[quality] {smi}: {len(table)} rows, every cell finite; " + "; ".join(
+        f"{m} MPE {table[m]['MPE']:.6f}" for m in ("raw", *QUALITY_GATED)) +
+        f" (gated below raw's); seflowpp MPE {table['seflowpp']['MPE']:.6f} (not gated); "
+        f"the phase {phase_s:.1f} s")
+    log(f"[quality] launches {({k: v for k, v in total.items() if v})}")
+    return total
+
+
 def _printed(fn, *args, **kwargs):
     """(result, standard output) of ``fn(*args, **kwargs)``."""
     import io
@@ -4951,6 +5109,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         paths.append(phase_save(device, smi, save_root))
         phase_eval(smi, save_root, fleet_root)
+        # Last on the fleet's scenes: its write-back adds a dataset to them.
+        phase_fleet_stages(device, smi, root, fleet_root)
+        torch.cuda.empty_cache()
         reset_counts()
         phase_submit(smi, save_root, root)
         paths.append(read_counts())
@@ -4961,6 +5122,8 @@ def main(argv) -> int:
         paths.append(phase_ingest(device, smi, Path(tmp) / "ingest"))
         torch.cuda.empty_cache()
         paths.append(phase_downstream(device, smi, save_root))
+        torch.cuda.empty_cache()
+        paths.append(phase_quality(device, smi, root, Path(tmp) / "quality"))
     total = {k: sum(path[k] for path in paths) for k in read_counts()}
     main_nn = NN_SHAPES[0]
     kernels = [

@@ -86,3 +86,55 @@ def dt0_from_lidar_dt(
     neg_inf = torch.full_like(lidar_dt, float("-inf"))
     sweep_end = torch.where(valid, lidar_dt, neg_inf).amax(dim=-1, keepdim=True)
     return torch.where(valid, sweep_end - lidar_dt, torch.zeros_like(lidar_dt))
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 tensors, rounded to float32 once, as a
+    fused multiply-add rounds it. The product is exact in float64; the
+    float64 sum's rounding error ``e`` (TwoSum) decides the one case where
+    rounding the float64 sum again would be wrong: a sum exactly halfway
+    between two float32s, where ties-to-even would ignore ``e``."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    e = (p - (s - bv)) + (cd - bv)
+    r = s.float()
+    rd = r.double()
+    inf = torch.full_like(r, float("inf"))
+    n = torch.nextafter(r, torch.where(s > rd, inf, -inf))
+    halfway = (s - rd) * 2 == n.double() - rd
+    return torch.where(halfway & (e * (s - rd) > 0), n, r)
+
+
+def evaluation_mask(
+    pc0: torch.Tensor,
+    ground_mask: torch.Tensor,
+    flow_is_valid: torch.Tensor | None = None,
+    dataset: str = "av2",
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Points eligible for metric evaluation, a bool tensor on ``pc0``'s
+    device: within ``CLOSE_DISTANCE_THRESHOLD`` in 2-D, not ground and
+    outside the ego box (``AV2_EGO_BOX``; Scania: ``ego_points_mask``'s
+    default truck box, and ``flow_is_valid``), then ``valid``.
+
+    ``pc0`` is float32, as every cloud of the port is. Its 2-D range is
+    ``sqrt(fma(y, y, x * x))``, which is how XLA on the CPU evaluates the
+    reference's ``jnp.linalg.norm``, so a point on the 35 m circle falls on
+    the same side in both packages; a plain ``sqrt(x * x + y * y)`` rounds
+    some of them to the other side."""
+    if pc0.dtype != torch.float32:
+        raise TypeError(f"evaluation_mask takes a float32 cloud, not {pc0.dtype}")
+    x, y = pc0[..., 0], pc0[..., 1]
+    dis = torch.sqrt(_fma_f32(y, y, x * x))
+    mask = (dis <= CLOSE_DISTANCE_THRESHOLD) & ~ground_mask.bool()
+    if dataset == "scania":
+        mask &= ego_points_mask(pc0)
+        if flow_is_valid is not None:
+            mask &= flow_is_valid.bool()
+    else:
+        mask &= ego_points_mask(pc0, *AV2_EGO_BOX)
+    if valid is not None:
+        mask &= valid.bool()
+    return mask

@@ -12,11 +12,8 @@ from typing import NamedTuple
 import torch
 
 from himo_tpu_torch.core.compensation import (
-    AV2_EGO_BOX,
-    CLOSE_DISTANCE_THRESHOLD,
-    SCANIA_EGO_BOX,
     dt0_from_lidar_dt,
-    ego_points_mask,
+    evaluation_mask,
     flow_to_comp_dis,
     relative_se3,
 )
@@ -67,14 +64,7 @@ def deskew_frame(
     comp_dis = torch.where(valid[..., None], comp_dis, torch.zeros_like(comp_dis))
     refined = xyz + comp_dis
 
-    dis = torch.sqrt((xyz[..., :2] * xyz[..., :2]).sum(dim=-1))
-    mask = (dis <= CLOSE_DISTANCE_THRESHOLD) & (~ground_mask) & valid
-    if dataset == "scania":
-        mask &= ego_points_mask(xyz, *SCANIA_EGO_BOX)
-        if flow_is_valid is not None:
-            mask &= flow_is_valid
-    else:
-        mask &= ego_points_mask(xyz, *AV2_EGO_BOX)
+    mask = evaluation_mask(xyz, ground_mask, flow_is_valid, dataset, valid)
 
     return DeskewResult(comp_dis, refined, motion_flow, mask, dt0)
 

@@ -671,7 +671,9 @@ def gather_pillars(image: torch.Tensor, grid: PillarGrid) -> torch.Tensor:
     pids = grid.pillar_ids.to(torch.int32).contiguous()
     route = _route(rows, pids.shape[1], flat.shape[2])
     if route == "resident":
-        table = flat.to(dtype=torch.float32, memory_format=torch.contiguous_format)
+        # .contiguous(), not .to(memory_format=...): the latter keeps an fp32
+        # (B, rows, C) view of a channels-last image as it is.
+        table = flat.to(torch.float32).contiguous()
         out = _RowTake.apply(table, pids, gather_rows, _routed_sum(route)).to(flat.dtype)
     else:
         out = _RowTake.apply(flat, pids, _take_rows_at, _routed_sum(route))

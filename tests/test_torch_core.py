@@ -161,7 +161,9 @@ def test_port_imports_no_jax():
     matplotlib, open3d, PIL, imageio). ``import torch`` itself may
     load some of the latter (some builds load tqdm), so at run
     time only modules beyond torch's own count, and every import statement
-    of the port's sources is checked as well."""
+    of the port's sources, ``chip_smoke.py``, the port's scripts
+    (``scripts/torch_*.py``) and ``scripts/chip_quality.py`` is checked as
+    well."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torch\n"
@@ -205,7 +207,12 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.strip()) >= 93
     import ast
 
-    for path in [*sorted((REPO / "himo_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]:
+    scripts = [*sorted((REPO / "scripts").glob("torch_*.py")), REPO / "scripts" / "chip_quality.py"]
+    assert {p.name for p in scripts} >= {
+        "torch_quality_evidence.py", "torch_prior_diagnostic.py", "torch_flagship_diagnostic.py",
+        "torch_profile_fleet.py", "torch_kernel_bench.py", "chip_quality.py"}
+    for path in [*sorted((REPO / "himo_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
+                 *scripts]:
         tree = ast.parse(path.read_text())
         in_functions = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
                         for n in ast.walk(f)}

@@ -14,6 +14,7 @@ dataset (dtype, shape, bytes), to the JAX package's, and so is
 ``index_total.pkl``: through resume, skip, stop, a missing sequence JSON
 and an extrinsics YAML."""
 
+import importlib
 import inspect
 import pickle
 import shutil
@@ -132,7 +133,8 @@ def test_points_in_boxes_matches_jax(case):
 
 
 def test_points_in_boxes_chunks_change_nothing(monkeypatch):
-    from himo_tpu_torch.ops import points_in_boxes as pib
+    # The module, not the function ``himo_tpu_torch.ops`` re-exports under its name.
+    pib = importlib.import_module("himo_tpu_torch.ops.points_in_boxes")
 
     pts, boxes, _ = _box_case("overlapping")
     whole = points_in_boxes(torch.from_numpy(pts), torch.from_numpy(boxes))

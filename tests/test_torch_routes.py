@@ -224,6 +224,31 @@ def test_scatter_max_and_gather_match_interpreted_kernels(monkeypatch, route, dt
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_pillars_hands_the_resident_kernel_a_contiguous_table(monkeypatch, dtype):
+    """K4 takes a contiguous fp32 table (it raises on anything else). A
+    (B, H, W, C) image that is a view of a (B, C, H, W) tensor, as the
+    network's images are, reaches it copied in fp32 too, where a cast
+    alone makes no copy; the values are those of the contiguous image."""
+    grid = _shrink(monkeypatch, "resident")
+    _, _, pgrid, _, _ = _case(3, grid, 65, dtype)
+    seen = []
+
+    def gather(image, pids):
+        seen.append((image.dtype, image.is_contiguous()))
+        return PV._gather_rows_plain(image, pids)
+
+    monkeypatch.setattr(PV, "gather_rows", gather)
+    h, w = pgrid.grid_shape
+    nchw = torch.randn(1, 65, h, w, generator=torch.Generator().manual_seed(0))
+    image = nchw.to(getattr(torch, dtype)).permute(0, 2, 3, 1)
+    assert not image.is_contiguous()
+    out = PV.gather_pillars(image, pgrid)
+    want = PV.gather_pillars(image.contiguous(), pgrid)
+    assert seen == [(torch.float32, True)] * 2
+    assert out.dtype == image.dtype and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("route", ["resident", "table", "stream"])
 def test_scatter_mean_matches_interpreted_kernels(monkeypatch, route, dtype):
     grid = _shrink(monkeypatch, route)
