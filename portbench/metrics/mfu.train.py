@@ -1,0 +1,7 @@
+"""``mfu.train``: ``readers.mfu``."""
+
+import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx)
