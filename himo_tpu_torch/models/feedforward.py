@@ -61,6 +61,7 @@ from himo_tpu_torch.ops.voxelize import (
     scatter_max_multi,
     voxelize_pillars,
 )
+from himo_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -450,135 +451,140 @@ class SceneFlowNet(nn.Module):
         sorted_mode = cfg.pooling == "mean_sorted"
         grids, feats, images = [], [], []
         sweep0 = None  # (order, sorted pillar ids) of sweep 0, for the decoder
-        for idx, (pc, valid) in enumerate(zip(sweeps, valids)):
-            grid = voxelize_pillars(pc, valid, cfg.pillar)
-            extra = None
-            if cfg.prior_feat and idx == 0 and prior is not None:
-                extra = prior.to(dtype)
-            if sorted_mode:
-                img, f, sort = self._pool_sorted(pc, grid, extra)
-                images.append(img)
-                if idx == 0:
-                    sweep0 = sort
-            else:
-                f = self.pfn(pc, grid.centers_offset, extra)
-                f = torch.where(grid.in_range[..., None], f, torch.zeros_like(f))
-            grids.append(grid)
-            feats.append(f)
-        if not sorted_mode:
-            images = scatter_max_multi(feats, grids)
+        with span("himo.pillarize"):
+            for idx, (pc, valid) in enumerate(zip(sweeps, valids)):
+                grid = voxelize_pillars(pc, valid, cfg.pillar)
+                extra = None
+                if cfg.prior_feat and idx == 0 and prior is not None:
+                    extra = prior.to(dtype)
+                if sorted_mode:
+                    img, f, sort = self._pool_sorted(pc, grid, extra)
+                    images.append(img)
+                    if idx == 0:
+                        sweep0 = sort
+                else:
+                    f = self.pfn(pc, grid.centers_offset, extra)
+                    f = torch.where(grid.in_range[..., None], f, torch.zeros_like(f))
+                grids.append(grid)
+                feats.append(f)
+            if not sorted_mode:
+                images = scatter_max_multi(feats, grids)
 
-        # (B, H, W, C) per sweep -> NCHW for the backbone.
-        images = [im.permute(0, 3, 1, 2) for im in images]
-        x = torch.cat(images, dim=1).to(dtype)
+            # (B, H, W, C) per sweep -> NCHW for the backbone.
+            images = [im.permute(0, 3, 1, 2) for im in images]
+            x = torch.cat(images, dim=1).to(dtype)
         extra = None
         if cfg.corr_volume:
-            f0, f1 = images[0].to(dtype), images[1].to(dtype)
-            last = len(cfg.depths) - 1
-            fine = _bev_correlation(
-                _avg_pool(f0, 2), _avg_pool(f1, 2), cfg.corr_radii[0]
-            )
-            coarse = _bev_correlation(
-                _avg_pool(f0, 2 ** (last + 1)),
-                _avg_pool(f1, 2 ** (last + 1)),
-                cfg.corr_radii[1],
-            )
-            if last == 0:
-                extra = {0: torch.cat([fine, coarse], dim=1)}
-            else:
-                extra = {0: fine, last: coarse}
+            with span("himo.correlation"):
+                f0, f1 = images[0].to(dtype), images[1].to(dtype)
+                last = len(cfg.depths) - 1
+                fine = _bev_correlation(
+                    _avg_pool(f0, 2), _avg_pool(f1, 2), cfg.corr_radii[0]
+                )
+                coarse = _bev_correlation(
+                    _avg_pool(f0, 2 ** (last + 1)),
+                    _avg_pool(f1, 2 ** (last + 1)),
+                    cfg.corr_radii[1],
+                )
+                if last == 0:
+                    extra = {0: torch.cat([fine, coarse], dim=1)}
+                else:
+                    extra = {0: fine, last: coarse}
 
+        with span("himo.backbone"):
+            out_img = self.unet(x, extra)
         slot_img = None
         dyn_logit = None
         if cfg.instance_head:
-            out_img, dyn_raw = self.unet(x, extra)
-            dyn_logit = dyn_raw[:, 0].to(torch.float32)  # (B, H, W)
-            s = cfg.instance_stride
-            occ = F.max_pool2d(dyn_logit[:, None], s, stride=s)[:, 0] > 0.0
-            labels = connected_components_grid(
-                occ, iters=cfg.instance_iters, reach=cfg.instance_reach
-            )
-            slot_enc, _ = component_slots(labels, cfg.instance_slots)
-            # slot+1 encoding (0 = none) survives the zero-masked gather;
-            # values <= instance_slots stay exact even through bf16.
-            slot_img = _upsample_nearest(slot_enc.to(torch.float32), h, w)
-        else:
-            out_img = self.unet(x, extra)
+            out_img, dyn_raw = out_img
+            with span("himo.instance"):
+                dyn_logit = dyn_raw[:, 0].to(torch.float32)  # (B, H, W)
+                s = cfg.instance_stride
+                occ = F.max_pool2d(dyn_logit[:, None], s, stride=s)[:, 0] > 0.0
+                labels = connected_components_grid(
+                    occ, iters=cfg.instance_iters, reach=cfg.instance_reach
+                )
+                slot_enc, _ = component_slots(labels, cfg.instance_slots)
+                # slot+1 encoding (0 = none) survives the zero-masked gather;
+                # values <= instance_slots stay exact even through bf16.
+                slot_img = _upsample_nearest(slot_enc.to(torch.float32), h, w)
 
-        if sorted_mode:
-            # fp32 (B, H*W, C) rows (+ the slot channel) gathered at sweep
-            # 0's sorted ids: ids past the grid read 0, where the reference
-            # reads the 8 zero rows it appends.
-            flat = out_img.permute(0, 2, 3, 1).reshape(out_img.shape[0], h * w, -1)
-            flat = flat.to(torch.float32)
+        with span("himo.decoder"):
+            if sorted_mode:
+                # fp32 (B, H*W, C) rows (+ the slot channel) gathered at sweep
+                # 0's sorted ids: ids past the grid read 0, where the reference
+                # reads the 8 zero rows it appends.
+                flat = out_img.permute(0, 2, 3, 1).reshape(out_img.shape[0], h * w, -1)
+                flat = flat.to(torch.float32)
+                if slot_img is not None:
+                    flat = torch.cat([flat, slot_img.reshape(-1, h * w, 1)], dim=-1)
+                gathered = gather_rows_sorted(sweep0[1], flat, num_rows=h * w,
+                                              mxu_bf16=dtype == torch.bfloat16)
+            else:
+                img = out_img
+                if slot_img is not None:
+                    img = torch.cat([out_img, slot_img[:, None].to(out_img.dtype)], dim=1)
+                gathered = gather_pillars(img.permute(0, 2, 3, 1), grids[0])
+            slot_pt = None
             if slot_img is not None:
-                flat = torch.cat([flat, slot_img.reshape(-1, h * w, 1)], dim=-1)
-            gathered = gather_rows_sorted(sweep0[1], flat, num_rows=h * w,
-                                          mxu_bf16=dtype == torch.bfloat16)
-        else:
-            img = out_img
-            if slot_img is not None:
-                img = torch.cat([out_img, slot_img[:, None].to(out_img.dtype)], dim=1)
-            gathered = gather_pillars(img.permute(0, 2, 3, 1), grids[0])
-        slot_pt = None
-        if slot_img is not None:
-            pillar_feat = gathered[..., :-1].to(dtype)
-            slot_pt = gathered[..., -1].to(torch.float32)
-        else:
-            pillar_feat = gathered.to(dtype)
+                pillar_feat = gathered[..., :-1].to(dtype)
+                slot_pt = gathered[..., -1].to(torch.float32)
+            else:
+                pillar_feat = gathered.to(dtype)
 
-        out = self.decoder(pillar_feat, feats[0])
-        gate_logit = None
-        if cfg.gate_head:
-            flow, gate_logit = out
-        else:
-            flow = out
-        flow = flow.to(torch.float32)
-        if sorted_mode:
-            # Back to input point order with one row take at the inverse
-            # permutation (the reference's argsort of the order), whose
-            # backward is the K3 sum.
-            order = sweep0[0].long()
-            inv = torch.empty_like(order).scatter_(
-                1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
-            cols = [flow] + [t[..., None] for t in (gate_logit, slot_pt) if t is not None]
-            cols = take_rows(torch.cat(cols, dim=-1), inv)
-            flow = cols[..., :3]
-            if gate_logit is not None:
-                gate_logit = cols[..., 3]
-            if slot_pt is not None:
-                slot_pt = cols[..., -1]
+            out = self.decoder(pillar_feat, feats[0])
+            gate_logit = None
+            if cfg.gate_head:
+                flow, gate_logit = out
+            else:
+                flow = out
+            flow = flow.to(torch.float32)
+            if sorted_mode:
+                # Back to input point order with one row take at the inverse
+                # permutation (the reference's argsort of the order), whose
+                # backward is the K3 sum.
+                order = sweep0[0].long()
+                inv = torch.empty_like(order).scatter_(
+                    1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+                cols = [flow] + [t[..., None] for t in (gate_logit, slot_pt) if t is not None]
+                cols = take_rows(torch.cat(cols, dim=-1), inv)
+                flow = cols[..., :3]
+                if gate_logit is not None:
+                    gate_logit = cols[..., 3]
+                if slot_pt is not None:
+                    slot_pt = cols[..., -1]
 
         slot = None
         gate_w = None
-        if cfg.instance_head:
-            slot = torch.round(slot_pt).to(torch.int32) - 1  # -1 = none
-            slot = torch.where(grids[0].in_range, slot, torch.full_like(slot, -1))
-            gate_w = (
-                torch.sigmoid(gate_logit)
-                if soft_gate
-                else (gate_logit > 0.0).to(torch.float32)
-            )
-            pooled, ok = pool_by_slot(
-                flow, gate_w, slot, cfg.instance_slots, cfg.instance_min_pts
-            )
-            flow = torch.where(ok[..., None], pooled, flow)
-        if cfg.gate_head:
-            if soft_gate:
-                flow = flow * torch.sigmoid(gate_logit)[..., None]
-            else:
-                flow = torch.where(
-                    (gate_logit > 0.0)[..., None], flow, torch.zeros_like(flow)
-                )
         covered = None
-        if cfg.prior_residual and prior is not None:
-            p32 = prior.to(torch.float32)
-            covered = (p32.abs() > 1e-6).any(dim=-1, keepdim=True)
-            if cfg.prior_trust:
-                # flow = prior where covered, gated residual elsewhere.
-                flow = torch.where(covered, p32, flow)
-            else:
-                flow = flow + p32  # flow = prior + gated residual
+        with span("himo.slot_pool"):
+            if cfg.instance_head:
+                slot = torch.round(slot_pt).to(torch.int32) - 1  # -1 = none
+                slot = torch.where(grids[0].in_range, slot, torch.full_like(slot, -1))
+                gate_w = (
+                    torch.sigmoid(gate_logit)
+                    if soft_gate
+                    else (gate_logit > 0.0).to(torch.float32)
+                )
+                pooled, ok = pool_by_slot(
+                    flow, gate_w, slot, cfg.instance_slots, cfg.instance_min_pts
+                )
+                flow = torch.where(ok[..., None], pooled, flow)
+            if cfg.gate_head:
+                if soft_gate:
+                    flow = flow * torch.sigmoid(gate_logit)[..., None]
+                else:
+                    flow = torch.where(
+                        (gate_logit > 0.0)[..., None], flow, torch.zeros_like(flow)
+                    )
+            if cfg.prior_residual and prior is not None:
+                p32 = prior.to(torch.float32)
+                covered = (p32.abs() > 1e-6).any(dim=-1, keepdim=True)
+                if cfg.prior_trust:
+                    # flow = prior where covered, gated residual elsewhere.
+                    flow = torch.where(covered, p32, flow)
+                else:
+                    flow = flow + p32  # flow = prior + gated residual
         if (
             cfg.instance_head
             and cfg.refine_head
@@ -587,17 +593,18 @@ class SceneFlowNet(nn.Module):
             # Confident slots emit the refined translation, overriding the
             # pooled mean, the gate and the prior; covered points count as
             # open gates.
-            w0 = gate_w
-            if covered is not None:
-                w0 = torch.maximum(w0, covered[..., 0].to(torch.float32))
-            flow = refine_flow(
-                flow, sweeps[0][..., :3].to(torch.float32), slot, valids[0],
-                w0, sweeps[1][..., :3].to(torch.float32), valids[1],
-                dyn_logit, grids[1].pillar_ids, grids[1].in_range,
-                cfg.instance_slots, cfg.refine,
-                dt0=None if dts is None else dts[0],
-                dt1=None if dts is None else dts[1],
-            )
+            with span("himo.refine"):
+                w0 = gate_w
+                if covered is not None:
+                    w0 = torch.maximum(w0, covered[..., 0].to(torch.float32))
+                flow = refine_flow(
+                    flow, sweeps[0][..., :3].to(torch.float32), slot, valids[0],
+                    w0, sweeps[1][..., :3].to(torch.float32), valids[1],
+                    dyn_logit, grids[1].pillar_ids, grids[1].in_range,
+                    cfg.instance_slots, cfg.refine,
+                    dt0=None if dts is None else dts[0],
+                    dt1=None if dts is None else dts[1],
+                )
         flow = torch.where(valids[0][..., None], flow, torch.zeros_like(flow))
         if with_aux:
             aux = {}
@@ -730,9 +737,10 @@ def frame(
     dt0)`` for the refine head's de-smear, then ``comp_dis = flow * dt0 /
     0.1`` and ``refined = pc0 + comp_dis``. Returns ``(flow, comp_dis,
     refined)``."""
-    flow = model((pc0, pc1, pc_hist), (valid, valid, valid), prior, dts=(dt0, dt0))
-    comp_dis = flow_to_comp_dis(flow, dt0)
-    return flow, comp_dis, refine_points(pc0, comp_dis)
+    with span("himo.frame"):
+        flow = model((pc0, pc1, pc_hist), (valid, valid, valid), prior, dts=(dt0, dt0))
+        comp_dis = flow_to_comp_dis(flow, dt0)
+        return flow, comp_dis, refine_points(pc0, comp_dis)
 
 
 def frame_priors(pc0, pc1, valid0, valid1, dt0=None, dt1=None, trackers=None,

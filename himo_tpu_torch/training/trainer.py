@@ -80,6 +80,7 @@ from himo_tpu_torch.training.losses import (
     seflowpp_loss_sampled,
 )
 from himo_tpu_torch.utils.logging import MetricsLogger
+from himo_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,30 +337,32 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
 # -------------------------------------------------------------- train step
 
 
-def _frame_flow_and_loss(model, config: TrainConfig, b: Dict):
-    """Model flow + per-frame SSL loss terms (each (B,)) for a batch."""
-    num_frames = model.config.num_frames
-    sweeps = [b["pc0"], b["pc1"]]
-    valids = [b["valid0"], b["valid1"]]
-    if num_frames >= 3:
-        sweeps.append(b["pc_hist"])
-        valids.append(b["valid_hist"])
-    # The prior presets see the stored translation prior where it is valid.
-    prior_in = None
-    if model.config.prior_feat and "prior0" in b:
-        prior_in = torch.where(b["prior_valid0"][..., None], b["prior0"],
-                               torch.zeros_like(b["prior0"]))
-    gate_logit = None
-    dyn_logit = None
-    if model.config.gate_head:
-        # soft_gate: training differentiates THROUGH the sigmoid gate; the
-        # refine head is off (refine defaults to not soft_gate).
-        flow, aux = model(tuple(sweeps), tuple(valids), prior_in, with_aux=True,
-                          soft_gate=True)
-        gate_logit = aux.get("gate_logit")
-        dyn_logit = aux.get("dyn_logit")
-    else:
-        flow = model(tuple(sweeps), tuple(valids), prior_in)
+def _frame_flow(model, b: Dict):
+    """Model flow for a batch, with the gate and dynamic-image logits the
+    SSL loss reads (None where the preset lacks the head)."""
+    with span("himo.forward"):
+        num_frames = model.config.num_frames
+        sweeps = [b["pc0"], b["pc1"]]
+        valids = [b["valid0"], b["valid1"]]
+        if num_frames >= 3:
+            sweeps.append(b["pc_hist"])
+            valids.append(b["valid_hist"])
+        # The prior presets see the stored translation prior where it is valid.
+        prior_in = None
+        if model.config.prior_feat and "prior0" in b:
+            prior_in = torch.where(b["prior_valid0"][..., None], b["prior0"],
+                                   torch.zeros_like(b["prior0"]))
+        if model.config.gate_head:
+            # soft_gate: training differentiates THROUGH the sigmoid gate; the
+            # refine head is off (refine defaults to not soft_gate).
+            flow, aux = model(tuple(sweeps), tuple(valids), prior_in, with_aux=True,
+                              soft_gate=True)
+            return flow, aux.get("gate_logit"), aux.get("dyn_logit")
+        return model(tuple(sweeps), tuple(valids), prior_in), None, None
+
+
+def _frame_losses(model, config: TrainConfig, b: Dict, flow, gate_logit, dyn_logit):
+    """Per-frame SSL loss terms (each (B,)) of the batch's flow."""
     common = dict(
         num_clusters=config.num_clusters,
         weights=config.weights,
@@ -382,13 +385,22 @@ def _frame_flow_and_loss(model, config: TrainConfig, b: Dict):
         dl = dyn_image_loss(dyn_logit, b["pc0"], b["valid0"], obj_pos, model.config.pillar)
         losses["dyn_img_loss"] = dl
         losses["total"] = losses["total"] + config.weights.dyn_img_loss * dl
-    return flow, losses
+    return losses
+
+
+def _frame_flow_and_loss(model, config: TrainConfig, b: Dict):
+    """Model flow + per-frame SSL loss terms (each (B,)) for a batch."""
+    flow, gate_logit, dyn_logit = _frame_flow(model, b)
+    with span("himo.loss"):
+        return flow, _frame_losses(model, config, b, flow, gate_logit, dyn_logit)
 
 
 def mean_losses(model, config: TrainConfig, batch: Dict) -> Dict[str, torch.Tensor]:
     """Each loss term averaged over the batch's frames (0-d tensors)."""
-    _, losses = _frame_flow_and_loss(model, config, batch)
-    return {k: v.mean() for k, v in losses.items()}
+    flow, gate_logit, dyn_logit = _frame_flow(model, batch)
+    with span("himo.loss"):
+        losses = _frame_losses(model, config, batch, flow, gate_logit, dyn_logit)
+        return {k: v.mean() for k, v in losses.items()}
 
 
 class ClippedAdam:
@@ -512,17 +524,20 @@ def make_train_step(model, config: TrainConfig, optimizer: ClippedAdam, mesh=Non
     distributed = mesh is not None and mesh.group is not None
 
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        mean = mean_losses(model, config, batch)
-        mean["total"].backward()
-        if distributed:
-            reduce_gradients(optimizer.params, mesh)
-        optimizer.step()
-        metrics = {k: v.detach() for k, v in mean.items()}
-        if distributed:
-            values = data_mean_(mesh, torch.stack(list(metrics.values())))
-            metrics = dict(zip(metrics, values.unbind()))
-        return metrics
+        with span("himo.train_step"):
+            optimizer.zero_grad()
+            mean = mean_losses(model, config, batch)
+            with span("himo.backward"):
+                mean["total"].backward()
+            if distributed:
+                reduce_gradients(optimizer.params, mesh)
+            with span("himo.optimizer"):
+                optimizer.step()
+            metrics = {k: v.detach() for k, v in mean.items()}
+            if distributed:
+                values = data_mean_(mesh, torch.stack(list(metrics.values())))
+                metrics = dict(zip(metrics, values.unbind()))
+            return metrics
 
     return train_step
 

@@ -5,6 +5,9 @@
 - :func:`trace` — a ``torch.profiler`` trace of the block (host and, where
   there is a GPU, device activity) written as a Chrome trace; a no-op when
   profiling is disabled.
+- :func:`span` — a named range of the program (``himo.frame``,
+  ``himo.backbone``, ...) in whatever ``torch.profiler`` trace is recording,
+  on the device events' clock; one flag read when none is.
 """
 
 from __future__ import annotations
@@ -14,6 +17,11 @@ import time
 from collections import defaultdict
 from pathlib import Path
 from typing import Dict, Iterator, Optional
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+_autograd_profiler = torch.autograd.profiler
 
 
 class Timer:
@@ -63,7 +71,6 @@ def trace(log_dir: Optional[str] = None) -> Iterator[None]:
     if log_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -76,3 +83,15 @@ def trace(log_dir: Optional[str] = None) -> Iterator[None]:
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def span(name: str):
+    """A context manager that marks the block as ``name`` in the recording
+    ``torch.profiler`` trace (``record_function``): the device work the
+    block launches is tied to the range by its launches' correlation ids,
+    and ranges nest as the blocks do. With no profiler recording it reads
+    one flag and returns a shared no-op context. The range lives in the
+    profiler's trace alone (:func:`trace` writes it out)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)

@@ -1,0 +1,8 @@
+"""``backbone_device_ms.infer``: the device ms launched inside ``himo.backbone``
+(its own events), per traced batch (``spans.stage_device_ms``)."""
+
+import spans
+
+
+def read(ctx):
+    return spans.stage_device_ms(ctx, "himo.frame", "himo.backbone")

@@ -1,0 +1,8 @@
+"""``correlation_device_ms.infer``: the device ms launched inside ``himo.correlation``
+(its own events), per traced batch (``spans.stage_device_ms``)."""
+
+import spans
+
+
+def read(ctx):
+    return spans.stage_device_ms(ctx, "himo.frame", "himo.correlation")

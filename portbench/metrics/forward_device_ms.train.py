@@ -1,0 +1,9 @@
+"""``forward_device_ms.train``: the device ms launched inside
+``himo.forward``, its own and its nested stages', per traced step
+(``spans.stage_device_ms``)."""
+
+import spans
+
+
+def read(ctx):
+    return spans.stage_device_ms(ctx, "himo.train_step", "himo.forward", nested=True)

@@ -1,0 +1,8 @@
+"""``refine_device_ms.infer``: the device ms launched inside ``himo.refine``
+(its own events), per traced batch (``spans.stage_device_ms``)."""
+
+import spans
+
+
+def read(ctx):
+    return spans.stage_device_ms(ctx, "himo.frame", "himo.refine")
