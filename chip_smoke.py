@@ -335,6 +335,13 @@ ICP_TOL_M = 1e-2
 SEGMENT_SHAPES = ((16384, 65536), (32768, 16384))  # take_rows bwd, fused bwd
 FUSED_POINTS = 16384  # TrainConfig().loss_points
 SLICE_TOL_M = 1e-3  # refined points, kernels vs plain versions
+CORR_SHAPE = (8, 512, 512, 32)  # the BEV correlation's bf16 pillar images at 512x512
+CORR_LEVELS = ((2, 4), (8, 3))  # its levels: 256x256 r = 4, 64x64 r = 3
+# The correlation's backward against its plain version: both add the same
+# exact bf16 products in fp32, in two orders (at most 130 terms: under
+# 2^-16 of the gradient of the absolute values, M), and round once to bf16
+# (one ulp apart at most, 2^-7 of the value).
+CORR_GRAD_REL, CORR_GRAD_ABS = 2.0**-7, 2.0**-16
 SLICE_MIN_AGREE = 0.99
 TRAIN_STEPS = 4
 STEPS_PER_EPOCH = 10
@@ -671,6 +678,7 @@ def bound(bytes_moved: float, ops: float) -> dict:
 
 
 def _wrappers():
+    from himo_tpu_torch.ops import correlation as pcorr
     from himo_tpu_torch.ops import knn as pknn
     from himo_tpu_torch.ops import mxu_scatter as pms
     from himo_tpu_torch.ops import nn as pnn
@@ -692,6 +700,9 @@ def _wrappers():
         (pnn, "segment_rows_sum"): pnn._segment_rows_sum_plain,
         (pnn, "fused_nn"): lambda *a: pnn._fused_nn_plain(*a)[:4],
         (pnn, "fused_nn_idx"): pnn._fused_nn_plain,
+        (pcorr, "correlation_pool"): pcorr._correlation_pool_plain,
+        (pcorr, "correlation_volume"): pcorr._correlation_volume_plain,
+        (pcorr, "correlation_backward"): pcorr._correlation_backward_plain,
     }
 
 
@@ -1828,12 +1839,108 @@ def phase_knn(device, pair):
                 **bound((n + m) * 12 + n * KNN_K * 4, n * m * NN_OPS_PER_PAIR))
 
 
-INFER_LAUNCHES = dict(scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
+def _same_bits(name, got, want) -> None:
+    """Raise unless ``got`` equals ``want`` bit for bit (bf16 or fp32)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    torch.cuda.synchronize()
+    a, b = got.contiguous().view(ints), want.contiguous().view(ints)
+    if a.shape != b.shape or not torch.equal(a, b):
+        bad = int((a != b).sum()) if a.shape == b.shape else a.numel()
+        raise AssertionError(f"{name} kernel differs from plain in {bad} values")
+
+
+def phase_correlation(device):
+    """The BEV correlation's three kernels at the main path's shapes
+    (``CORR_SHAPE`` bf16 images at ``CORR_LEVELS``), each against its plain
+    version: ``correlation_pool`` and ``correlation_volume`` bit for bit
+    (``ops.correlation.torch_order`` holds these shapes to torch's orders),
+    ``correlation_backward`` within ``CORR_GRAD_REL |ref| + CORR_GRAD_ABS M``
+    of its plain version for cotangents at both levels. Returns the kernels
+    line's rows for the three, each timed over one forward's or backward's
+    calls."""
+    import torch
+
+    from himo_tpu_torch.ops import correlation as pcorr
+
+    b, hh, ww, c = CORR_SHAPE
+    gen = torch.Generator(device=device).manual_seed(21)
+    img0, img1 = (torch.randn(CORR_SHAPE, device=device, generator=gen).to(torch.bfloat16)
+                  for _ in range(2))
+    pools = [s for s, _ in CORR_LEVELS]
+
+    def pool(fn=None):
+        return (fn or pcorr.correlation_pool)(img0, img1, pools)
+
+    pooled, plain_pooled = pool(), pool(pcorr._correlation_pool_plain)
+    for (g0, g1), (w0, w1), s in zip(pooled, plain_pooled, pools):
+        _same_bits(f"correlation_pool s={s} (image 0)", g0, w0)
+        _same_bits(f"correlation_pool s={s} (image 1)", g1, w1)
+
+    def volumes(fn=None, pairs=pooled):
+        return [(fn or pcorr.correlation_volume)(p0, p1, r)
+                for (p0, p1), (_, r) in zip(pairs, CORR_LEVELS)]
+
+    vols = volumes()
+    for got, want, (s, r) in zip(vols, volumes(pcorr._correlation_volume_plain, plain_pooled),
+                                 CORR_LEVELS):
+        _same_bits(f"correlation_volume s={s} r={r}", got, want)
+    grads = [torch.randn(v.shape, device=device, generator=gen).to(torch.bfloat16)
+             for v in vols]
+
+    def backward(fn=None):
+        return (fn or pcorr.correlation_backward)(grads, pooled, CORR_LEVELS, img0.shape)
+
+    got = backward()
+    want = backward(pcorr._correlation_backward_plain)
+    mag = pcorr._correlation_backward_plain(
+        [g.abs() for g in grads], [(p0.abs(), p1.abs()) for p0, p1 in pooled], CORR_LEVELS,
+        img0.shape)
+    worst, back_err = 0.0, 0.0
+    for g_, w_, m_ in zip(got, want, mag):
+        err = (g_.float() - w_.float()).abs()
+        limit = CORR_GRAD_REL * w_.float().abs() + CORR_GRAD_ABS * m_.float()
+        worst = max(worst, float((err / (limit + 1e-30)).max()))
+        back_err = max(back_err, float(err.max()))
+    if worst > 1.0:
+        raise AssertionError(f"correlation_backward: {worst:.3f} of its bound off the plain "
+                             f"version")
+    size = 2  # bf16
+    pooled_bytes = [2 * b * (hh // s) * (ww // s) * c * size for s in pools]
+    image_bytes = 2 * b * hh * ww * c * size
+    vol_bytes = [v.numel() * size for v in vols]
+    products = sum(2 * b * (hh // s) * (ww // s) * (2 * r + 1) ** 2 * c for s, r in CORR_LEVELS)
+    rows = {}
+    for name, fn, plain, err, moved, ops in (
+            ("correlation_pool", pool, lambda: pool(pcorr._correlation_pool_plain), 0.0,
+             image_bytes + sum(pooled_bytes), b * hh * ww * c * 2 * len(pools)),
+            ("correlation_volume", volumes,
+             lambda: volumes(pcorr._correlation_volume_plain, plain_pooled), 0.0,
+             sum(pooled_bytes) + sum(vol_bytes), products),
+            ("correlation_backward", backward,
+             lambda: backward(pcorr._correlation_backward_plain), back_err,
+             sum(vol_bytes) + sum(pooled_bytes) + image_bytes, 2 * products)):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                          **device_times(fn, iters=10), **bound(moved, ops))
+        agree = "bitwise equal" if err == 0.0 else f"{worst:.3f} of its bound off"
+        log(f"{name} B={b} C={c} {hh}x{ww} bf16 at {CORR_LEVELS}: {agree} the plain "
+            f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device "
+            f"{rows[name]['device_ms']:.4f} ms; bound {rows[name]['bound_ms']:.4f} ms")
+    return rows
+
+
+# The BEV correlation of every forward: one pooling, one volume a level.
+CORR_LAUNCHES = dict(correlation_pool=1, correlation_volume=2)
+INFER_LAUNCHES = dict(scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1, **CORR_LAUNCHES)
 INFER_256_LAUNCHES = dict(scatter_max_resident_rows=3, gather_rows=1, nn_argmin_rows=10,
-                          nn_min_rows=1)
-INFER_BIG_LAUNCHES = dict(sorted_scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1)
+                          nn_min_rows=1, **CORR_LAUNCHES)
+INFER_BIG_LAUNCHES = dict(sorted_scatter_max_rows=3, nn_argmin_rows=10, nn_min_rows=1,
+                          **CORR_LAUNCHES)
 INFER_SORTED_LAUNCHES = dict(sorted_segment_sum=3, sorted_segment_gather=1,
-                             nn_argmin_rows=10, nn_min_rows=1)
+                             nn_argmin_rows=10, nn_min_rows=1, **CORR_LAUNCHES)
 
 
 def phase_slice(device, clouds, name="inference", expected=INFER_LAUNCHES,
@@ -2000,17 +2107,20 @@ def _grads(model):
 # K5 (sorted_gather_rows) is the scatter-max backward's take of the three
 # sweep pools on the table and stream routes (the dynamic-image loss's max
 # carries no gradient).
+# The correlation's backward: one gather a level.
+CORR_TRAIN_LAUNCHES = dict(CORR_LAUNCHES, correlation_backward=2)
 TRAIN_LAUNCHES = dict(scatter_max_rows=4, scatter_sum_rows=1, fused_nn_idx=1,
-                      segment_rows_sum=3, sorted_gather_rows=3)
+                      segment_rows_sum=3, sorted_gather_rows=3, **CORR_TRAIN_LAUNCHES)
 TRAIN_256_LAUNCHES = dict(scatter_max_resident_rows=4, gather_rows=1, fused_nn_idx=1,
-                          segment_rows_sum=4)
+                          segment_rows_sum=4, **CORR_TRAIN_LAUNCHES)
 TRAIN_BIG_LAUNCHES = dict(sorted_scatter_max_rows=4, sorted_scatter_sum_rows=1,
-                          fused_nn_idx=1, segment_rows_sum=3, sorted_gather_rows=3)
+                          fused_nn_idx=1, segment_rows_sum=3, sorted_gather_rows=3,
+                          **CORR_TRAIN_LAUNCHES)
 # mean_sorted: K10 pools three sweeps, K11 gathers; their backwards are each
 # other (K11 x 3, K10 x 1 at C = 65); the un-sort's take_rows adds one K3 sum.
 TRAIN_SORTED_LAUNCHES = {"scatter_max_rows": 1, "sorted_segment_sum": 3, K10_STEP: 1,
                          "sorted_segment_gather": 4, "fused_nn_idx": 1,
-                         "segment_rows_sum": 4}
+                         "segment_rows_sum": 4, **CORR_TRAIN_LAUNCHES}
 
 
 def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES,
@@ -2121,7 +2231,7 @@ def phase_train(device, name="train", steps=TRAIN_STEPS, expected=TRAIN_LAUNCHES
         torch.cuda.synchronize()
         val_counts = read_counts()
         want_val = dict.fromkeys(val_counts, 0)
-        want_val.update(scatter_max_rows=4, fused_nn=1)
+        want_val.update(TRAIN_VAL_LAUNCHES)
         if val_counts != want_val:
             raise AssertionError(f"val step launches {val_counts} != {want_val}")
         out = {k: float(v) for k, v in out.items()}
@@ -2811,7 +2921,7 @@ def instrumented_loop(record: dict, sync_steps: bool):
         trainer.batch_iterator, trainer.make_train_step = batch_iterator, make_train_step
 
 
-TRAIN_VAL_LAUNCHES = dict(scatter_max_rows=4, fused_nn=1)
+TRAIN_VAL_LAUNCHES = dict(scatter_max_rows=4, fused_nn=1, **CORR_LAUNCHES)
 
 
 def phase_train_loop(device, smi: str):
@@ -5037,6 +5147,7 @@ def main(argv) -> int:
     phase_nn_grid(device)
     pair = _nsfp_pair(device)
     knn = phase_knn(device, pair)
+    corr = phase_correlation(device)
     torch.cuda.empty_cache()
     paths = []
     launches, run_frame, frame_ms = phase_slice(device, clouds)
@@ -5184,6 +5295,9 @@ def main(argv) -> int:
              source="himo_tpu_torch/csrc/sorted_gather.cu",
              replaces="himo_tpu/ops/voxelize.py:630",
              launches=total["sorted_gather_rows"], **sorted_gather_k5),
+        *(dict(name=name, route="cuda", source="himo_tpu_torch/csrc/correlation.cu",
+               replaces="none (himo_tpu/models/feedforward.py:223 is a lax.map)",
+               launches=total[name], **row) for name, row in corr.items()),
     ]
     log(f"traces: {len(LEAD_LOST)}, each opened by {LEAD_FILLS} fills; fills that lost "
         f"their device event, trace by trace: {LEAD_LOST}")

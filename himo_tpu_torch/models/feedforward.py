@@ -17,17 +17,18 @@ place where a plain PyTorch layer would compute something else:
   in float32, and the flow is float32. No ``torch.autocast``: it would push
   the fp32 one-hot matmuls of the instance and refine heads into bf16.
 
-The pillar max-pool (``ops/voxelize.scatter_max``) and the refine head's
-nearest-neighbour passes (``ops/nn``) run hand-written CUDA kernels on the
-GPU. With ``pooling='mean_sorted'`` each sweep's points are sorted by
-pillar id, pooled by a mean from one sorted sum (``ops/mxu_scatter``, K10),
-the decoder's pillar features gathered at sweep 0's sorted ids (K11), and
-the outputs taken back to input order (``ops/nn.take_rows``). The
-``soft_gate=True, with_aux=True`` forward of training (refine head off)
-differentiates end to end: the pooling's and the pillar gather's
-gradients follow the reference's custom VJPs, on the kernels. Inference
-runs under ``torch.inference_mode()`` (as :func:`frame` and the registry
-estimator do).
+The pillar max-pool (``ops/voxelize.scatter_max``), the BEV correlation's
+pooling and cost volumes (``ops/correlation``, forward and backward) and the
+refine head's nearest-neighbour passes (``ops/nn``) run hand-written CUDA
+kernels on the GPU. With ``pooling='mean_sorted'`` each sweep's points are
+sorted by pillar id, pooled by a mean from one sorted sum
+(``ops/mxu_scatter``, K10), the decoder's pillar features gathered at sweep
+0's sorted ids (K11), and the outputs taken back to input order
+(``ops/nn.take_rows``). The ``soft_gate=True, with_aux=True`` forward of
+training (refine head off) differentiates end to end: the pooling's and the
+pillar gather's gradients follow the reference's custom VJPs, on the
+kernels. Inference runs under ``torch.inference_mode()`` (as :func:`frame`
+and the registry estimator do).
 
 :func:`make_model` and the registry's estimators build the network on the
 GPU unless given ``device="cpu"``, and raise when CUDA is absent.
@@ -49,6 +50,11 @@ from himo_tpu_torch.ops.components import (
     component_slots,
     connected_components_grid,
     pool_by_slot,
+)
+from himo_tpu_torch.ops.correlation import (  # noqa: F401  (plain forms, for callers)
+    _avg_pool,
+    _bev_correlation,
+    bev_correlations,
 )
 from himo_tpu_torch.ops.mxu_scatter import gather_rows_sorted, scatter_sum_sorted
 from himo_tpu_torch.ops.nn import take_rows
@@ -218,30 +224,6 @@ def _upsample_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         x.reshape(-1, 1, xh, xw).float(), size=(h, w), mode="nearest-exact"
     )
     return out.reshape(*lead, h, w).to(x.dtype)
-
-
-def _avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, H/s, W/s) mean pool."""
-    if stride == 1:
-        return x
-    b, c, h, w = x.shape
-    return x.reshape(b, c, h // stride, stride, w // stride, stride).mean(dim=(3, 5))
-
-
-def _bev_correlation(f0: torch.Tensor, f1: torch.Tensor, radius: int) -> torch.Tensor:
-    """Local cost volume between two (B, C, H, W) BEV feature images ->
-    (B, (2r+1)^2, H, W): ``corr[:, k] = <f0(y, x), f1(y+dy, x+dx)> / C`` with
-    ``k = dy * win + dx`` over the Chebyshev window. ``f1`` is zero-padded,
-    so offsets past the border read 0 (no wrap-around)."""
-    _, c, h, w = f0.shape
-    win = 2 * radius + 1
-    f1p = F.pad(f1, (radius, radius, radius, radius))
-    cols = []
-    for k in range(win * win):
-        dy, dx = divmod(k, win)
-        shifted = f1p[:, :, dy : dy + h, dx : dx + w]
-        cols.append((f0 * shifted).sum(dim=1) / c)
-    return torch.stack(cols, dim=1)
 
 
 class UNet(nn.Module):
@@ -471,20 +453,16 @@ class SceneFlowNet(nn.Module):
                 images = scatter_max_multi(feats, grids)
 
             # (B, H, W, C) per sweep -> NCHW for the backbone.
+            sweep_images = images
             images = [im.permute(0, 3, 1, 2) for im in images]
             x = torch.cat(images, dim=1).to(dtype)
         extra = None
         if cfg.corr_volume:
             with span("himo.correlation"):
-                f0, f1 = images[0].to(dtype), images[1].to(dtype)
                 last = len(cfg.depths) - 1
-                fine = _bev_correlation(
-                    _avg_pool(f0, 2), _avg_pool(f1, 2), cfg.corr_radii[0]
-                )
-                coarse = _bev_correlation(
-                    _avg_pool(f0, 2 ** (last + 1)),
-                    _avg_pool(f1, 2 ** (last + 1)),
-                    cfg.corr_radii[1],
+                fine, coarse = bev_correlations(
+                    sweep_images[0].to(dtype), sweep_images[1].to(dtype),
+                    ((2, cfg.corr_radii[0]), (2 ** (last + 1), cfg.corr_radii[1])),
                 )
                 if last == 0:
                     extra = {0: torch.cat([fine, coarse], dim=1)}

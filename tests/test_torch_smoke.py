@@ -59,29 +59,34 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
                           "sorted_scatter_sum_rows", "gather_rows", "nn_argmin_rows",
                           "nn_min_rows", "segment_rows_sum", "fused_nn", "fused_nn_idx",
                           "knn_rows", "sorted_segment_sum", "sorted_segment_gather",
-                          "sorted_gather_rows", cs.K10_STEP), 0)
+                          "sorted_gather_rows", cs.K10_STEP, "correlation_pool",
+                          "correlation_volume", "correlation_backward"), 0)
+    corr = {"correlation_pool": 1, "correlation_volume": 2}  # a forward's correlation
     assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
-                        "nn_min_rows": 1}
+                        "nn_min_rows": 1, **corr}
     assert launches_256 == {**none, "scatter_max_resident_rows": 3, "gather_rows": 1,
-                            "nn_argmin_rows": 10, "nn_min_rows": 1}
+                            "nn_argmin_rows": 10, "nn_min_rows": 1, **corr}
     assert launches_big == {**none, "sorted_scatter_max_rows": 3, "nn_argmin_rows": 10,
-                            "nn_min_rows": 1}
+                            "nn_min_rows": 1, **corr}
     assert launches_sorted == {**none, "sorted_segment_sum": 3, "sorted_segment_gather": 1,
-                               "nn_argmin_rows": 10, "nn_min_rows": 1}
-    steps = cs.TRAIN_STEPS
+                               "nn_argmin_rows": 10, "nn_min_rows": 1, **corr}
+    steps = cs.TRAIN_STEPS  # and one validation step
     assert train == {**none, "scatter_max_rows": 4 * steps + 4, "scatter_sum_rows": steps,
                      "segment_rows_sum": 3 * steps, "fused_nn": 1, "fused_nn_idx": steps,
-                     "sorted_gather_rows": 3 * steps}
+                     "sorted_gather_rows": 3 * steps, "correlation_pool": steps + 1,
+                     "correlation_volume": 2 * steps + 2, "correlation_backward": 2 * steps}
     steps = cs.ROUTE_TRAIN_STEPS
+    corr = {"correlation_pool": steps, "correlation_volume": 2 * steps,
+            "correlation_backward": 2 * steps}
     assert train_256 == {**none, "scatter_max_resident_rows": 4 * steps,
                          "gather_rows": steps, "segment_rows_sum": 4 * steps,
-                         "fused_nn_idx": steps}
+                         "fused_nn_idx": steps, **corr}
     assert train_big == {**none, "sorted_scatter_max_rows": 4 * steps,
                          "sorted_scatter_sum_rows": steps, "segment_rows_sum": 3 * steps,
-                         "fused_nn_idx": steps, "sorted_gather_rows": 3 * steps}
+                         "fused_nn_idx": steps, "sorted_gather_rows": 3 * steps, **corr}
     assert train_sorted == {**none, "scatter_max_rows": steps, "sorted_segment_sum": 3 * steps,
                             cs.K10_STEP: steps, "sorted_segment_gather": 4 * steps,
-                            "segment_rows_sum": 4 * steps, "fused_nn_idx": steps}
+                            "segment_rows_sum": 4 * steps, "fused_nn_idx": steps, **corr}
     iters = cs.NSFP_ITERS  # knn_k 0, then 4
     assert nsfp == {**none, "nn_argmin_rows": 2 * iters * 2, "segment_rows_sum": iters * 2,
                     "knn_rows": 2 * iters}
@@ -117,8 +122,27 @@ def test_chip_smoke_phases_on_the_cpu(rehearsal, capsys):
     assert "gather_rows at the unclamped ids" in out
     assert f"C={cs.MEAN_CHANNELS}" in out and "zeros + index_add_" in out
     host = cs.wrapper_host_us(dev)
-    assert set(host) == set(none) - {cs.K10_STEP} and all(v > 0 for v in host.values())
+    # The host-cost replay times the wrappers an earlier checkout has too.
+    assert set(host) == set(none) - {cs.K10_STEP, *cs.CORR_TRAIN_LAUNCHES}
+    assert all(v > 0 for v in host.values())
     assert "nsfp knn_k=4 step 1, kernels vs plain" in out and "distance-field build" in out
+
+
+def test_correlation_phase_on_the_cpu(rehearsal, capsys):
+    """``phase_correlation`` at a toy image: the three wrappers against
+    their plain versions, and the kernels line's rows."""
+    rows = cs.phase_correlation(rehearsal)
+    assert list(rows) == ["correlation_pool", "correlation_volume", "correlation_backward"]
+    keys = {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "library_device_ms"}
+    for row in rows.values():
+        assert set(row) == keys and row["bound_ms"] > 0 and row["device_ms"] > 0
+        assert row["library_ms"] is None and row["bound_by"] == "bytes"
+        assert row["max_abs_err"] == 0.0  # the rehearsal's wrappers are the plain versions
+        json.dumps(row)
+    out = capsys.readouterr().out
+    assert "correlation_pool B=2 C=32 32x48 bf16 at ((2, 4), (8, 3)): bitwise equal" in out
+    assert "correlation_backward B=2 C=32 32x48 bf16" in out
 
 
 def test_window_busy_clips_device_time_to_the_ranges():

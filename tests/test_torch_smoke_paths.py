@@ -28,11 +28,12 @@ def test_prior_paths_on_the_cpu(rehearsal, monkeypatch, capsys):
     assert cs.phase_icpflow(dev, pair) == {**none, "nn_argmin_rows": cs.ICP_ITERS}
     launches, train, run_frame, frame_ms = cs.phase_trust(dev)
     assert launches == {**none, "scatter_max_rows": 3, "nn_argmin_rows": 10,
-                        "nn_min_rows": 1}
+                        "nn_min_rows": 1, "correlation_pool": 1, "correlation_volume": 2}
     steps = cs.ROUTE_TRAIN_STEPS
     assert train == {**none, "scatter_max_rows": 4 * steps, "scatter_sum_rows": steps,
                      "segment_rows_sum": 3 * steps, "fused_nn_idx": steps,
-                     "sorted_gather_rows": 3 * steps}
+                     "sorted_gather_rows": 3 * steps, "correlation_pool": steps,
+                     "correlation_volume": 2 * steps, "correlation_backward": 2 * steps}
     run_frame()
     assert frame_ms > 0
     out = capsys.readouterr().out
@@ -61,7 +62,8 @@ def test_train_loop_phase_on_the_cpu(rehearsal, monkeypatch, capsys):
     want = dict.fromkeys(launches, 0)
     want.update(scatter_max_rows=4 * steps + 4 * val_steps, scatter_sum_rows=steps,
                 fused_nn_idx=steps, segment_rows_sum=3 * steps, sorted_gather_rows=3 * steps,
-                fused_nn=val_steps)
+                fused_nn=val_steps, correlation_pool=steps + val_steps,
+                correlation_volume=2 * (steps + val_steps), correlation_backward=2 * steps)
     assert launches == want
     assert pt.batch_iterator.__name__ == "batch_iterator"  # the wrappers are gone
     assert pt.make_train_step.__name__ == "make_train_step"
@@ -100,10 +102,10 @@ def test_inference_phases_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
     fleet = cs.phase_fleet(rehearsal, smi, tmp_path / "av2_fleet")
     none = dict.fromkeys(fleet, 0)
     assert fleet == {**none, "scatter_max_rows": 3 * 2, "nn_argmin_rows": 10 * 2,
-                     "nn_min_rows": 2}
+                     "nn_min_rows": 2, "correlation_pool": 2, "correlation_volume": 2 * 2}
     save = cs.phase_save(rehearsal, smi, tmp_path / "av2_save")
     assert save == {**none, "scatter_max_rows": 3 * 3, "nn_argmin_rows": 10 * 3,
-                    "nn_min_rows": 3}
+                    "nn_min_rows": 3, "correlation_pool": 3, "correlation_volume": 2 * 3}
     monkeypatch.chdir(tmp_path)
     cs.phase_eval(smi, tmp_path / "av2_save", tmp_path / "av2_fleet")
     assert sorted(p.name for p in tmp_path.iterdir()) == ["av2_fleet", "av2_save"]
@@ -199,7 +201,7 @@ def test_ingest_phase_on_the_cpu(rehearsal, monkeypatch, capsys, tmp_path):
     launches = cs.phase_ingest(rehearsal, "Card, 700.00 W", tmp_path / "ingest")
     none = dict.fromkeys(launches, 0)
     assert launches == {**none, "scatter_max_rows": 3 * 3, "nn_argmin_rows": 10 * 3,
-                        "nn_min_rows": 3}
+                        "nn_min_rows": 3, "correlation_pool": 3, "correlation_volume": 2 * 3}
     out = capsys.readouterr().out
     for ds in ("av2", "scania"):
         assert f"[ingest] Card, 700.00 W: {ds} card vs CPU: every file, group and " \

@@ -68,8 +68,10 @@ def toy_patches() -> list:
     """``(object, attribute, value)`` of the phases' toy setting on the CPU:
     the CUDA-only calls stubbed (synchronize, events, memory statistics), a
     toy grid and batch, and every kernel wrapper replaced by a counting call
-    of its plain version."""
+    of its plain version (the correlation's CPU images routed through its
+    wrappers, as CUDA images are)."""
     from himo_tpu_torch.models import feedforward as pf
+    from himo_tpu_torch.ops import correlation as pc
     from himo_tpu_torch.ops import voxelize as pv
     from himo_tpu_torch.ops.dt import DTConfig
     from himo_tpu_torch.training import trainer as pt
@@ -87,7 +89,8 @@ def toy_patches() -> list:
                         ("SEGMENT_SHAPES", ((256, 2048), (512, 256))),
                         ("NSFP_POINTS", 512), ("NSFP_ITERS", 6), ("NSFP_PROFILE_ITERS", 2),
                         ("KNN_DUPLICATES", 16), ("HOST_POINTS", 64), ("HOST_ROWS", 128),
-                        ("FASTNSF_DT", DTConfig(voxel_size=(3.2, 3.2, 1.6)))):
+                        ("FASTNSF_DT", DTConfig(voxel_size=(3.2, 3.2, 1.6))),
+                        ("CORR_SHAPE", (2, 32, 48, 32))):
         patches.append((cs, name, value))
     patches += [(torch.cuda, "synchronize", lambda *a, **k: None),
                 (torch.cuda, "Event", _Event),
@@ -107,6 +110,8 @@ def toy_patches() -> list:
             pt.TrainConfig, batch_size=2, num_points=2048, loss_points=256)),
         (pv, "_run_max_kernel", lambda p, f, rows, flagged=None:
          pv._scatter_max_rows_plain(p, f, rows)),
+        # The correlation's CPU images take the wrappers' path, as on the card.
+        (pc, "_takes_kernels", lambda img: True),
     ]
     for (mod, name), plain in cs._wrappers().items():
         def counted(*args, _plain=plain, _name=name, _mod=mod):
@@ -115,6 +120,8 @@ def toy_patches() -> list:
             if _name == "sorted_segment_sum":  # K10 also counts by width
                 c = args[1].shape[-1]
                 fn.launches_by_c[c] = fn.launches_by_c.get(c, 0) + 1
+            if _name == "correlation_backward":  # a launch a level with a cotangent
+                fn.launches += sum(g is not None for g in args[0]) - 1
             return _plain(*args)
 
         counted.launches = 0
