@@ -150,7 +150,9 @@ and prints no result):
    set aside; gradient norm within 1e-3, cosine >= 0.999) and the
    launches of one step (2 nn_argmin_rows,
    1 segment_rows_sum, plus 2 knn_rows at ``knn_k=4``); then the 500-step
-   run (launch counts checked: 500 x one step's), final loss below the
+   run (launch counts checked: one step's x 2 at ``knn_k`` 0 on the card,
+   whose loop replays a captured step, so the wrappers run for step 0 and
+   the capture; x 500 at ``knn_k=4`` and on the CPU), final loss below the
    first, flow finite and zero on invalid points; time per step and per
    frame, peak memory, and the EPE of moving and static points against the
    known motion (printed only: random initialisation measures no quality);
@@ -159,7 +161,7 @@ and prints no result):
    then both at their defaults (``phase_opt_prior``): the host prior
    alone (host ms; finite, zero on invalid points, no launch; its coverage
    of the moving points and median error against the known motion), then
-   each estimator (launches 500 x one step's for nsfp, none for fastnsf;
+   each estimator (launches as in 6 for nsfp, none for fastnsf;
    final loss below the first; flow finite and zero on invalid points;
    the moving points' EPE beside the cold start's); then ``icpflow``
    (``phase_icpflow``: exactly 12 nn_argmin_rows launches; flow finite and
@@ -333,6 +335,7 @@ ICP_ITERS = 12  # ICPFlowConfig().icp_iters: one K7 launch each
 # the cluster's transform moves by millimetres over the 12 iterations.
 ICP_TOL_M = 1e-2
 SEGMENT_SHAPES = ((16384, 65536), (32768, 16384))  # take_rows bwd, fused bwd
+NSFP_SEGMENT = (1, 65536, 65536)  # nsfp's chamfer backward: (B, N, rows)
 FUSED_POINTS = 16384  # TrainConfig().loss_points
 SLICE_TOL_M = 1e-3  # refined points, kernels vs plain versions
 CORR_SHAPE = (8, 512, 512, 32)  # the BEV correlation's bf16 pillar images at 512x512
@@ -1283,46 +1286,54 @@ def phase_sorted_gathers(device, clouds, big):
 
 
 def phase_segment_sum(device):
-    """K3 sum at both train-step shapes: take_rows' backward (16,384 rows
-    of 3 into 65,536) and the fused NN backward (32,768 into 16,384). At
-    these shapes CUDA events over back-to-back calls time the host's work
-    per call as much as the device's, so each call, and ``torch.zeros`` +
-    ``index_add_``, is also timed by the device alone (``device_ms``:
-    kernels plus memsets per call, from a trace of the same loop)."""
+    """K3 sum at both train-step shapes, take_rows' backward (16,384 rows
+    of 3 into 65,536) and the fused NN backward (32,768 into 16,384), and at
+    ``nsfp``'s chamfer backward (1 x 65,536 into 65,536): bitwise equal to
+    the CPU's sequential ``index_add_`` (the plain version on host copies)
+    and to itself over two calls, since it adds each row in point order.
+    At these shapes CUDA events over back-to-back calls time the host's
+    work per call as much as the device's, so each call, and
+    ``torch.zeros`` + ``index_add_``, is also timed by the device alone
+    (``device_ms``: kernels plus memsets per call, from a trace of the same
+    loop)."""
     import torch
 
     from himo_tpu_torch.ops import nn as pnn
 
     out = {}
-    for n, rows in SEGMENT_SHAPES:
+    for b, n, rows in [(BATCH, n, rows) for n, rows in SEGMENT_SHAPES] + [NSFP_SEGMENT]:
         gen = torch.Generator(device=device).manual_seed(n + rows)
-        ids = torch.randint(0, rows, (BATCH, n), device=device, generator=gen,
+        ids = torch.randint(0, rows, (b, n), device=device, generator=gen,
                             dtype=torch.int32)
         ids[:, :64] = 5  # duplicates onto one row
-        vals = torch.randn(BATCH, n, 3, device=device, generator=gen)
+        vals = torch.randn(b, n, 3, device=device, generator=gen)
         got = pnn.segment_rows_sum(vals, ids, rows)
-        want = pnn._segment_rows_sum_plain(vals, ids, rows)
-        mag = pnn._segment_rows_sum_plain(vals.abs(), ids, rows)
-        err = check_sum(f"segment_rows_sum {n}->{rows}", got, want, mag)
+        again = pnn.segment_rows_sum(vals, ids, rows)
+        want = pnn._segment_rows_sum_plain(vals.cpu(), ids.cpu(), rows)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.cpu(), want) and torch.equal(again, got)):
+            raise AssertionError(f"segment_rows_sum B={b} {n}->{rows}: not bitwise the "
+                                 f"sequential index_add_ (max abs err "
+                                 f"{float((got.cpu() - want).abs().max())})")
         ms = cuda_ms(lambda: pnn.segment_rows_sum(vals, ids, rows), iters=50)
         plain_ms = cuda_ms(lambda: pnn._segment_rows_sum_plain(vals, ids, rows), iters=50)
         flat = _flat_rows(ids, rows)
         src = vals.reshape(-1, 3)
 
         def library():  # a new zeroed table, as the wrapper returns
-            return torch.zeros(BATCH * rows + 1, 3, device=device).index_add_(0, flat, src)
+            return torch.zeros(b * rows + 1, 3, device=device).index_add_(0, flat, src)
 
         library_ms = cuda_ms(library, iters=50)
         dev = device_times(lambda: pnn.segment_rows_sum(vals, ids, rows), library, iters=50)
-        log(f"segment_rows_sum B={BATCH} {n}x3 -> {rows}: within 1e-5*sum|x|+1e-6 "
-            f"(max abs err {err:.3e}); events per call: kernel {ms:.4f} ms, plain "
+        log(f"segment_rows_sum B={b} {n}x3 -> {rows}: bitwise the CPU's sequential "
+            f"index_add_ and itself; events per call: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, zeros + index_add_ {library_ms:.4f} ms; device per call "
-            f"(kernels + memsets): kernel {dev['device_ms'] * 1e3:.3f} us, zeros + "
+            f"(sort, take, memset, sum): kernel {dev['device_ms'] * 1e3:.3f} us, zeros + "
             f"index_add_ {dev['library_device_ms'] * 1e3:.3f} us")
-        pts = BATCH * n
-        out[(n, rows)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        pts = b * n
+        out[(n, rows)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, **dev,
-                              **bound(pts * 4 + pts * 12 + BATCH * rows * 12, pts * 3))
+                              **bound(pts * 4 + pts * 12 + b * rows * 12, pts * 3))
     return out
 
 
@@ -2310,6 +2321,16 @@ def knn_loss_shift(warped, p1, v0, v1, k, cap):
     return share, fractions
 
 
+def nsfp_calls(knn_k: int, device) -> int:
+    """The steps of an NSFP_ITERS-step nsfp run whose kernel wrappers the
+    host calls: on a card at ``knn_k`` 0 the loop replays a CUDA graph of
+    its step (``run_adam(cuda_graph=True)``), so step 0 and the capture;
+    else every step."""
+    import torch
+
+    return 2 if knn_k == 0 and torch.device(device).type == "cuda" else NSFP_ITERS
+
+
 def phase_nsfp(device, pair, epe=None):
     """The nsfp estimator at knn_k 0 and KNN_K (see the module docstring),
     ``cluster_prior=False``; returns the summed launch counts and a 20-step
@@ -2377,7 +2398,7 @@ def phase_nsfp(device, pair, epe=None):
         (flow, loss), secs = _timed(lambda: estimate(
             pc0, pc1, v0, v1, torch.Generator().manual_seed(0)))
         counts = read_counts()
-        want = {key: v * NSFP_ITERS for key, v in per_step.items()}
+        want = {key: v * nsfp_calls(k, device) for key, v in per_step.items()}
         if counts != want:
             raise AssertionError(f"nsfp knn_k={k}: the run launched {counts} != {want}")
         for key, v in counts.items():
@@ -2484,8 +2505,8 @@ def phase_opt_prior(device, pair, cold):
     cluster prior, ``knn_k=0``, NSFP_ITERS steps) on the nsfp pair: the
     prior alone (host ms, coverage and error against the known motion;
     finite, zero on invalid points, no kernel launched), then each
-    estimator through the registry (launches: NSFP_ITERS x one step's for
-    nsfp, none for fastnsf; final loss below the first; flow finite and
+    estimator through the registry (launches: ``nsfp_calls(0, device)`` x
+    one step's for nsfp, none for fastnsf; final loss below the first; flow finite and
     zero on invalid points); the moving points' EPE beside the cold start's
     (``cold``, by estimator). Returns the summed launches."""
     import torch
@@ -2533,7 +2554,8 @@ def phase_opt_prior(device, pair, cold):
         counts = read_counts()
         want = dict.fromkeys(counts, 0)
         if name == "nsfp":
-            want.update(nn_argmin_rows=2 * NSFP_ITERS, segment_rows_sum=NSFP_ITERS)
+            want.update(nn_argmin_rows=2 * nsfp_calls(0, device),
+                        segment_rows_sum=nsfp_calls(0, device))
         if counts != want:
             raise AssertionError(f"{name} with the prior launched {counts} != {want}")
         for key, v in counts.items():
@@ -5257,9 +5279,13 @@ def main(argv) -> int:
              replaces="himo_tpu/ops/voxelize.py:334",
              launches=total["scatter_sum_rows"], **scatter_sum),
         dict(name="segment_rows_sum", route="cuda",
-             source="himo_tpu_torch/csrc/scatter_sum.cu",
+             source="himo_tpu_torch/csrc/sorted_scatter.cu",
              replaces="himo_tpu/ops/voxelize.py:63",
              launches=total["segment_rows_sum"], **segment[SEGMENT_SHAPES[1]]),
+        dict(name="segment_rows_sum (nsfp)", route="cuda",
+             source="himo_tpu_torch/csrc/sorted_scatter.cu",
+             replaces="himo_tpu/ops/voxelize.py:63",
+             launches=total["segment_rows_sum"], **segment[NSFP_SEGMENT[1:]]),
         dict(name="gather_rows", route="cuda", source="himo_tpu_torch/csrc/sorted_gather.cu",
              replaces="himo_tpu/ops/voxelize.py:554",
              launches=total["gather_rows"], **gather),

@@ -3,18 +3,21 @@
 //   out[b * rows + id[b, i], :] += vals[b, i, :]   for every i with
 //   0 <= id[b, i] < rows; ids outside that range are skipped.
 //
-// Replaces two TPU kernels of the SSL train step's backward pass:
-// - himo_tpu/ops/voxelize.py `_sorted_scatter_table_band_kernel("sum")`
-//   (reached from `_sorted_scatter_forward` in `_diff_gather_sorted_fn`'s
-//   backward): the 512x512 `gather_pillars` backward, 8 frames x 65,536
-//   points x 65 channels into 262,144 pillar rows per frame (Python wrapper
-//   `ops.voxelize.scatter_sum_rows`).
-// - himo_tpu/ops/voxelize.py `_scatter_kernel("sum")` (reached from
-//   `himo_tpu/ops/nn.py::segment_rows_sum`), the backward of `take_rows`
-//   and `fused_masked_nn`: 3-channel rows into 65,536 or 16,384 rows per
-//   frame (Python wrapper `ops.nn.segment_rows_sum`).
-// Both wrappers launch the one entry point `himo_scatter_sum_f32`, and each
-// counts its own launches.
+// Replaces the TPU kernel himo_tpu/ops/voxelize.py
+// `_sorted_scatter_table_band_kernel("sum")` (reached from
+// `_sorted_scatter_forward` in `_diff_gather_sorted_fn`'s backward): the
+// 512x512 `gather_pillars` backward, 8 frames x 65,536 points x 65 channels
+// into 262,144 pillar rows per frame (Python wrapper
+// `ops.voxelize.scatter_sum_rows`, K1 sum).
+// It also served himo_tpu/ops/voxelize.py `_scatter_kernel("sum")` (K3 sum,
+// `ops.nn.segment_rows_sum`: the backward of `take_rows` and
+// `fused_masked_nn`, 3-channel rows into 65,536 or 16,384 rows per frame)
+// until that sum had to repeat itself bit for bit: the TPU kernel adds in
+// point order, and `nsfp`'s 500 Adam steps grew the atomics' rounding into
+// millimetres of flow from run to run. K3 sum now sorts its ids stably and
+// takes `sorted_scatter.cu`'s sum in stream order. The narrow (C < 32)
+// kernel below was designed for K3 sum's shapes; K1 sum takes it at any
+// narrow width.
 // The TPU kernels sort points into row bands and keep a band (or the whole
 // image) resident in VMEM, because the TPU has no scatter-add into HBM;
 // none of that is carried over. What is kept is the function.
@@ -27,8 +30,8 @@
 // - C >= 32: one warp per point, lanes over channels. A 65-channel row is
 //   260 bytes, not 16-byte aligned, so loads are scalar: the warp's reads
 //   of one row are still contiguous.
-// - C < 32 (the train step's 3- and 5-channel backwards): one thread per
-//   (point, channel) element of one frame, the frame from blockIdx.y, so
+// - C < 32 (designed for K3 sum's 3- and 5-channel train backwards): one
+//   thread per (point, channel) element of one frame, the frame from blockIdx.y, so
 //   consecutive lanes read consecutive floats and add into consecutive
 //   floats of a few rows: one warp's `red` instruction reaches about
 //   32 / C rows, so the L2 sees one sector request per row, not per value.

@@ -30,6 +30,15 @@
 // even) as it is loaded, then added in fp32 in stream order. The wrapper is
 // `ops.mxu_scatter.sorted_segment_sum`.
 //
+// The sum also replaces himo_tpu/ops/voxelize.py `_scatter_kernel("sum")`
+// (K3 sum, reached from `himo_tpu/ops/nn.py::segment_rows_sum`), which
+// adds each row's points in point order: the wrapper `ops.nn.segment_rows_sum`
+// sorts each frame's ids stably (equal ids keep their point order), takes
+// the rows in that order and launches `himo_sorted_scatter_sum_f32`, so its
+// sums equal a sequential `index_add_` bit for bit. Its shapes are narrow:
+// 3-channel rows, 65,536 into 65,536 (`nsfp`'s chamfer backward) or B8 x
+// 32,768 into 16,384 (the train step's fused NN backward).
+//
 // What bounds all three: bytes (the live part of the sorted stream read
 // once, the B x rows x C table written once; the reached rows are written
 // twice, by the memset and by the kernel, see below). On path B's clouds a

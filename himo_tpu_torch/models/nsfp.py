@@ -14,6 +14,16 @@ host-side cluster translation priors (:func:`cluster_prior_flow`: HDBSCAN
 of both sweeps' dynamic points and ``icp_flow``'s matcher, numpy and scipy
 on the host); the MLP then learns the residual on top. ``cluster_prior=
 False`` is the classic cold start.
+
+Spans (``utils.profiling.span``): ``himo.estimate`` around an estimator's
+call, ``himo.mlp`` around the MLP's forward, ``himo.chamfer`` around the
+loss's chamfer; ``models.opt_loop.run_adam`` adds ``himo.backward`` and
+``himo.adam`` for each step.
+
+On a CUDA device the fixed-length loop of the single-NN chamfer replays
+its step as a CUDA graph (``run_adam(cuda_graph=True)``): a step is ~170
+small launches in ~5 device ms, which a host CPU shared with other work
+cannot always enqueue in time. The k-NN chamfer's loop stays eager.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from himo_tpu_torch.models.opt_loop import anneal_caps, run_adam
 from himo_tpu_torch.models.registry import register_estimator
 from himo_tpu_torch.ops.knn import knn_smoothed_chamfer
 from himo_tpu_torch.ops.nn import truncated_chamfer
+from himo_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,14 +95,16 @@ def nsfp_loss_fn(pc0, pc1, valid0, valid1, config: NSFPConfig, prior_flow=None):
     v0, v1 = valid0[None], valid1[None]
 
     def total_flow(params):
-        return base + apply_mlp(params, p0)
+        with span("himo.mlp"):
+            return base + apply_mlp(params, p0)
 
     def loss_fn(params, cap=config.max_dist):
         warped = (p0 + total_flow(params))[None]
-        if config.knn_k > 0:
-            return knn_smoothed_chamfer(warped, p1, k=config.knn_k, valid1=v0,
-                                        valid2=v1, max_dist=cap)[0]
-        return truncated_chamfer(warped, p1, valid1=v0, valid2=v1, max_dist=cap)[0]
+        with span("himo.chamfer"):
+            if config.knn_k > 0:
+                return knn_smoothed_chamfer(warped, p1, k=config.knn_k, valid1=v0,
+                                            valid2=v1, max_dist=cap)[0]
+            return truncated_chamfer(warped, p1, valid1=v0, valid2=v1, max_dist=cap)[0]
 
     return loss_fn, total_flow
 
@@ -113,7 +126,8 @@ def nsfp_flow(
     if params is None:
         params = init_mlp(generator, config.hidden, config.layers, device=pc0.device)
     loss_fn, total_flow = nsfp_loss_fn(pc0, pc1, valid0, valid1, config, prior_flow)
-    params, loss, _ = run_adam(loss_fn, params, **opt_schedule(config))
+    params, loss, _ = run_adam(loss_fn, params, cuda_graph=config.knn_k == 0,
+                               **opt_schedule(config))
     with torch.no_grad():
         flow = total_flow(params)
         flow = torch.where(valid0[:, None], flow, torch.zeros_like(flow))
@@ -205,19 +219,21 @@ def opt_estimator(flow_fn, config, device):
         """Flow for one frame pair (clouds (N, >=3), masks (N,)), moved to
         the estimator's device; ``generator`` draws the MLP's weights (the
         reference's ``key``). ``prior_flow``, when given, replaces the
-        cluster prior. Returns ``(flow, loss)``."""
-        pc0, pc1, valid0, valid1 = (t.to(dev) for t in (pc0, pc1, valid0, valid1))
-        if prior_flow is None and config.cluster_prior:
-            tracker = None
-            if scene_id is not None and pose1 is not None:
-                tracker = trackers.setdefault(scene_id, ClusterTracker())
-            prior_flow = cluster_prior_flow(
-                pc0, pc1, valid0, valid1, config, dt0=dt0, dt1=dt1,
-                tracker=tracker, pose1=pose1, device=dev,
-            )
-        if prior_flow is not None:
-            prior_flow = prior_flow.to(dev)
-        return flow_fn(pc0, pc1, valid0, valid1, generator, config, prior_flow)
+        cluster prior. Returns ``(flow, loss)``. The call is the span
+        ``himo.estimate``."""
+        with span("himo.estimate"):
+            pc0, pc1, valid0, valid1 = (t.to(dev) for t in (pc0, pc1, valid0, valid1))
+            if prior_flow is None and config.cluster_prior:
+                tracker = None
+                if scene_id is not None and pose1 is not None:
+                    tracker = trackers.setdefault(scene_id, ClusterTracker())
+                prior_flow = cluster_prior_flow(
+                    pc0, pc1, valid0, valid1, config, dt0=dt0, dt1=dt1,
+                    tracker=tracker, pose1=pose1, device=dev,
+                )
+            if prior_flow is not None:
+                prior_flow = prior_flow.to(dev)
+            return flow_fn(pc0, pc1, valid0, valid1, generator, config, prior_flow)
 
     estimate.config = config
     estimate.trackers = trackers

@@ -17,7 +17,7 @@ Two families, each with a hand-written CUDA kernel on the GPU:
   (query, reference) pair of clouds with additive ``_MASK_BIG`` penalties,
   behind the differentiable :func:`fused_masked_nn`. Its backward, and
   :func:`take_rows`' backward, scatter-add rows with :func:`segment_rows_sum`
-  (``csrc/scatter_sum.cu``).
+  (a stable sort, then ``csrc/sorted_scatter.cu``'s sum in point order).
 
 The kernels compute ``sum((q - r)^2)`` directly in fp32 and walk references
 in index order (lowest index wins ties). Their plain PyTorch versions sit
@@ -36,8 +36,9 @@ import torch
 
 from himo_tpu_torch.kernels import _build
 from himo_tpu_torch.ops.voxelize import (
-    _SCATTER_SUM,
+    _SORTED_SUM,
     _RowTake,
+    _check_rows_args,
     _run_rows_kernel,
     _scatter_sum_rows_plain,
     _take_rows_at,
@@ -295,14 +296,22 @@ def segment_rows_sum(
     :func:`fused_masked_nn` and, on the resident route,
     ``ops.voxelize.gather_pillars``, and the sum of ``scatter_mean`` there.
 
-    CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/scatter_sum.cu``'s ``himo_scatter_sum_f32``, the kernel behind
-    ``ops.voxelize.scatter_sum_rows`` (counted here in
-    ``segment_rows_sum.launches``), which zeroes its table and adds, or
-    raise."""
+    Each segment adds its rows in point order from +0.0, as the reference's
+    kernel does, so a result repeats itself bit for bit and equals the
+    plain version's sequential ``index_add_``.
+
+    CPU tensors take the plain version. CUDA tensors (counted in
+    ``segment_rows_sum.launches``) take a stable sort of each frame's ids,
+    which keeps equal ids in point order, and one row take, then
+    ``csrc/sorted_scatter.cu``'s ``himo_sorted_scatter_sum_f32``, the K2
+    sum, which zeroes its table and adds each run in stream order; they
+    raise on inputs the kernel does not take."""
     if vals.is_cpu:
         return _segment_rows_sum_plain(vals, idx, num_segments)
-    out = _run_rows_kernel(_SCATTER_SUM, idx, vals, num_segments)
+    _check_rows_args("segment_rows_sum", idx, vals)
+    sids, order = torch.sort(idx, dim=1, stable=True)
+    svals = torch.gather(vals, 1, order[..., None].expand(-1, -1, vals.shape[2]))
+    out = _run_rows_kernel(_SORTED_SUM, sids, svals, num_segments)
     segment_rows_sum.launches += 1
     return out
 

@@ -12,7 +12,7 @@ has its own hand-written CUDA kernel:
   per-point max :func:`scatter_max_resident_rows` (``csrc/scatter_max.cu``,
   TPU kernel K3 max), gather :func:`gather_rows` (``csrc/sorted_gather.cu``,
   K4), whose backward and the resident sum are ``ops.nn.segment_rows_sum``
-  (``csrc/scatter_sum.cu``, K3 sum);
+  (K3 sum: a stable sort, then ``csrc/sorted_scatter.cu``'s sum);
 - ``table`` (the point table fits; the 512x512 grid at up to 81,920 points):
   :func:`scatter_max_rows` (``csrc/scatter_max.cu``, K1 max) and
   :func:`scatter_sum_rows` (``csrc/scatter_sum.cu``, K1 sum);

@@ -1,0 +1,8 @@
+"""``adam_device_ms.pair``: the device ms launched inside ``himo.adam``
+(its own events) per traced Adam step (``estimate_spans.stage_device_ms``)."""
+
+import estimate_spans
+
+
+def read(ctx):
+    return estimate_spans.stage_device_ms(ctx, "himo.adam")

@@ -1,0 +1,8 @@
+"""``chamfer_device_ms.pair``: the device ms launched inside ``himo.chamfer``
+(its own events) per traced Adam step (``estimate_spans.stage_device_ms``)."""
+
+import estimate_spans
+
+
+def read(ctx):
+    return estimate_spans.stage_device_ms(ctx, "himo.chamfer")

@@ -10,9 +10,11 @@ plain versions and the wrappers' CPU behaviour against numpy loops.
 
 Tolerances: scatter-max (``scatter_max_rows``, ``scatter_max_resident_rows``,
 ``sorted_scatter_max_rows``) and the gather (``gather_rows``) bitwise (max
-does not depend on order); scatter-add (``scatter_sum_rows``,
-``segment_rows_sum``) within ``1e-5 * sum|x| + 1e-6`` per cell (fp32 atomics
-add in no fixed order); the sorted sum (``sorted_scatter_sum_rows``) within
+does not depend on order); scatter-add (``scatter_sum_rows``) within
+``1e-5 * sum|x| + 1e-6`` per cell (fp32 atomics add in no fixed order);
+K3 sum (``segment_rows_sum``) bitwise against the CPU's sequential
+``index_add_`` and from call to call (it adds each row in point order);
+the sorted sum (``sorted_scatter_sum_rows``) within
 that bound of the plain version on the card, and bitwise from launch to
 launch and against the plain version on the CPU (both add in stream order);
 K10's sorted sum (``sorted_segment_sum``, with and without bf16 rounding)
@@ -277,6 +279,42 @@ def test_segment_rows_sum_narrow_kernel_matches_plain(cuda_device, c):
     assert torch.equal(empty, torch.zeros_like(empty))
     loop, _ = _sum_loop(ids, vals, rows)
     assert np.abs(got.cpu().numpy() - loop).max() <= 1e-5 * mag.max().item() + 1e-6
+
+
+def _point_order_case(rng, b, n, rows):
+    """3-channel values whose magnitudes span 16 decades (so any other
+    order of the adds rounds differently), +0.0 and -0.0 among them, at ids
+    with a crowded row, ids below 0 and at or past ``rows``."""
+    ids = rng.integers(0, rows, size=(b, n)).astype(np.int32)
+    ids[:, :4096] = 7  # thousands of points onto one row
+    ids[rng.uniform(size=(b, n)) < 0.03] = -3
+    ids[rng.uniform(size=(b, n)) < 0.03] = rows + 5
+    scale = np.logspace(-8, 8, n)[rng.permutation(n)]
+    vals = (rng.normal(size=(b, n, 3)) * scale[None, :, None]).astype(np.float32)
+    vals[:, ::11] = 0.0
+    vals[:, 5::13] = -0.0
+    return ids, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,rows", [(1, 65536, 65536), (8, 32768, 16384), (2, 777, 50)])
+def test_segment_rows_sum_adds_in_point_order(cuda_device, b, n, rows):
+    """K3 sum at ``nsfp``'s chamfer backward (1 x 65,536 x 3 into 65,536),
+    the train step's fused NN backward (B8 x 32,768 x 3 into 16,384) and a
+    small odd shape: bitwise equal to the CPU's sequential ``index_add_``
+    (the plain version) and to itself over two calls, one launch counted
+    a call."""
+    ids, vals = _point_order_case(np.random.default_rng(b * n + rows), b, n, rows)
+    want = PNN._segment_rows_sum_plain(_t(vals), _t(ids), rows)
+    i, v = _t(ids).to(cuda_device), _t(vals).to(cuda_device)
+    before = PNN.segment_rows_sum.launches
+    first = PNN.segment_rows_sum(v, i, rows)
+    second = PNN.segment_rows_sum(v, i, rows)
+    assert PNN.segment_rows_sum.launches == before + 2
+    assert torch.equal(first.cpu(), want)
+    assert torch.equal(second, first)
+    # Bitwise also in the sign of zero: a row of zeros only reads +0.0.
+    assert not torch.signbit(first[first == 0]).any()
 
 
 @pytest.mark.cuda
